@@ -7,16 +7,25 @@
 2. builds the CUDA kernels from ``nerfsr_torch/csrc`` (one nvcc per
    source, in parallel) and writes the compiler's report to
    ``chiprun_out/chip_smoke_build.log``;
-3. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (inverse CDF at both (B, Q) pairs, composite with
-   both activations and both backgrounds, fused MLP in bf16 and f32) and
-   times both;
-4. renders three 504x378 NeRF-SR x2 views (``--fast_preset llff``,
-   ``--precision mixed``, full-width D8/W256 MLP, random weights from a
-   seed) through ``render_eval_many(..., quantize_rgb=True)``, checks the
-   shapes, finiteness and every kernel's launch count, and holds one chunk
-   against the plain path on the card;
-5. prints a JSON line of details, the JSON line of kernel summaries
+3. holds each kernel against its plain PyTorch version on the card and
+   times both: the forward kernels at the serving path's shapes (inverse
+   CDF at both (B, Q) pairs, composite with both activations and both
+   backgrounds, fused MLP in bf16 and f32), the backward kernels at the
+   training path's (composite backward at N=2048, S=16 with every
+   cotangent nonzero; fused MLP backward at P=32,768 in bf16 and f32);
+4. serving: renders three 504x378 NeRF-SR x2 views (``--fast_preset
+   llff``, ``--precision mixed``, full-width D8/W256 MLP, random weights
+   from a seed) through ``render_eval_many(..., quantize_rgb=True)``,
+   checks the shapes, finiteness and every kernel's launch count, and
+   holds one chunk against the plain path on the card;
+5. training: renders 4 training views of a teacher scene (random
+   weights, seed 1, sigma biases +3), derives the LR truth by ``avg``,
+   uploads the grouped buffer, and trains a seed-0 student with Adam
+   (``--batch_size 512`` LR pixels, 2048 HR rays a step): exact per-step
+   launch counts, ms/step and HR rays/s over a timed window, finite
+   parameters and moments, a falling ``fine_mse``, and one step's loss
+   and gradients through the kernels against the plain path;
+6. prints a JSON line of details, the JSON line of kernel summaries
    (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -55,6 +64,14 @@ TOL_MLP_BF16 = (2e-2, 2e-2)  # (rtol, atol): as f32, plus rare bf16
                              # activations where the two sum orders
                              # straddle a rounding midpoint; a flip
                              # cascades to ~1e-3 (seen 2.5e-3)
+# kernel D: serial vs scanned transmittance and suffix sums, on
+# gradients of order 1-100 (seen: 4.7e-6 abs at most)
+TOL_COMPOSITE_BWD = (1e-3, 1e-4)
+# kernel E, per leaf ||got - ref|| / ||ref||: sums over 32,768 points in
+# another order (f32; seen 1.5e-6); in bf16 also rounding flips of single
+# gradients where the two orders straddle a bf16 rounding midpoint
+# (seen 1.7e-4)
+TOL_MLP_BWD = {"f32": 1e-4, "bf16": 2e-3}
 # a chunk's fine rgb/depth through the kernels vs the plain path, as
 # (mean abs err, max abs err) bars. Kernel A's depths differ from the
 # plain version's by up to ~1e-4 (CDF rounding over sparse bins), and
@@ -70,6 +87,27 @@ HR_WH = (504, 378)
 DOWNSCALE = 2
 N_VIEWS = 3
 FOCAL = 407.0                # HR pixels, ~0.8 x width (forward-facing)
+
+# training phase (scripts/train_llff_downX_fast.sh: --batch_size 512,
+# --n_epochs 30 --n_epochs_decay 10, --lr 5e-4 --lr_final 5e-6, exp)
+N_TRAIN_VIEWS = 4
+BATCH = 512                  # LR pixels; x ds^2 = 2048 HR rays a step
+WARMUP_STEPS = 3
+TIMED_STEPS = 20
+FALL_STEPS = 200
+# fine_mse, mean of the last 20 of FALL_STEPS steps over the mean of the
+# first 20: the student starts from an empty-ish scene against a teacher
+# with content, so the colour error drops fast
+FALL_RATIO = 0.7
+# one step through the kernels vs the plain path: loss (relative) and
+# every gradient leaf (norm-relative). The first trunk layers' gradients
+# are sums of products of 2^9-frequency encodings, and kernel A's depths
+# differ from the plain version's by CDF roundings (up to ~1e-4 over
+# sparse bins), so those leaves move most; mixed adds bf16 roundings
+# (the plain path's autograd also rounds each weight gradient to bf16).
+# Seen: f32 loss 3.7e-7, worst leaf 1.6e-3 (layer 1); mixed loss 4.7e-5,
+# worst leaf 1.0e-2 (layer 1).
+STEP_BARS = {"f32": (1e-5, 1e-2), "mixed": (5e-4, 0.1)}
 
 
 def fail(msg):
@@ -230,6 +268,109 @@ def check_fused_mlp(dev, gen):
     return out
 
 
+def check_composite_bwd(dev, gen):
+    from nerfsr_torch.kernels import COUNTS
+    from nerfsr_torch.kernels.composite import (composite_bwd,
+                                                composite_bwd_plain)
+
+    n, s = 2048, 16
+    rgb = torch.rand((n, s, 3), generator=gen).to(dev)
+    sigma = (torch.randn((n, s), generator=gen) * 2).to(dev)
+    z = torch.sort(torch.rand((n, s), generator=gen), -1)[0].to(dev)
+    gc = torch.randn((n, 3), generator=gen).to(dev)
+    gd = torch.randn((n,), generator=gen).to(dev)
+    go = torch.randn((n,), generator=gen).to(dev)
+    gw = torch.randn((n, s), generator=gen).to(dev)
+    args = (rgb, sigma, z, gc, gd, go, gw)
+    errs = []
+    for act in ("relu", "softplus"):
+        for white in (False, True):
+            got = composite_bwd(*args, white, act)
+            torch.cuda.synchronize()
+            ref = composite_bwd_plain(*args, white, act)
+            for g, r, name in zip(got, ref, ("grgb", "gsigma", "gz")):
+                errs.append(max_err(g, r, *TOL_COMPOSITE_BWD,
+                                    f"composite_bwd {act} white={white} "
+                                    f"{name}"))
+            print(f"[kernel D] composite_bwd {act} white={white}: max abs "
+                  f"err {max(errs[-3:]):.3e} (rtol, atol "
+                  f"{TOL_COMPOSITE_BWD})")
+    # the training path's variant: relu, no white background
+    ms = time_ms(lambda: composite_bwd(*args, False))
+    plain_ms = time_ms(lambda: composite_bwd_plain(*args, False))
+    bytes_moved = 4 * n * ((3 * s + s + s + 3 + 1 + 1 + s)
+                           + (3 * s + s + s))
+    print(f"[kernel D] relu, no white background: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; launches so far {COUNTS['composite_bwd']}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+# multiply-adds per point of kernel E: forward recompute, input gradients
+# (every layer but layer 0's input, the skip's x0 rows and the direction
+# layer's dmb rows: 128x3 + 256x128 + 256x256 + 256 + 7 x 256x256), and
+# the weight gradients
+E_MACS_PER_POINT = 593408 + (384 + 32768 + 65536 + 256 + 7 * 65536) \
+    + 593408
+
+
+def check_fused_mlp_bwd(dev, gen):
+    from nerfsr_torch.kernels import COUNTS
+    from nerfsr_torch.kernels import mlp as kmlp
+    from nerfsr_torch.models.mlp import VanillaMLP
+
+    p = BATCH * DOWNSCALE ** 2 * 16      # the training step's points
+    net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
+    pts = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((p, 3), generator=gen), dim=-1).to(dev)
+    grgb = (torch.randn((p, 3), generator=gen) * 1e-3).to(dev)
+    gsig = (torch.randn((p,), generator=gen) * 1e-3).to(dev)
+    out = {}
+    with torch.no_grad():
+        flat = kmlp.flatten_params(net)
+        x0, dmb = kmlp.embed(pts, dirs)
+        for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32,
+                                                        "f32")):
+            got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, dtype)
+            torch.cuda.synchronize()
+            ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, dtype)
+            rel, abs_err = 0.0, 0.0
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if not torch.isfinite(g).all():
+                    fail(f"fused_mlp_bwd {key} leaf {i}: non-finite")
+                d = (g.double() - r.double())
+                rel = max(rel, float(d.norm() / r.double().norm()
+                                     .clamp_min(1e-30)))
+                abs_err = max(abs_err, float(d.abs().max()))
+            if rel > TOL_MLP_BWD[key]:
+                fail(f"fused_mlp_bwd {key}: leaf norm-relative error "
+                     f"{rel:.3e} > {TOL_MLP_BWD[key]}")
+            ms = time_ms(lambda: kmlp.fused_mlp_bwd(flat, x0, dmb, grgb,
+                                                    gsig, dtype), iters=10)
+            plain_ms = time_ms(lambda: kmlp.fused_mlp_bwd_plain(
+                flat, x0, dmb, grgb, gsig, dtype), iters=10)
+            flops = 2.0 * E_MACS_PER_POINT * p
+            bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
+                           + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
+                           + 4 * kmlp.N_BIASES
+                           + 4 * (kmlp.N_WEIGHTS + kmlp.N_BIASES))
+            bound = max(flops / PEAK_FLOPS[key],
+                        bytes_moved / HBM_BYTES_PER_S) * 1e3
+            out[key] = {"max_abs_err": abs_err, "max_leaf_rel_err": rel,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": "operations",
+                        "tflops": flops / ms / 1e9}
+            print(f"[kernel E] fused_mlp_bwd {key} P={p}: max leaf "
+                  f"norm-relative err {rel:.3e} (bar {TOL_MLP_BWD[key]}), "
+                  f"max abs err {abs_err:.3e}; {ms:.3f} ms "
+                  f"({out[key]['tflops']:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.3f} ms, bound {bound:.3f} ms; calls so far "
+                  f"{COUNTS['fused_mlp_bwd']}")
+    return out
+
+
 def slice_phase(dev, card):
     from nerfsr_torch.config import default_options
     from nerfsr_torch.core.rays import get_rays, make_rays, ndc_rays
@@ -268,7 +409,8 @@ def slice_phase(dev, card):
 
     expect = {"invert_cdf": 2 * n_chunks * N_VIEWS,
               "composite_fwd": n_chunks * N_VIEWS,
-              "fused_mlp_fwd": n_chunks * N_VIEWS}
+              "fused_mlp_fwd": n_chunks * N_VIEWS,
+              "composite_bwd": 0, "fused_mlp_bwd": 0}
     if counts != expect:
         fail(f"launch counts {counts}, expected {expect}")
     n_lr = (w // DOWNSCALE) * (h // DOWNSCALE)
@@ -332,6 +474,157 @@ def slice_phase(dev, card):
     return counts, ms_per_image, n_hr / (wall / N_VIEWS), errs
 
 
+def train_options(precision, **extra):
+    from nerfsr_torch.config import default_options
+    return default_options(
+        "train", model="nerf_downX", dataset_mode="llff_downX",
+        fast_preset="llff", img_wh=HR_WH, downscale=DOWNSCALE,
+        precision=precision, batch_size=BATCH, n_epochs=30,
+        n_epochs_decay=10, lr=5e-4, lr_final=5e-6, lr_policy="exp",
+        include_var=True, ds_method="avg", **extra)
+
+
+def teacher_buffer(dev):
+    """4 training views of a teacher scene rendered by the port itself
+    (random weights, seed 1, sigma biases +3 so the scene has content),
+    LR truth by avg, as the grouped buffer on the card."""
+    from nerfsr_torch.data.views import LLFFDownXTrainViews
+    from nerfsr_torch.models import create_model
+
+    system = create_model(train_options("mixed"), device=dev)
+    teacher = system.init_params(seed=1)
+    with torch.no_grad():
+        for net in teacher.values():
+            net.sigma.bias += 3.0
+    views = LLFFDownXTrainViews.rendered(system, teacher, FOCAL, HR_WH,
+                                         DOWNSCALE, N_TRAIN_VIEWS)
+    if views.images.std() < 0.01:
+        fail("the teacher scene is blank")
+    return views.ray_buffer(dev, include_var=True)
+
+
+def _grad_leaves(params):
+    return [(name, p.grad) for name, p in params.named_parameters()]
+
+
+def step_vs_plain(dev, buffer):
+    """One step's loss and gradients through the kernels and through the
+    plain path on the card: same params, batch and draws, no
+    randomization."""
+    from nerfsr_torch.models import create_model
+
+    out = {}
+    for precision in ("mixed", "f32"):
+        opt = train_options(precision, randomized=False, noise_std=0.0)
+        system = create_model(opt, device=dev)
+        kernel_cfg = system.render_cfg
+        gen = torch.Generator(device=dev).manual_seed(7)
+        batch = system.sample_batch(buffer, gen)
+        res = {}
+        for name, plain in (("kernels", False), ("plain", True)):
+            system.render_cfg = dataclasses.replace(kernel_cfg, plain=plain)
+            state = system.create_state(seed=0)
+            loss, _ = system._loss_fn(state.params, batch, None, 0)
+            loss.backward()
+            res[name] = (loss.item(), _grad_leaves(state.params))
+        system.render_cfg = kernel_cfg
+        loss_bar, grad_bar = STEP_BARS[precision]
+        (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+        loss_rel = abs(lk - lp) / abs(lp)
+        rels = {}
+        for (name, a), (_, b) in zip(gk, gp):
+            if not torch.isfinite(a).all():
+                fail(f"step {precision} grad {name}: non-finite")
+            rels[name] = float((a.double() - b.double()).norm()
+                               / b.double().norm().clamp_min(1e-30))
+        worst = max(rels, key=rels.get)
+        median = float(np.median(list(rels.values())))
+        print(f"[train] one step {precision}, kernels vs plain path: loss "
+              f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.2e}, bar {loss_bar}); "
+              f"gradients max leaf norm-relative err {rels[worst]:.3e} "
+              f"({worst}, bar {grad_bar}), median {median:.3e}")
+        if loss_rel > loss_bar or rels[worst] > grad_bar:
+            fail(f"one step {precision}: kernels vs plain beyond the bars")
+        out[precision] = {"loss_rel": loss_rel, "max_leaf_rel": rels[worst],
+                          "worst_leaf": worst, "median_leaf_rel": median}
+    return out
+
+
+def train_phase(dev, card):
+    from nerfsr_torch.kernels import COUNTS, LAUNCHES_PER_CALL, reset_counts
+    from nerfsr_torch.models import create_model
+
+    t0 = time.perf_counter()
+    buffer = teacher_buffer(dev)
+    n_lr = buffer["rgbs"].shape[0]
+    print(f"[train] teacher scene: {N_TRAIN_VIEWS} views {HR_WH[0]}x"
+          f"{HR_WH[1]}, {n_lr} LR pixels in the buffer, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    system = create_model(train_options("mixed"), device=dev)
+    if not system.render_cfg.use_fused_mlp:
+        fail("the training path must take the fused MLP kernels")
+    state = system.create_state(seed=0, steps_per_epoch=n_lr // BATCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = system.train_steps(state, buffer, WARMUP_STEPS, gen)
+    torch.cuda.synchronize()
+
+    # one step: exact launch counts of every kernel
+    reset_counts()
+    state, _ = system.train_steps(state, buffer, 1, gen)
+    torch.cuda.synchronize()
+    per_step = dict(COUNTS)
+    want = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
+            "composite_bwd": 1, "fused_mlp_bwd": 1}
+    if per_step != want:
+        fail(f"per-step launch counts {per_step}, expected {want}")
+
+    # the timed window: TIMED_STEPS steps, one synchronize
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _ = system.train_steps(state, buffer, TIMED_STEPS, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(COUNTS)
+    if counts != {k: v * TIMED_STEPS for k, v in want.items()}:
+        fail(f"launch counts over {TIMED_STEPS} steps: {counts}")
+    ms_step = wall / TIMED_STEPS * 1e3
+    rays_s = BATCH * DOWNSCALE ** 2 * TIMED_STEPS / wall
+    sub = {k: v * LAUNCHES_PER_CALL[k] for k, v in counts.items()}
+    print(f"[train] {TIMED_STEPS} steps of {BATCH} LR pixels "
+          f"({BATCH * DOWNSCALE ** 2} HR rays): {ms_step:.2f} ms/step, "
+          f"{rays_s:.0f} HR rays/s on {card}; calls {counts}, kernel "
+          f"launches {sub} (E: tile, weight-gradient, reduce)")
+
+    # the loss falls from a fresh student
+    state = system.create_state(seed=0, steps_per_epoch=n_lr // BATCH)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mses = []
+    for _ in range(FALL_STEPS):
+        state, losses = system.train_step_from_buffer(state, buffer, gen)
+        mses.append(losses["fine_mse"])
+    mses = torch.stack(mses).cpu().numpy()
+    first, last = float(mses[:20].mean()), float(mses[-20:].mean())
+    print(f"[train] fine_mse over {FALL_STEPS} steps: first 20 mean "
+          f"{first:.5f}, last 20 mean {last:.5f} (ratio {last / first:.3f},"
+          f" bar {FALL_RATIO})")
+    if not np.isfinite(mses).all() or last > FALL_RATIO * first:
+        fail("fine_mse did not fall")
+    for p in state.params.parameters():
+        moments = state.optimizer.state[p]
+        for t in (p, moments["exp_avg"], moments["exp_avg_sq"]):
+            if not torch.isfinite(t).all():
+                fail("non-finite parameters or Adam moments")
+    print(f"[train] {sum(p.numel() for p in state.params.parameters())} "
+          f"parameters and their Adam moments are finite after "
+          f"{state.step} steps")
+    step_err = step_vs_plain(dev, buffer)
+    return counts, {"ms_per_step": ms_step, "hr_rays_per_s": rays_s,
+                    "fine_mse_first20": first, "fine_mse_last20": last,
+                    "step_vs_plain": step_err, "launches_per_step":
+                    per_step, "kernel_launches_window": sub}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -357,32 +650,49 @@ def main():
     a = check_invert_cdf(dev, gen)
     b = check_composite(dev, gen)
     c = check_fused_mlp(dev, gen)
-    counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
+    d = check_composite_bwd(dev, gen)
+    e = check_fused_mlp_bwd(dev, gen)
+    serve_counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
+    counts, train = train_phase(dev, card)
 
+    # launches: the timed training window, which runs all five kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    ops = "nerfsr_tpu/ops/experimental/"
     kernels = [
         dict(name="invert_cdf", route="cuda",
              source="nerfsr_torch/csrc/invert_cdf.cu",
-             replaces="nerfsr_tpu/ops/experimental/pallas_sampling.py:102",
+             replaces=ops + "pallas_sampling.py:102",
              launches=counts["invert_cdf"], **{k: a[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="nerfsr_torch/csrc/composite.cu",
-             replaces="nerfsr_tpu/ops/experimental/pallas_composite.py:155",
+             replaces=ops + "pallas_composite.py:155",
              launches=counts["composite_fwd"], **{k: b[k] for k in keys}),
         dict(name="fused_mlp_fwd", route="cuda",
              source="nerfsr_torch/csrc/fused_mlp.cu",
-             replaces="nerfsr_tpu/ops/experimental/pallas_mlp.py:183",
+             replaces=ops + "pallas_mlp.py:183",
              launches=counts["fused_mlp_fwd"],
              **{k: c["bf16"][k] for k in keys}),
+        dict(name="composite_bwd", route="cuda",
+             source="nerfsr_torch/csrc/composite.cu",
+             replaces=ops + "pallas_composite.py:177",
+             launches=counts["composite_bwd"], **{k: d[k] for k in keys}),
+        dict(name="fused_mlp_bwd", route="cuda",
+             source="nerfsr_torch/csrc/fused_mlp_bwd.cu",
+             replaces=ops + "pallas_mlp.py:433",
+             launches=counts["fused_mlp_bwd"],
+             **{k: e["bf16"][k] for k in keys}),
     ]
     for k in kernels:
         k["library_ms"] = None
     print(json.dumps({"detail": {"fused_mlp_f32": c["f32"],
                                  "fused_mlp_bf16_tflops":
                                      c["bf16"]["tflops"],
+                                 "fused_mlp_bwd": e,
                                  "slice": {"ms_per_image": ms_img,
                                            "hr_rays_per_s": rays_s,
-                                           "chunk_errors": slice_err},
+                                           "chunk_errors": slice_err,
+                                           "launches": serve_counts},
+                                 "train": train,
                                  "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,9 +7,11 @@ package's names and defaults, as do ``FAST_PRESETS``,
 The JAX package's TPU-only flags (``--use_pallas*``, ``--pallas_mlp_bwd``,
 ``--pallas_interpret``, ``--mesh_devices``, ``--compilation_cache_dir``)
 are accepted and ignored: on CUDA the kernels run wherever their JAX
-counterparts could. Flags that only training, checkpoints, data loading,
-the GAN, refine or multi-host runs read come with the slices that read
-them.
+counterparts could. The training flags of the supersampling path
+(optimizer, schedule, loss weights, ``--randomized``, ``--ds_method``,
+``--include_var``, ``--scan_steps``) keep their JAX names and defaults.
+Flags that only checkpoints, data loading, the GAN, refine or multi-host
+runs read come with the slices that read them.
 """
 
 from __future__ import annotations
@@ -111,6 +113,35 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--prop_W", type=int, default=64)
     p.add_argument("--deg_prop", type=int, default=6)
     p.add_argument("--fast_uniform_frac", type=float, default=0.0)
+
+    # ---- training ----
+    p.add_argument("--batch_size", type=int, default=2048)
+    p.add_argument("--beta1", type=float, default=0.9)
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--lr_policy", type=str, default="exp")
+    p.add_argument("--lr_final", type=float, default=5e-6)
+    p.add_argument("--n_epochs_decay", type=int, default=10)
+    p.add_argument("--lr_decay_epochs", type=int, default=10)
+    p.add_argument("--lr_decay_gamma", type=float, default=0.1)
+    p.add_argument("--grad_clip_val", type=float, default=0)
+    p.add_argument("--grad_clip_type", type=str, default="norm",
+                   choices=["norm", "value"])
+    p.add_argument("--randomized", type=str2bool, default=True)
+    p.add_argument("--lambda_coarse_mse", type=float, default=1.0)
+    p.add_argument("--lambda_fine_mse", type=float, default=1.0)
+    p.add_argument("--lambda_interlevel", type=float, default=1.0)
+    p.add_argument("--use_var_loss", action="store_true")
+    p.add_argument("--lambda_coarse_var", type=float, default=0.01)
+    p.add_argument("--lambda_fine_var", type=float, default=0.01)
+    p.add_argument("--use_depth_var_loss", action="store_true")
+    p.add_argument("--lambda_coarse_depth_var", type=float, default=0.01)
+    p.add_argument("--lambda_fine_depth_var", type=float, default=0.01)
+    p.add_argument("--ds_method", type=str, default="lanc",
+                   choices=["avg", "lanc"])
+    p.add_argument("--include_var", action="store_true")
+    p.add_argument("--scan_steps", type=int, default=20,
+                   help="steps per train_steps call of the training "
+                        "engine (not ported yet)")
 
     # ---- accepted and ignored (TPU-only in the JAX package) ----
     p.add_argument("--use_pallas", action="store_true")

@@ -29,14 +29,22 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp.cu",
+           "fused_mlp_bwd.cu")
+HEADERS = ("common.cuh", "mlp_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-COUNTS = {"invert_cdf": 0, "composite_fwd": 0, "fused_mlp_fwd": 0}
+COUNTS = {"invert_cdf": 0, "composite_fwd": 0, "fused_mlp_fwd": 0,
+          "composite_bwd": 0, "fused_mlp_bwd": 0}
+# kernel launches behind one count of a wrapper (kernel E runs as three:
+# tile recompute and backprop, weight-gradient partials, reduce)
+LAUNCHES_PER_CALL = {"invert_cdf": 1, "composite_fwd": 1,
+                     "fused_mlp_fwd": 1, "composite_bwd": 1,
+                     "fused_mlp_bwd": 3}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # bins, w, u, z, n, n_bins, n_q, stream
     "nerfsr_invert_cdf": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -45,6 +53,14 @@ _SIGNATURES = {
     "nerfsr_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x0, dmb, w, b, rgb, sigma, n_points, bf16, stream
     "nerfsr_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # rgb, sigma, z, gc, gd, go, gw, grgb, gsigma, gz, n, s, softplus,
+    # white_bkgd, stream
+    "nerfsr_composite_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # x0, dmb, grgb, gsigma, w, wt, b, acts, grads, partial, out,
+    # n_points, bf16, stream
+    "nerfsr_fused_mlp_bwd": [_P] * 11 + [_I, _I, _P],
+    # -> act_width, grad_width, splits, total
+    "nerfsr_fused_mlp_bwd_layout": [_IP, _IP, _IP, _IP],
 }
 
 _state = {"lib": None, "log": ""}
@@ -157,10 +173,3 @@ def check_cuda(t: torch.Tensor, name: str, shape, dtype=torch.float32,
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
-
-def forbid_grad(name: str, *tensors):
-    """The forward kernels have no backward yet (training slice)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: input requires grad, but this kernel "
-                           "has no backward yet; call it under "
-                           "torch.no_grad()")

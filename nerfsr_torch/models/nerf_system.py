@@ -1,14 +1,19 @@
-"""The vanilla NeRF system, serving half.
+"""The vanilla NeRF system.
 
 Port of ``nerfsr_tpu/models/nerf_system.py``: construction from ``opt``,
-``init_params`` from a seed, ``render``, the eval chunk size, and the
-device-raygen eval render (``eval_image_device_pose`` /
-``_render_dirs_chunks``, ``render_pose``, ``render_eval_many``). Training
-comes with the next slice. The port is single-card: there is no mesh.
+``init_params`` from a seed, ``render``, the training step
+(``create_state``, ``compute_losses``, ``train_step``,
+``train_step_from_buffer``, ``train_steps``), the eval chunk size, and
+the device-raygen eval render (``eval_image_device_pose`` /
+``_render_dirs_chunks``, ``render_pose``, ``render_eval_many``). The port
+is single-card: there is no mesh.
 
 Parameters are an ``nn.ModuleDict`` of the networks (``prop``/``fine``
 under fast sampling, else ``coarse``/``fine``) on the system's device;
 ``nerfsr_torch.weights.load_jax_params`` fills one from a JAX param tree.
+A ``TrainState`` holds the step, the parameters and the Adam optimizer;
+the step functions update it in place (no second copy of the parameters
+and moments), where the JAX package returns a new state.
 """
 
 from __future__ import annotations
@@ -24,9 +29,22 @@ from nerfsr_torch.core.encoding import posenc_channels
 from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
 from nerfsr_torch.models import register_model
+from nerfsr_torch.models.criterions import interlevel_loss
+from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.mlp import ProposalMLP, VanillaMLP
 from nerfsr_torch.models.render import (RenderConfig, render_rays,
                                         render_rays_fast)
+from nerfsr_torch.utils.schedule import make_lr_schedule
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The training state: the step count (host int), the networks and
+    the optimizer over their parameters (which holds the Adam moments)."""
+
+    step: int
+    params: nn.ModuleDict
+    optimizer: torch.optim.Optimizer
 
 
 def _compute_dtype(precision: str):
@@ -36,7 +54,7 @@ def _compute_dtype(precision: str):
 
 @register_model("nerf")
 class NeRFSystem:
-    """Vanilla NeRF (experiment type 'nerf'), serving half."""
+    """Vanilla NeRF (experiment type 'nerf')."""
 
     # eval outputs read back to the host (opacity has no eval consumer)
     _EVAL_KEEP = ("coarse_rgb", "coarse_depth", "fine_rgb", "fine_depth")
@@ -73,8 +91,11 @@ class NeRFSystem:
             prop_pad_anneal=opt.prop_pad_anneal,
             prop_pad_final=opt.prop_pad_final,
         )
-        self.render_cfg = self._resolve_pad_anneal(
-            cfg, max(1, opt.steps_per_epoch or 1))
+        self._configured_prop_pad_anneal = cfg.prop_pad_anneal
+        self._steps_per_epoch = max(1, opt.steps_per_epoch or 1)
+        self.render_cfg = self._resolve_pad_anneal(cfg,
+                                                   self._steps_per_epoch)
+        self.lr_fn = None          # built in create_state
         self._eval_dirs_cache = {}
 
     @staticmethod
@@ -89,11 +110,12 @@ class NeRFSystem:
                 and opt.mlp_network == "vanilla_mlp")
 
     def _resolve_pad_anneal(self, cfg: RenderConfig, steps_per_epoch: int):
-        """``--prop_pad_anneal_frac`` -> ``prop_pad_anneal`` steps, as the
-        JAX package's ``create_state`` resolves it (so eval renders with
-        the fully annealed pad, ``prop_pad_final``)."""
+        """``--prop_pad_anneal_frac`` -> ``prop_pad_anneal`` steps of the
+        whole schedule (``steps_per_epoch * n_epochs``), as the JAX
+        package's ``create_state`` resolves it; an explicit
+        ``--prop_pad_anneal`` wins."""
         frac = self.opt.prop_pad_anneal_frac
-        if frac > 0 and cfg.prop_pad_anneal == 0:
+        if frac > 0 and self._configured_prop_pad_anneal == 0:
             total = steps_per_epoch * max(1, self.opt.n_epochs)
             cfg = dataclasses.replace(
                 cfg, prop_pad_anneal=max(1, int(frac * total)))
@@ -146,6 +168,157 @@ class NeRFSystem:
                                     generator=generator)
         return render_rays(params, rays, self.render_cfg, randomized,
                            generator=generator)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def create_state(self, seed: int = 0,
+                     steps_per_epoch: Optional[int] = None) -> TrainState:
+        """Fresh networks from ``seed`` and their optimizer. A given
+        ``steps_per_epoch`` re-resolves the pad anneal and the LR
+        schedule; call it before the first step."""
+        if steps_per_epoch:
+            self._steps_per_epoch = max(1, steps_per_epoch)
+            self.render_cfg = self._resolve_pad_anneal(
+                self.render_cfg, self._steps_per_epoch)
+        params = self.init_params(seed).train()
+        return TrainState(step=0, params=params,
+                          optimizer=self._make_tx(params))
+
+    def _make_tx(self, params: nn.ModuleDict) -> torch.optim.Optimizer:
+        """Adam (b1 ``--beta1``, b2 0.999, eps 1e-8: optax's
+        ``scale_by_adam``) whose LR ``_apply_updates`` sets from the
+        per-epoch schedule before each step. The optional clip runs on
+        the gradients first (``_clip_grads``)."""
+        self.lr_fn = make_lr_schedule(self.opt, self._steps_per_epoch)
+        return torch.optim.Adam(params.parameters(), lr=self.lr_fn(0),
+                                betas=(self.opt.beta1, 0.999), eps=1e-8)
+
+    def _clip_grads(self, params: nn.ModuleDict):
+        """``--grad_clip_val``: optax ``clip_by_global_norm`` (scale by
+        max / norm when the global norm exceeds max) or ``clip`` (clamp
+        each element). Stays on the device: no host sync."""
+        val = self.opt.grad_clip_val
+        if val <= 0:
+            return
+        grads = [p.grad for p in params.parameters() if p.grad is not None]
+        if self.opt.grad_clip_type == "norm":
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            scale = torch.where(norm < val, torch.ones_like(norm),
+                                val / norm)
+            for g in grads:
+                g.mul_(scale)
+        else:
+            for g in grads:
+                g.clamp_(-val, val)
+
+    def _apply_updates(self, state: TrainState, loss: torch.Tensor):
+        """Backward, clip, Adam at the schedule's LR for this step."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self._clip_grads(state.params)
+        lr = self.lr_fn(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+
+    def compute_losses(self, out: Dict[str, Any], batch: Dict[str, Any]):
+        """MSE + PSNR losses (and the interlevel loss under fast
+        sampling). Returns (total, {name: scalar tensor})."""
+        opt = self.opt
+        rgbs = batch["rgbs"]
+        losses = {}
+        loss_tot = 0.0
+        if "coarse_rgb" in out:
+            coarse_mse = torch.mean((out["coarse_rgb"] - rgbs) ** 2)
+            losses["coarse_mse"] = coarse_mse
+            loss_tot = loss_tot + coarse_mse * opt.lambda_coarse_mse
+        if "fine_rgb" in out:
+            fine_mse = torch.mean((out["fine_rgb"] - rgbs) ** 2)
+            losses["fine_mse"] = fine_mse
+            loss_tot = loss_tot + fine_mse * opt.lambda_fine_mse
+        else:
+            losses["fine_mse"] = torch.zeros((), device=rgbs.device)
+        loss_tot = self._interlevel(out, losses, loss_tot)
+        with torch.no_grad():
+            if "coarse_rgb" in out:
+                losses["coarse_psnr"] = psnr_fn(out["coarse_rgb"], rgbs)
+            losses["fine_psnr"] = psnr_fn(out["fine_rgb"], rgbs) \
+                if "fine_rgb" in out else torch.zeros((), device=rgbs.device)
+        losses["tot"] = loss_tot
+        return loss_tot, losses
+
+    def _interlevel(self, out, losses, loss_tot):
+        """Proposal-histogram bound loss (fast sampling only), over the
+        last proposal round and every earlier one."""
+        if "prop_weights" not in out:
+            return loss_tot
+        il = interlevel_loss(out["fine_z"], out["fine_weights"],
+                             out["prop_z"], out["prop_weights"])
+        lvl = 0
+        while f"prop{lvl}_z" in out:
+            il = il + interlevel_loss(
+                out["fine_z"], out["fine_weights"],
+                out[f"prop{lvl}_z"], out[f"prop{lvl}_weights"])
+            lvl += 1
+        losses["interlevel"] = il
+        return loss_tot + il * self.opt.lambda_interlevel
+
+    def _batch_to_rays(self, batch) -> Rays:
+        return Rays(
+            origins=batch["origins"],
+            directions=batch["directions"],
+            near=batch["near"],
+            far=batch["far"],
+            viewdirs=batch.get("viewdirs", batch["directions"]),
+        )
+
+    def _loss_fn(self, params, batch, generator=None, step=None):
+        """Render + losses for one batch (overridden by subclasses)."""
+        rays = self._batch_to_rays(batch)
+        out = self.render(params, rays,
+                          randomized=bool(self.opt.randomized), step=step,
+                          generator=generator)
+        return self.compute_losses(out, batch)
+
+    def train_step(self, state: TrainState, batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None):
+        """One optimization step over a ray batch; updates ``state`` in
+        place and returns it with the step's losses (detached)."""
+        loss, losses = self._loss_fn(state.params, batch, generator,
+                                     state.step)
+        self._apply_updates(state, loss)
+        return state, {k: v.detach() for k, v in losses.items()}
+
+    def sample_batch(self, buffer: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None):
+        """``batch_size`` rows of the device-resident buffer, the indices
+        drawn on its device."""
+        n_total = buffer["rgbs"].shape[0]
+        dev = buffer["rgbs"].device
+        idx = torch.randint(0, n_total, (self.opt.batch_size,),
+                            generator=generator, device=dev)
+        return {k: v[idx] for k, v in buffer.items()}
+
+    def train_step_from_buffer(self, state: TrainState, buffer,
+                               generator: Optional[torch.Generator] = None):
+        """Sample a batch from the device-resident buffer and step: no
+        host-to-device transfer per step."""
+        return self.train_step(state, self.sample_batch(buffer, generator),
+                               generator)
+
+    def train_steps(self, state: TrainState, buffer, n_steps: int,
+                    generator: Optional[torch.Generator] = None):
+        """``n_steps`` buffer-sampled steps (the Python-loop counterpart
+        of the JAX package's ``train_steps_scan``); returns the state and
+        the last step's losses."""
+        losses = {}
+        for _ in range(n_steps):
+            state, losses = self.train_step_from_buffer(state, buffer,
+                                                        generator)
+        return state, losses
 
     # ------------------------------------------------------------------
     # eval: device-side raygen

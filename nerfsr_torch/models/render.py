@@ -2,13 +2,16 @@
 
 Port of ``nerfsr_tpu/models/render.py``. The kernel dispatch points are
 where the JAX package has them: ``_eval_level`` runs the fused MLP
-(kernel C, when the architecture allows it) and the composite (kernel
-B); ``render_rays_fast``'s ``sample_strat`` is the inverse-CDF kernel
-(kernel A). On CPU tensors each wrapper takes its plain version;
-``RenderConfig.plain`` asks for the plain versions on the card too (the
+(kernel C forward, kernel E backward, when the architecture allows it)
+and the composite (kernel B forward, kernel D backward), both as
+``torch.autograd.Function``s; ``render_rays_fast``'s ``sample_strat`` is
+the inverse-CDF kernel (kernel A, forward only, on detached inputs). On
+CPU tensors each wrapper takes its plain version; ``RenderConfig.plain``
+asks for the plain versions on the card too, under autograd (the
 reference path that the kernels are held against).
 
-Randomized draws come from an optional ``torch.Generator``.
+The randomized draws (stratified jitter, resample jitter, sigma noise)
+come from one optional ``torch.Generator`` on the rays' device.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Bridge from the JAX package's parameters to the port's modules.
+"""Bridge between the JAX package's parameters and the port's modules.
 
 Input: the JAX param tree as nested dicts of numpy arrays, e.g.
 ``{"prop": {"params": {"layer_0": {"kernel", "bias"}, ...}},
@@ -8,6 +8,7 @@ Input: the JAX param tree as nested dicts of numpy arrays, e.g.
 ``tools/convert_reference_ckpt.py`` (``xyz_encoding_{i}``,
 ``xyz_encoding_final``, ``sigma``, ``dir_encoding``, ``rgb``), which the
 port's ``VanillaMLP`` and ``ProposalMLP`` use as attribute names.
+``export_params`` is the inverse of ``load_jax_params``.
 """
 
 from __future__ import annotations
@@ -49,3 +50,16 @@ def load_jax_params(params: nn.ModuleDict, tree: Mapping[str, Any]):
     for key, variables in tree.items():
         load_module(params[key], variables)
     return params
+
+
+
+@torch.no_grad()
+def export_params(params: nn.ModuleDict):
+    """The port's networks as a JAX-layout numpy tree: ``{net: {"params":
+    {layer: {"kernel" (in, out), "bias" (out,)}}}}``."""
+    return {key: {"params": {
+        name: {"kernel": lin.weight.cpu().numpy().T.copy(),
+               "bias": lin.bias.cpu().numpy().copy()}
+        for name, lin in module.named_children()
+        if isinstance(lin, nn.Linear)}}
+        for key, module in params.items()}

@@ -2,10 +2,14 @@
 version) against the JAX package's Pallas kernels, run in interpret mode
 as ``tests/test_pallas.py`` runs them, and against their jnp counterparts.
 
+The backward kernels' plain versions (D: ``composite_bwd_plain``, E:
+``fused_mlp_bwd_plain``) are held against the JAX package's backward
+kernels in interpret mode, its XLA backward and torch autograd.
+
 Also checks what the CUDA kernels rely on and the CPU can reach: kernel
 C's packed weight layout (walked here exactly as ``csrc/fused_mlp.cu``
-walks it), the wrappers' grad guard, and that the CPU path launches
-nothing.
+walks it), that gradients flow through the wrappers' autograd Functions,
+and that the CPU path launches nothing.
 """
 
 import jax
@@ -17,10 +21,12 @@ import torch
 from nerfsr_tpu.core.rendering import volumetric_rendering as j_composite
 from nerfsr_tpu.core.sampling import _invert_cdf as j_invert_cdf
 from nerfsr_tpu.ops.experimental.pallas_composite import (
-    pallas_volumetric_rendering)
+    _run_bwd, pallas_volumetric_rendering)
 from nerfsr_tpu.ops.experimental.pallas_sampling import (
     pallas_invert_cdf, pallas_sample_pdf_stratified)
 
+from nerfsr_torch.core.rendering import volumetric_rendering as \
+    plain_composite
 from nerfsr_torch.kernels import COUNTS, reset_counts
 from nerfsr_torch.kernels import composite as kcomposite
 from nerfsr_torch.kernels import mlp as kmlp
@@ -34,6 +40,15 @@ COMPOSITE_TOL = dict(rtol=2e-4, atol=1e-5)
 # fused MLP in f32: the bar of tests/test_pallas.py (same math, another
 # matmul summation order)
 MLP_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+# composite backward: the bar of tests/test_pallas.py for the TPU
+# kernel's gradients is rtol 5e-3, atol 5e-5; the port holds a tighter
+# one (seen: 1.9e-6 abs against the JAX kernel, 1.4e-6 against
+# autograd, on gradients of order 1-100)
+COMPOSITE_BWD_TOL = dict(rtol=1e-4, atol=1e-6)
+# MLP backward in f32: the bar of tests/test_pallas.py for the v3
+# kernel's weight gradients (sums over the points in another order;
+# seen: 9.1e-6 abs against v3, 1.1e-5 against the XLA backward)
+MLP_BWD_F32_TOL = dict(rtol=5e-3, atol=1e-4)
 
 
 def t(x):
@@ -99,17 +114,70 @@ def test_composite_vs_pallas_and_jnp(white_bkgd, act):
 
 
 def test_composite_grad_guard():
-    rgb = torch.rand(4, 8, 3)
+    """Gradients flow through the wrapper (kernel D's plain version on
+    the CPU) and equal autograd of the plain forward; an unknown
+    activation still raises."""
+    rgb = torch.rand(4, 8, 3, requires_grad=True)
     sigma = torch.randn(4, 8, requires_grad=True)
-    z = torch.sort(torch.rand(4, 8), -1)[0]
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        kcomposite.volumetric_rendering(rgb, sigma, z, False)
-    with torch.no_grad():
-        out = kcomposite.volumetric_rendering(rgb, sigma, z, False)
+    z = torch.sort(torch.rand(4, 8), -1)[0].requires_grad_(True)
+    reset_counts()
+    out = kcomposite.volumetric_rendering(rgb, sigma, z, False)
+    grads = torch.autograd.grad(_composite_loss(out), (rgb, sigma, z))
+    ref = torch.autograd.grad(
+        _composite_loss(plain_composite(rgb, sigma, z, False)),
+        (rgb, sigma, z))
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, **COMPOSITE_BWD_TOL)
+    assert COUNTS["composite_bwd"] == 0      # CPU: plain version
     assert out[0].shape == (4, 3)
     with pytest.raises(ValueError):
         kcomposite.volumetric_rendering(rgb, sigma.detach(), z, False,
                                         "tanh")
+
+
+def _composite_loss(out):
+    """A loss that gives every output a nonzero cotangent."""
+    c, d, o, w = out
+    return ((c ** 2).sum() + torch.sin(d).sum() + 0.3 * o.sum()
+            + (w * torch.linspace(-1, 1, w.shape[-1])).sum())
+
+
+def _cotangents(n, s, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, 3).astype(np.float32),
+            rng.randn(n).astype(np.float32),
+            rng.randn(n).astype(np.float32),
+            rng.randn(n, s).astype(np.float32))
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+def test_composite_bwd_vs_pallas_and_autograd(white_bkgd, act):
+    """Kernel D's plain version against the JAX backward kernel
+    (interpret mode) and against torch autograd of the plain forward,
+    with nonzero gc, gd, go and gw."""
+    rng = np.random.RandomState(1)
+    n, s = 32, 16
+    rgb = rng.rand(n, s, 3).astype(np.float32)
+    sigma = (rng.randn(n, s) * 2).astype(np.float32)
+    z = np.sort(rng.rand(n, s).astype(np.float32), -1)
+    gc, gd, go, gw = _cotangents(n, s, 2)
+    got = kcomposite.composite_bwd_plain(t(rgb), t(sigma), t(z), t(gc),
+                                         t(gd), t(go), t(gw), white_bkgd,
+                                         act)
+    pallas = _run_bwd(*(jnp.asarray(x) for x in (rgb, sigma, z, gc, gd,
+                                                  go, gw)),
+                      act, white_bkgd, 8, True)
+    rgb_t, sigma_t, z_t = (t(x).requires_grad_(True) for x in (rgb, sigma,
+                                                                z))
+    outs = plain_composite(rgb_t, sigma_t, z_t, white_bkgd, act)
+    auto = torch.autograd.grad(outs, (rgb_t, sigma_t, z_t),
+                               (t(gc), t(gd), t(go), t(gw)))
+    for g, p, a in zip(got, pallas, auto):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p),
+                                   **COMPOSITE_BWD_TOL)
+        np.testing.assert_allclose(g.numpy(), a.numpy(),
+                                   **COMPOSITE_BWD_TOL)
 
 
 def _flax_mlp(dtype, seed=0):
@@ -236,11 +304,90 @@ def test_packed_layout_matches_kernel_walk():
 
 
 def test_fused_mlp_guards():
+    """Gradients flow to the weights through the wrapper (kernel E's
+    plain version on the CPU) and equal autograd of the plain forward;
+    the points get none (the JAX contract); float16 still raises."""
     _, _, jflat = _flax_mlp(jnp.float32)
     flat = tuple(x.requires_grad_(True) for x in _port_flat(jflat))
     pts, dirs = _points(8, 4)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        kmlp.fused_nerf_mlp(flat, t(pts), t(dirs))
+    pts_t = t(pts).requires_grad_(True)
+    reset_counts()
+    rgb, sigma = kmlp.fused_nerf_mlp(flat, pts_t, t(dirs))
+    loss = (rgb ** 2).sum() + torch.tanh(sigma).sum()
+    grads = torch.autograd.grad(loss, flat + (pts_t,), allow_unused=True)
+    assert grads[-1] is None
+    x0, dmb = kmlp.embed(t(pts), t(dirs))
+    ref_rgb, ref_sigma = kmlp.fused_mlp_plain(flat, x0, dmb)
+    ref = torch.autograd.grad((ref_rgb ** 2).sum()
+                              + torch.tanh(ref_sigma).sum(), flat)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6)
+    assert COUNTS["fused_mlp_fwd"] == COUNTS["fused_mlp_bwd"] == 0
     with torch.no_grad():
         with pytest.raises(ValueError, match="bfloat16 or float32"):
             kmlp.fused_nerf_mlp(flat, t(pts), t(dirs), torch.float16)
+
+
+def _mlp_bwd_inputs(n, seed):
+    pts, dirs = _points(n, seed)
+    rng = np.random.RandomState(seed + 100)
+    return (pts, dirs, rng.randn(n, 3).astype(np.float32),
+            rng.randn(n).astype(np.float32))
+
+
+def test_fused_mlp_bwd_f32_vs_pallas_and_xla():
+    """Kernel E's plain version in f32 at full width against the v3
+    backward kernel (interpret mode) and the XLA backward."""
+    from nerfsr_tpu.ops.experimental.pallas_mlp import _bwd, _bwd_xla
+    _, _, jflat = _flax_mlp(jnp.float32, seed=2)
+    pts, dirs, grgb, gsig = _mlp_bwd_inputs(64, 5)
+    x0, dmb = kmlp.embed(t(pts), t(dirs))
+    got = kmlp.fused_mlp_bwd_plain(_port_flat(jflat), x0, dmb, t(grgb),
+                                   t(gsig), torch.float32)
+    v3 = _bwd(jnp.asarray(pts), jnp.asarray(dirs), jflat,
+              jnp.asarray(grgb), jnp.asarray(gsig)[:, None], jnp.float32,
+              True)
+    xla = _bwd_xla(jflat, jnp.asarray(pts), jnp.asarray(dirs),
+                   jnp.asarray(grgb), jnp.asarray(gsig), jnp.float32)
+    assert len(got) == len(v3) == 24
+    for i, (g, a, b) in enumerate(zip(got, v3, xla)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(a),
+                                   **MLP_BWD_F32_TOL, err_msg=str(i))
+        np.testing.assert_allclose(g.numpy(), np.asarray(b),
+                                   **MLP_BWD_F32_TOL, err_msg=str(i))
+
+
+def test_fused_mlp_bwd_mixed_vs_pallas():
+    """bf16: the port's rule against the v3 kernel in bf16, per leaf
+    norm-relative. Loose bar: v3 recomputes with bf16 biases (the port
+    keeps f32 biases, as its forward does) and forms its head gradients
+    in bf16 arithmetic, so activations, masks and gradient roundings
+    differ through ~12 layers (seen: 6.5e-3 at most)."""
+    from nerfsr_tpu.ops.experimental.pallas_mlp import _bwd
+    _, _, jflat = _flax_mlp(jnp.float32, seed=3)
+    pts, dirs, grgb, gsig = _mlp_bwd_inputs(64, 6)
+    x0, dmb = kmlp.embed(t(pts), t(dirs))
+    got = kmlp.fused_mlp_bwd_plain(_port_flat(jflat), x0, dmb, t(grgb),
+                                   t(gsig), torch.bfloat16)
+    v3 = _bwd(jnp.asarray(pts), jnp.asarray(dirs),
+              tuple(jnp.asarray(w, jnp.bfloat16) for w in jflat),
+              jnp.asarray(grgb), jnp.asarray(gsig)[:, None], jnp.bfloat16,
+              True)
+    for i, (g, a) in enumerate(zip(got, v3)):
+        a = np.asarray(a, np.float64)
+        rel = np.linalg.norm(g.numpy() - a) / max(np.linalg.norm(a), 1e-30)
+        assert rel < 2e-2, (i, rel)
+
+
+def test_fused_mlp_bwd_plain_is_autograd_in_f32():
+    """In f32 the plain backward is the exact gradient of the plain
+    forward (same math in torch, two ways)."""
+    _, _, jflat = _flax_mlp(jnp.float32, seed=4)
+    flat = tuple(x.requires_grad_(True) for x in _port_flat(jflat))
+    pts, dirs, grgb, gsig = _mlp_bwd_inputs(48, 7)
+    x0, dmb = kmlp.embed(t(pts), t(dirs))
+    rgb, sigma = kmlp.fused_mlp_plain(flat, x0, dmb)
+    ref = torch.autograd.grad((rgb, sigma), flat, (t(grgb), t(gsig)))
+    got = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, t(grgb), t(gsig))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6)
