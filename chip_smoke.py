@@ -10,9 +10,13 @@
 3. holds each kernel against its plain PyTorch version on the card and
    times both: the forward kernels at the serving path's shapes (inverse
    CDF at both (B, Q) pairs, composite with both activations and both
-   backgrounds, fused MLP in bf16 and f32), the backward kernels at the
-   training path's (composite backward at N=2048, S=16 with every
-   cotangent nonzero; fused MLP backward at P=32,768 in bf16 and f32);
+   backgrounds, fused MLP in bf16 on the tensor cores and in f32 on
+   SIMT, beside the same bf16 forward as a chain of cuBLAS products), the
+   backward kernels at the training path's (composite backward at
+   N=2048, S=16 with every cotangent nonzero; fused MLP backward at
+   P=32,768 in bf16 and f32, with its three launches' split from the
+   profiler). The MLP kernels are timed on weights packed before the
+   timed calls (the wrapper's cache), so the packing is not in the time;
 4. serving: renders three 504x378 NeRF-SR x2 views (``--fast_preset
    llff``, ``--precision mixed``, full-width D8/W256 MLP, random weights
    from a seed) through ``render_eval_many(..., quantize_rgb=True)``,
@@ -68,10 +72,18 @@ TOL_MLP_BF16 = (2e-2, 2e-2)  # (rtol, atol): as f32, plus rare bf16
 # gradients of order 1-100 (seen: 4.7e-6 abs at most)
 TOL_COMPOSITE_BWD = (1e-3, 1e-4)
 # kernel E, per leaf ||got - ref|| / ||ref||: sums over 32,768 points in
-# another order (f32; seen 1.5e-6); in bf16 also rounding flips of single
-# gradients where the two orders straddle a bf16 rounding midpoint
-# (seen 1.7e-4)
-TOL_MLP_BWD = {"f32": 1e-4, "bf16": 2e-3}
+# another order (f32; seen 1.5e-6). In bf16 the rule itself is chaotic:
+# a summation order that straddles a bf16 rounding midpoint flips one
+# activation by an ulp, and the flip cascades through the later layers'
+# roundings and masks. The plain version (cuBLAS f32 sums) is 7.3e-3 from
+# the same rule with f64 sums at P = 32,768 on the H100; the tensor-core
+# kernel is 9.3e-3 from it and 9.9e-3 from the plain version (the SIMT
+# kernel read 1.7e-4 against the plain version: its sequential f32 sums
+# flip less often). So the bf16 bar is 2e-2 against the plain version,
+# and the kernel may be no further from the f64 rule than BWD_F64_RATIO
+# times the plain version is.
+TOL_MLP_BWD = {"f32": 1e-4, "bf16": 2e-2}
+BWD_F64_RATIO = 2.0
 # a chunk's fine rgb/depth through the kernels vs the plain path, as
 # (mean abs err, max abs err) bars. Kernel A's depths differ from the
 # plain version's by up to ~1e-4 (CDF rounding over sparse bins), and
@@ -113,6 +125,7 @@ STEP_BARS = {"f32": (1e-5, 1e-2), "mixed": (5e-4, 0.1)}
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
 
 
 def card_line():
@@ -159,6 +172,39 @@ def max_err(got, ref, rtol, atol, what):
         fail(f"{what}: {int(bad.sum())} elements off, max abs err "
              f"{float(diff.max()):.3e} (rtol {rtol}, atol {atol})")
     return float(diff.max())
+
+
+def leaf_errors(got, ref):
+    """(max over leaves of ||got - ref|| / ||ref||, max abs err)."""
+    rel, abs_err = 0.0, 0.0
+    for g, r in zip(got, ref):
+        d = g.double() - r.double()
+        rel = max(rel, float(d.norm() / r.double().norm().clamp_min(1e-30)))
+        abs_err = max(abs_err, float(d.abs().max()))
+    return rel, abs_err
+
+
+def launch_split_ms(fn, calls=5):
+    """Device ms per call of each of kernel E's launches (E1 tile, E2
+    weight gradients, E3 reduce), from torch.profiler over `calls`
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for part, tag in (("E1", "tile"), ("E2", "wgrad"),
+                          ("E3", "reduce")):
+            if "mlp_bwd" in e.key and tag in e.key:
+                out[part] = out.get(part, 0.0) + \
+                    e.device_time_total / calls / 1e3
+    return out
 
 
 def check_invert_cdf(dev, gen):
@@ -225,6 +271,29 @@ def check_composite(dev, gen):
             "bound_by": "bytes"}
 
 
+def bf16_chain(flat, x0, dmb):
+    """The bf16 forward as a chain of cuBLAS bf16 products (torch.addmm,
+    bf16 in and out) with ReLU, concat and sigmoid in PyTorch: a yardstick
+    for kernel C, timed here and used nowhere in the port."""
+    from nerfsr_torch.kernels import mlp as kmlp
+    ws = [k.to(torch.bfloat16).contiguous() for k in flat[0::2]]
+    bs = [b.reshape(-1).to(torch.bfloat16) for b in flat[1::2]]
+    xb, db = x0.to(torch.bfloat16), dmb.to(torch.bfloat16)
+
+    def run():
+        h = xb
+        for i in range(kmlp.D):
+            inp = torch.cat([xb, h], -1) if i == kmlp.SKIP else h
+            h = torch.relu(torch.addmm(bs[i], inp, ws[i]))
+        d = kmlp.D
+        feat = torch.addmm(bs[d], h, ws[d])
+        sigma = torch.addmm(bs[d + 1], h, ws[d + 1])
+        g = torch.relu(torch.addmm(bs[d + 2], torch.cat([feat, db], -1),
+                                   ws[d + 2]))
+        return torch.sigmoid(torch.addmm(bs[d + 3], g, ws[d + 3])), sigma
+    return run
+
+
 def check_fused_mlp(dev, gen):
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels import mlp as kmlp
@@ -260,6 +329,13 @@ def check_fused_mlp(dev, gen):
             out[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": "operations",
                         "tflops": flops / ms / 1e9}
+            if key == "bf16":
+                chain = bf16_chain(flat, x0, dmb)
+                out[key]["cublas_chain_ms"] = time_ms(chain, iters=10)
+                print(f"[kernel C] yardstick: the same bf16 forward as a "
+                      f"chain of bf16 torch.addmm calls (cuBLAS) with "
+                      f"bias/ReLU in PyTorch: "
+                      f"{out[key]['cublas_chain_ms']:.3f} ms")
             print(f"[kernel C] fused_mlp {key} P={p}: max abs err "
                   f"{err:.3e} (rtol, atol {tol}); {ms:.3f} ms "
                   f"({out[key]['tflops']:.1f} TFLOP/s), plain "
@@ -336,17 +412,30 @@ def check_fused_mlp_bwd(dev, gen):
             got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, dtype)
             torch.cuda.synchronize()
             ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, dtype)
-            rel, abs_err = 0.0, 0.0
-            for i, (g, r) in enumerate(zip(got, ref)):
+            for i, g in enumerate(got):
                 if not torch.isfinite(g).all():
                     fail(f"fused_mlp_bwd {key} leaf {i}: non-finite")
-                d = (g.double() - r.double())
-                rel = max(rel, float(d.norm() / r.double().norm()
-                                     .clamp_min(1e-30)))
-                abs_err = max(abs_err, float(d.abs().max()))
+            rel, abs_err = leaf_errors(got, ref)
+            # the rule's own floor: the plain version (f32 sums) and the
+            # kernel, each against the same rule with f64 sums
+            ref64 = kmlp.fused_mlp_bwd_plain(
+                tuple(t.double() for t in flat), x0.double(), dmb.double(),
+                grgb.double(), gsig.double(), dtype)
+            plain_vs_f64 = leaf_errors(ref, ref64)[0]
+            kernel_vs_f64 = leaf_errors(got, ref64)[0]
+            print(f"[kernel E] {key}: max leaf norm-relative err against "
+                  f"the rule in f64: plain {plain_vs_f64:.3e}, kernel "
+                  f"{kernel_vs_f64:.3e}")
             if rel > TOL_MLP_BWD[key]:
                 fail(f"fused_mlp_bwd {key}: leaf norm-relative error "
-                     f"{rel:.3e} > {TOL_MLP_BWD[key]}")
+                           f"{rel:.3e} > {TOL_MLP_BWD[key]}")
+            if key == "bf16" and kernel_vs_f64 > BWD_F64_RATIO * plain_vs_f64:
+                fail(f"fused_mlp_bwd bf16: {kernel_vs_f64:.3e} from "
+                           f"the f64 rule, over {BWD_F64_RATIO} x the plain "
+                           f"version's {plain_vs_f64:.3e}")
+            again = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, dtype)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                fail(f"fused_mlp_bwd {key}: two calls differ")
             ms = time_ms(lambda: kmlp.fused_mlp_bwd(flat, x0, dmb, grgb,
                                                     gsig, dtype), iters=10)
             plain_ms = time_ms(lambda: kmlp.fused_mlp_bwd_plain(
@@ -359,9 +448,16 @@ def check_fused_mlp_bwd(dev, gen):
             bound = max(flops / PEAK_FLOPS[key],
                         bytes_moved / HBM_BYTES_PER_S) * 1e3
             out[key] = {"max_abs_err": abs_err, "max_leaf_rel_err": rel,
+                        "plain_vs_f64_rel": plain_vs_f64,
+                        "kernel_vs_f64_rel": kernel_vs_f64,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": "operations",
-                        "tflops": flops / ms / 1e9}
+                        "tflops": flops / ms / 1e9,
+                        "launch_ms": launch_split_ms(
+                            lambda: kmlp.fused_mlp_bwd(flat, x0, dmb, grgb,
+                                                       gsig, dtype))}
+            print(f"[kernel E] {key} per launch (profiler, ms): "
+                  f"{out[key]['launch_ms']}")
             print(f"[kernel E] fused_mlp_bwd {key} P={p}: max leaf "
                   f"norm-relative err {rel:.3e} (bar {TOL_MLP_BWD[key]}), "
                   f"max abs err {abs_err:.3e}; {ms:.3f} ms "
@@ -668,7 +764,7 @@ def main():
              replaces=ops + "pallas_composite.py:155",
              launches=counts["composite_fwd"], **{k: b[k] for k in keys}),
         dict(name="fused_mlp_fwd", route="cuda",
-             source="nerfsr_torch/csrc/fused_mlp.cu",
+             source="nerfsr_torch/csrc/fused_mlp_tc.cu",
              replaces=ops + "pallas_mlp.py:183",
              launches=counts["fused_mlp_fwd"],
              **{k: c["bf16"][k] for k in keys}),
@@ -677,7 +773,7 @@ def main():
              replaces=ops + "pallas_composite.py:177",
              launches=counts["composite_bwd"], **{k: d[k] for k in keys}),
         dict(name="fused_mlp_bwd", route="cuda",
-             source="nerfsr_torch/csrc/fused_mlp_bwd.cu",
+             source="nerfsr_torch/csrc/fused_mlp_bwd_tc.cu",
              replaces=ops + "pallas_mlp.py:433",
              launches=counts["fused_mlp_bwd"],
              **{k: e["bf16"][k] for k in keys}),
@@ -687,6 +783,8 @@ def main():
     print(json.dumps({"detail": {"fused_mlp_f32": c["f32"],
                                  "fused_mlp_bf16_tflops":
                                      c["bf16"]["tflops"],
+                                 "fused_mlp_bf16_cublas_chain_ms":
+                                     c["bf16"]["cublas_chain_ms"],
                                  "fused_mlp_bwd": e,
                                  "slice": {"ms_per_image": ms_img,
                                            "hr_rays_per_s": rays_s,

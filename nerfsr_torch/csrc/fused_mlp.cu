@@ -1,38 +1,35 @@
-// Kernel C: fused NeRF MLP forward (D8/W256, skip at layer 4).
+// Kernel C, f32: fused NeRF MLP forward (D8/W256, skip at layer 4) on
+// SIMT FMAs. The bf16 ("mixed") path runs on the tensor cores instead
+// (fused_mlp_tc.cu).
 //
 // Replaces the TPU kernel _fwd_kernel of
 // nerfsr_tpu/ops/experimental/pallas_mlp.py (_fwd, in fused_nerf_mlp), on
 // the math of _fwd_pass: pre-embedded inputs x0 (P, 63) and dmb (P, 27) ->
 // 8-layer ReLU trunk with [x0, h] concatenated before layer 4 -> f32 sigma
 // head, 256-wide feature layer, 283 -> 128 ReLU direction branch, 128 -> 3
-// sigmoid rgb head.
-//
-// Numerics. f32 mode: f32 everywhere. bf16 ("mixed") mode: the inputs, the
-// weights and every activation that feeds a matmul (post-ReLU trunk
-// activations, feat, the direction branch) are rounded to bf16; products
-// accumulate in f32 and the bias is added in f32; sigma and rgb_pre stay
-// f32. (The JAX megakernel multiplies bf16 activations by f32 weights,
-// and flax Dense(bf16) also rounds the matmul output and the bias: the
-// port fixes one rule, held against both in the tests with a loose bar.)
+// sigmoid rgb head, all in f32. (In mixed precision the port fixes one
+// rule, bf16 inputs, weights and activations with f32 accumulation and
+// f32 biases; the JAX megakernel multiplies bf16 activations by f32
+// weights, and flax Dense(bf16) also rounds the matmul output and the
+// bias: the tests hold the rule against both with a loose bar.)
 //
 // Bound on the card: operations. 593,408 multiply-adds per point
-// (~1.19 MFLOP); at P = 65,536 a call is ~78 GFLOP against ~25 MB of
-// inputs and outputs, far above the H100's ~295 flop/byte ridge.
+// (~1.19 MFLOP); at P = 65,536 a call is ~78 GFLOP against ~27 MB of
+// inputs and outputs, 1.16 ms at the H100's 67 TFLOP/s f32 rate.
 //
 // Design (first version: right and simple). A block of 128 threads owns a
 // tile of 32 points and keeps all of the tile's activations in dynamic
 // shared memory (x0, dmb and two ping-pong 32 x 256 f32 buffers, ~76 KB,
-// set with cudaFuncSetAttribute). Weights stream from L2 (1.2 MB in bf16,
-// 2.4 MB in f32 -- they fit the 50 MB L2 many times over): thread t owns
-// output columns t and t + 128, so each weight row is read coalesced, and
-// its 64 accumulators stay in registers while the point activations are
-// read from shared memory as float4 broadcasts. The next four weight rows
-// are prefetched into registers while the current four are used. The skip
-// layer and the direction layer read their two inputs (x0 | h, feat | dmb)
-// against the matching row ranges of the one (in, out) weight, so no 319-
-// or 283-wide concat is built. The two narrow heads (sigma: 256 -> 1,
-// rgb: 128 -> 3) are warp reductions. SIMT FMAs only: mma.sync / wgmma is
-// later work.
+// set with cudaFuncSetAttribute). Weights stream from L2 (2.4 MB, which
+// fits the 50 MB L2 many times over): thread t owns output columns t and
+// t + 128, so each weight row is read coalesced, and its 64 accumulators
+// stay in registers while the point activations are read from shared
+// memory as float4 broadcasts. The next four weight rows are prefetched
+// into registers while the current four are used. The skip layer and the
+// direction layer read their two inputs (x0 | h, feat | dmb) against the
+// matching row ranges of the one (in, out) weight, so no 319- or 283-wide
+// concat is built. The two narrow heads (sigma: 256 -> 1, rgb: 128 -> 3)
+// are warp reductions.
 
 #include "mlp_tile.cuh"
 
@@ -40,8 +37,8 @@ namespace {
 
 using namespace nerfsr_mlp;
 
-// out[p][col] = round?(relu?(acc + bias[col])), col = tid + c * 128
-template <int NC, bool kRelu, bool kBf16>
+// out[p][col] = relu?(acc + bias[col]), col = tid + c * 128
+template <int NC, bool kRelu>
 __device__ __forceinline__ void store(const float (&acc)[NC][kTP],
                                       const float* __restrict__ bias,
                                       float* __restrict__ out) {
@@ -53,17 +50,16 @@ __device__ __forceinline__ void store(const float (&acc)[NC][kTP],
     for (int p = 0; p < kTP; ++p) {
       float v = acc[c][p] + b;
       if (kRelu) v = fmaxf(v, 0.f);
-      if (kBf16) v = round_bf16(v);
       out[p * kW + col] = v;
     }
   }
 }
 
-template <typename WT, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_fwd_kernel(const float* __restrict__ x0,
                      const float* __restrict__ dmb,
-                     const WT* __restrict__ wts, const float* __restrict__ bs,
+                     const float* __restrict__ wts,
+                     const float* __restrict__ bs,
                      float* __restrict__ rgb, float* __restrict__ sigma,
                      int n_points) {
   extern __shared__ float4 smem4[];
@@ -77,27 +73,25 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
 
   for (int i = tid; i < kTP * kXS; i += kThreads) {
     const int p = i / kXS, k = i % kXS;
-    float v = (k < kCPos && p0 + p < n_points)
-                  ? x0[(size_t)(p0 + p) * kCPos + k] : 0.f;
-    xs[i] = kBf16 ? round_bf16(v) : v;
+    xs[i] = (k < kCPos && p0 + p < n_points)
+                ? x0[(size_t)(p0 + p) * kCPos + k] : 0.f;
   }
   for (int i = tid; i < kTP * kDS; i += kThreads) {
     const int p = i / kDS, k = i % kDS;
-    float v = (k < kCDir && p0 + p < n_points)
-                  ? dmb[(size_t)(p0 + p) * kCDir + k] : 0.f;
-    ds[i] = kBf16 ? round_bf16(v) : v;
+    ds[i] = (k < kCDir && p0 + p < n_points)
+                ? dmb[(size_t)(p0 + p) * kCDir + k] : 0.f;
   }
   __syncthreads();
 
   // trunk; the packed weights and biases are walked in layer order
-  const WT* w = wts;
+  const float* w = wts;
   const float* b = bs;
   float acc[2][kTP];
   float* in = ha;
   float* out = hb;
   zero(acc);
   dense_acc<2>(acc, xs, kXS, kCPos, w, kW);
-  store<2, true, kBf16>(acc, b, in);
+  store<2, true>(acc, b, in);
   w += (size_t)kCPos * kW;
   b += kW;
   __syncthreads();
@@ -111,7 +105,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
       dense_acc<2>(acc, in, kW, kW, w, kW);
       w += (size_t)kW * kW;
     }
-    store<2, true, kBf16>(acc, b, out);
+    store<2, true>(acc, b, out);
     b += kW;
     __syncthreads();
     float* t = in;
@@ -119,20 +113,20 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
     out = t;
   }
   // `in` holds the last trunk activation h
-  const WT* w_fin = w;
+  const float* w_fin = w;
   const float* b_fin = b;
-  const WT* w_sig = w_fin + (size_t)kW * kW;
+  const float* w_sig = w_fin + (size_t)kW * kW;
   const float b_sig = b_fin[kW];
-  const WT* w_dir = w_sig + kW;
+  const float* w_dir = w_sig + kW;
   const float* b_dir = b_fin + kW + 1;
-  const WT* w_rgb = w_dir + (size_t)(kW + kCDir) * kWHalf;
+  const float* w_rgb = w_dir + (size_t)(kW + kCDir) * kWHalf;
   const float* b_rgb = b_dir + kWHalf;
 
   // sigma head (256 -> 1, f32 out): one warp per point
   for (int p = warp; p < kTP; p += kWarps) {
     float s = 0.f;
     for (int k = lane; k < kW; k += 32)
-      s = fmaf(in[p * kW + k], to_float(w_sig[k]), s);
+      s = fmaf(in[p * kW + k], w_sig[k], s);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0 && p0 + p < n_points) sigma[p0 + p] = s + b_sig;
@@ -141,7 +135,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
   // feat = h @ w_fin + b_fin (no activation)
   zero(acc);
   dense_acc<2>(acc, in, kW, kW, w_fin, kW);
-  store<2, false, kBf16>(acc, b_fin, out);
+  store<2, false>(acc, b_fin, out);
   __syncthreads();
 
   // g = relu([feat, dmb] @ w_dir + b_dir), 128 wide, written over h
@@ -150,7 +144,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
     zero(acc1);
     dense_acc<1>(acc1, out, kW, kW, w_dir, kWHalf);
     dense_acc<1>(acc1, ds, kDS, kCDir, w_dir + (size_t)kW * kWHalf, kWHalf);
-    store<1, true, kBf16>(acc1, b_dir, in);
+    store<1, true>(acc1, b_dir, in);
   }
   __syncthreads();
 
@@ -159,9 +153,9 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
     for (int k = lane; k < kWHalf; k += 32) {
       const float g = in[p * kW + k];
-      s0 = fmaf(g, to_float(w_rgb[3 * k]), s0);
-      s1 = fmaf(g, to_float(w_rgb[3 * k + 1]), s1);
-      s2 = fmaf(g, to_float(w_rgb[3 * k + 2]), s2);
+      s0 = fmaf(g, w_rgb[3 * k], s0);
+      s1 = fmaf(g, w_rgb[3 * k + 1], s1);
+      s2 = fmaf(g, w_rgb[3 * k + 2], s2);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -178,12 +172,11 @@ fused_mlp_fwd_kernel(const float* __restrict__ x0,
   }
 }
 
-template <typename WT, bool kBf16>
-int launch(const float* x0, const float* dmb, const WT* w, const float* b,
+int launch(const float* x0, const float* dmb, const float* w, const float* b,
            float* rgb, float* sigma, int n_points, cudaStream_t stream) {
-  auto kernel = fused_mlp_fwd_kernel<WT, kBf16>;
-  // once per instantiation in this process (the port runs on one card),
-  // so a CUDA graph capture after the first call never meets it
+  auto kernel = fused_mlp_fwd_kernel;
+  // once in this process (the port runs on one card), so a CUDA graph
+  // capture after the first call never meets it
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -199,19 +192,13 @@ int launch(const float* x0, const float* dmb, const WT* w, const float* b,
 
 }  // namespace
 
-// w: packed (in, out) row-major weights of every layer in PARAM_NAMES
-// order, bf16 when bf16 != 0 else f32; b: packed f32 biases, same order.
+// w: packed (in, out) row-major f32 weights of every layer in PARAM_NAMES
+// order; b: packed f32 biases, same order.
 NERFSR_API int nerfsr_fused_mlp_fwd(const void* x0, const void* dmb,
                                     const void* w, const void* b, void* rgb,
-                                    void* sigma, int n_points, int bf16,
-                                    void* stream) {
+                                    void* sigma, int n_points, void* stream) {
   if (n_points <= 0) return 0;
-  auto st = (cudaStream_t)stream;
-  if (bf16)
-    return launch<__nv_bfloat16, true>(
-        (const float*)x0, (const float*)dmb, (const __nv_bfloat16*)w,
-        (const float*)b, (float*)rgb, (float*)sigma, n_points, st);
-  return launch<float, false>((const float*)x0, (const float*)dmb,
-                              (const float*)w, (const float*)b, (float*)rgb,
-                              (float*)sigma, n_points, st);
+  return launch((const float*)x0, (const float*)dmb, (const float*)w,
+                (const float*)b, (float*)rgb, (float*)sigma, n_points,
+                (cudaStream_t)stream);
 }

@@ -1,29 +1,20 @@
-// Kernel E: fused NeRF MLP backward (weight and bias gradients).
+// Kernel E, f32: fused NeRF MLP backward (weight and bias gradients) on
+// SIMT FMAs. The bf16 ("mixed") path runs on the tensor cores instead
+// (fused_mlp_bwd_tc.cu).
 //
 // Replaces the TPU kernel _bwd_kernel_v3 of
 // nerfsr_tpu/ops/experimental/pallas_mlp.py (_bwd, the custom VJP's
 // backward with bwd_mode="pallas"): recompute the D8/W256 forward per
 // point tile, backpropagate the rgb and sigma cotangents, and sum all 12
-// weight gradients (in, out) and 12 bias gradients over the points in
-// f32. The gradients of the inputs are zero by the JAX contract and are
+// weight gradients (in, out) and 12 bias gradients over the points, all
+// in f32. The gradients of the inputs are zero by the JAX contract and are
 // not computed.
-//
-// Numerics. f32 mode: f32 everywhere. bf16 ("mixed") mode: kernel C's
-// rule for the recompute (bf16 inputs, weights and activations, f32
-// accumulation and f32 bias); every backpropagated gradient is rounded to
-// bf16 after its ReLU mask, as v3 rounds it; the sigma cotangent stays
-// f32. (v3 recomputes with bf16 biases; the port keeps kernel C's f32
-// biases, so the two differ by a bias rounding per layer.)
 //
 // Bound on the card: operations. Per point, 593,408 multiply-adds of
 // recompute, 557,696 of input gradients (every layer but layer 0's input,
 // the skip's x0 rows and the direction layer's dmb rows) and 593,408 of
-// weight gradients: ~3.49 MFLOP, ~114 GFLOP at P = 32,768 against a few
-// hundred MB of scratch traffic.
-//
-// The kernel reads its weights in f32 in both modes (the wrapper rounds
-// them to bf16 values for mixed precision): with bf16 weights it took
-// 8.1 ms instead of 5.0 ms at P = 32,768 on the H100.
+// weight gradients: ~3.49 MFLOP, ~114 GFLOP at P = 32,768 (1.71 ms at 67
+// TFLOP/s f32) against a few hundred MB of scratch traffic.
 //
 // Design (first version: right and simple, SIMT FMAs). The TPU kernel
 // carries the weight-gradient sums in VMEM scratch across its sequential
@@ -34,8 +25,7 @@
 //                the trunk against a transposed copy of the weights (so a
 //                thread's weight row is read coalesced). It writes every
 //                layer's input activation and output gradient to global
-//                scratch, point-major, in f32 (in bf16 mode the values are
-//                bf16-exact, so every buffer of E has one type).
+//                scratch, point-major, in f32.
 //   E2 (wgrad):  dW_l = A_l^T G_l and db = sum_p G over a fixed number of
 //                point splits: block (tile, split) owns a 64 x 64 tile of
 //                one dW (or 64 bias columns) and walks its split's points
@@ -89,14 +79,19 @@ __constant__ Prod kProds[12] = {
 static_assert(kAOffX0 + kCPos == kAOffAct(3), "skip input [x0, a3]");
 
 constexpr int kSplits = 16;      // point splits of E2 (partial buffers)
-constexpr int kTotal = kNWeights + kNBiases;
+
+// E3: the sum over the splits, in split order
+__global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
+                                      float* __restrict__ out) {
+  reduce_splits(partial, out, kSplits);
+}
 constexpr int kBT = 64;          // E2 tile edge
 constexpr int kBP = 32;          // E2 points per shared-memory chunk
 constexpr int kE2Threads = 256;
 
-// forward store: out[p][col] = round?(relu?(acc + bias[col])) in shared
-// memory and in the activation scratch (column offset already applied)
-template <int NC, bool kRelu, bool kBf16>
+// forward store: out[p][col] = relu?(acc + bias[col]) in shared memory
+// and in the activation scratch (column offset already applied)
+template <int NC, bool kRelu>
 __device__ __forceinline__ void store_fwd(const float (&acc)[NC][kTP],
                                           const float* __restrict__ bias,
                                           float* __restrict__ out,
@@ -110,7 +105,6 @@ __device__ __forceinline__ void store_fwd(const float (&acc)[NC][kTP],
     for (int p = 0; p < kTP; ++p) {
       float v = acc[c][p] + b;
       if (kRelu) v = fmaxf(v, 0.f);
-      if (kBf16) v = round_bf16(v);
       out[p * kW + col] = v;
       if (p0 + p < n_points) arow[(size_t)(p0 + p) * kAW + col] = v;
     }
@@ -118,10 +112,9 @@ __device__ __forceinline__ void store_fwd(const float (&acc)[NC][kTP],
 }
 
 // backward store: v = acc, zeroed where the layer's activation (read back
-// from the scratch; null = no mask) is not positive, rounded in bf16
-// mode; to shared memory and the gradient scratch. The same thread wrote
-// that activation column, so it reads its own writes.
-template <bool kBf16>
+// from the scratch; null = no mask) is not positive; to shared memory and
+// the gradient scratch. The same thread wrote that activation column, so
+// it reads its own writes.
 __device__ __forceinline__ void store_bwd(const float (&acc)[2][kTP],
                                           const float* __restrict__ mask,
                                           float* __restrict__ out,
@@ -138,14 +131,12 @@ __device__ __forceinline__ void store_bwd(const float (&acc)[2][kTP],
         const float m = valid ? mask[(size_t)(p0 + p) * kAW + col] : 0.f;
         v = m > 0.f ? v : 0.f;
       }
-      if (kBf16) v = round_bf16(v);
       out[p * kW + col] = v;
       if (valid) grow[(size_t)(p0 + p) * kGW + col] = v;
     }
   }
 }
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 mlp_bwd_tile_kernel(const float* __restrict__ x0,
                     const float* __restrict__ dmb,
@@ -169,16 +160,14 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
   for (int i = tid; i < kTP * kXS; i += kThreads) {
     const int p = i / kXS, k = i % kXS;
     const bool ok = k < kCPos && p0 + p < n_points;
-    float v = ok ? x0[(size_t)(p0 + p) * kCPos + k] : 0.f;
-    if (kBf16) v = round_bf16(v);
+    const float v = ok ? x0[(size_t)(p0 + p) * kCPos + k] : 0.f;
     xs[i] = v;
     if (ok) acts[(size_t)(p0 + p) * kAW + kAOffX0 + k] = v;
   }
   for (int i = tid; i < kTP * kDS; i += kThreads) {
     const int p = i / kDS, k = i % kDS;
     const bool ok = k < kCDir && p0 + p < n_points;
-    float v = ok ? dmb[(size_t)(p0 + p) * kCDir + k] : 0.f;
-    if (kBf16) v = round_bf16(v);
+    const float v = ok ? dmb[(size_t)(p0 + p) * kCDir + k] : 0.f;
     ds[i] = v;
     if (ok) acts[(size_t)(p0 + p) * kAW + kAOffDmb + k] = v;
   }
@@ -190,7 +179,7 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
   float* out = hb;
   zero(acc);
   dense_acc<2>(acc, xs, kXS, kCPos, wts, kW);
-  store_fwd<2, true, kBf16>(acc, bs, in, acts + kAOffAct(0), p0, n_points);
+  store_fwd<2, true>(acc, bs, in, acts + kAOffAct(0), p0, n_points);
   __syncthreads();
   for (int l = 1; l < kD; ++l) {
     zero(acc);
@@ -201,7 +190,7 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
     } else {
       dense_acc<2>(acc, in, kW, kW, w, kW);
     }
-    store_fwd<2, true, kBf16>(acc, bs + l * kW, out, acts + kAOffAct(l), p0,
+    store_fwd<2, true>(acc, bs + l * kW, out, acts + kAOffAct(l), p0,
                               n_points);
     __syncthreads();
     float* t = in;
@@ -211,7 +200,7 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
   // `in` holds a7; feat = a7 @ w_fin + b_fin (no activation) -> `out`
   zero(acc);
   dense_acc<2>(acc, in, kW, kW, wts + kWOffFin, kW);
-  store_fwd<2, false, kBf16>(acc, bs + kBOffFin, out, acts + kAOffFeat, p0,
+  store_fwd<2, false>(acc, bs + kBOffFin, out, acts + kAOffFeat, p0,
                              n_points);
   __syncthreads();
   // g = relu([feat, dmb] @ w_dir + b_dir), 128 wide -> `in`
@@ -221,7 +210,7 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
     dense_acc<1>(acc1, out, kW, kW, wts + kWOffDir, kWHalf);
     dense_acc<1>(acc1, ds, kDS, kCDir, wts + kWOffDir + (size_t)kW * kWHalf,
                  kWHalf);
-    store_fwd<1, true, kBf16>(acc1, bs + kBOffDir, in, acts + kAOffG, p0,
+    store_fwd<1, true>(acc1, bs + kBOffDir, in, acts + kAOffG, p0,
                               n_points);
   }
   __syncthreads();
@@ -251,7 +240,6 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
                           bs[kBOffRgb + lane];
         const float rgb = 1.f / (1.f + expf(-pre));
         v = valid ? grgb[row * 3 + lane] * rgb * (1.f - rgb) : 0.f;
-        if (kBf16) v = round_bf16(v);
         if (valid) grads[row * kGW + kBOffRgb + lane] = v;
       } else {
         const float sg = valid ? gsig[row] : 0.f;
@@ -272,7 +260,6 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
     for (int p = 0; p < kTP; ++p) {
       float v = gr[p][0] * w0 + gr[p][1] * w1 + gr[p][2] * w2;
       v = in[p * kW + tid] > 0.f ? v : 0.f;
-      if (kBf16) v = round_bf16(v);
       out[p * kW + tid] = v;
       if (p0 + p < n_points)
         grads[(size_t)(p0 + p) * kGW + kBOffDir + tid] = v;
@@ -282,7 +269,7 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
   // gfeat = gg @ w_dir[:256]^T -> `in`
   zero(acc);
   dense_acc<2>(acc, out, kW, kWHalf, wts_t + kWOffDir, kW + kCDir);
-  store_bwd<kBf16>(acc, nullptr, in, grads + kBOffFin, p0, n_points);
+  store_bwd(acc, nullptr, in, grads + kBOffFin, p0, n_points);
   __syncthreads();
   // gh7 (pre-mask) = gfeat @ w_fin^T + gsigma * w_sig^T
   zero(acc);
@@ -296,7 +283,7 @@ mlp_bwd_tile_kernel(const float* __restrict__ x0,
   // down the trunk: mask with a_l, store gh_l, then gh_{l-1} (pre-mask) =
   // gh_l @ w_l[h rows]^T
   for (int l = kD - 1; l >= 0; --l) {
-    store_bwd<kBf16>(acc, acts + kAOffAct(l), out, grads + l * kW, p0,
+    store_bwd(acc, acts + kAOffAct(l), out, grads + l * kW, p0,
                      n_points);
     __syncthreads();
     if (l > 0) {
@@ -403,17 +390,6 @@ mlp_bwd_wgrad_kernel(const float* __restrict__ acts,
   }
 }
 
-// E3: out[i] = sum over splits, in split order
-__global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= kTotal) return;
-  float s = 0.f;
-#pragma unroll
-  for (int sp = 0; sp < kSplits; ++sp) s += partial[(size_t)sp * kTotal + i];
-  out[i] = s;
-}
-
 int n_tiles() {
   int n = (kGW + kBT - 1) / kBT;
   const int dims[12][2] = {{kCPos, kW}, {kW, kW}, {kW, kW}, {kW, kW},
@@ -424,13 +400,12 @@ int n_tiles() {
   return n;
 }
 
-template <bool kBf16>
 int launch(const float* x0, const float* dmb, const float* grgb,
            const float* gsig, const float* w, const float* wt, const float* b,
            float* acts, float* grads, float* partial, float* out,
            int n_points, cudaStream_t stream) {
-  auto tile = mlp_bwd_tile_kernel<kBf16>;
-  // once per instantiation in this process (the port runs on one card)
+  auto tile = mlp_bwd_tile_kernel;
+  // once in this process (the port runs on one card)
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -446,33 +421,31 @@ int launch(const float* x0, const float* dmb, const float* grgb,
       acts, grads, partial, n_points);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mlp_bwd_reduce_kernel<<<(kTotal + 255) / 256, 256, 0, stream>>>(partial,
-                                                                   out);
+  mlp_bwd_reduce_kernel
+      <<<(kTotal + 255) / 256, 256, 0, stream>>>(partial, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x0 (P, 63), dmb (P, 27), grgb (P, 3), gsig (P) f32; w / wt: packed
-// weights and their per-layer transposes (out, in), same offsets, f32
-// (already rounded to bf16 values when bf16 != 0, which selects the
-// mixed-precision rounding rule); b: packed f32 biases. Scratch, f32:
-// acts (P, 2522), grads (P, 2436), partial (16, 595844).
-// out (595844) f32: the packed weight gradients, then the bias gradients.
+// weights and their per-layer transposes (out, in), same offsets, f32;
+// b: packed f32 biases. Scratch, f32: acts (P, 2522), grads (P, 2436),
+// partial (16, 595844). out (595844) f32: the packed weight gradients,
+// then the bias gradients.
 NERFSR_API int nerfsr_fused_mlp_bwd(const void* x0, const void* dmb,
                                     const void* grgb, const void* gsig,
                                     const void* w, const void* wt,
                                     const void* b, void* acts, void* grads,
                                     void* partial, void* out, int n_points,
-                                    int bf16, void* stream) {
+                                    void* stream) {
   auto st = (cudaStream_t)stream;
   if (n_points <= 0)
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * kTotal, st);
-  auto run = bf16 ? launch<true> : launch<false>;
-  return run((const float*)x0, (const float*)dmb, (const float*)grgb,
-             (const float*)gsig, (const float*)w, (const float*)wt,
-             (const float*)b, (float*)acts, (float*)grads, (float*)partial,
-             (float*)out, n_points, st);
+  return launch((const float*)x0, (const float*)dmb, (const float*)grgb,
+                (const float*)gsig, (const float*)w, (const float*)wt,
+                (const float*)b, (float*)acts, (float*)grads,
+                (float*)partial, (float*)out, n_points, st);
 }
 
 // The scratch shapes the wrapper allocates.

@@ -100,6 +100,19 @@ __device__ __forceinline__ void dense_acc(float (&acc)[NC][kTP],
   }
 }
 
+// Kernel E's last pass, one thread per output: out[i] = the sum of the
+// `splits` partial gradient buffers (kTotal floats each), in split order
+constexpr int kTotal = kNWeights + kNBiases;
+__device__ __forceinline__ void reduce_splits(const float* __restrict__ partial,
+                                              float* __restrict__ out,
+                                              int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= kTotal) return;
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += partial[(size_t)sp * kTotal + i];
+  out[i] = s;
+}
+
 template <int NC>
 __device__ __forceinline__ void zero(float (&acc)[NC][kTP]) {
 #pragma unroll

@@ -30,15 +30,16 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp.cu",
-           "fused_mlp_bwd.cu")
-HEADERS = ("common.cuh", "mlp_tile.cuh")
+           "fused_mlp_bwd.cu", "fused_mlp_tc.cu", "fused_mlp_bwd_tc.cu")
+HEADERS = ("common.cuh", "mlp_tile.cuh", "mlp_tc.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 COUNTS = {"invert_cdf": 0, "composite_fwd": 0, "fused_mlp_fwd": 0,
           "composite_bwd": 0, "fused_mlp_bwd": 0}
-# kernel launches behind one count of a wrapper (kernel E runs as three:
-# tile recompute and backprop, weight-gradient partials, reduce)
+# kernel launches behind one count of a wrapper (kernel E runs as three,
+# in bf16 and in f32: tile recompute and backprop, weight-gradient
+# partials, reduce)
 LAUNCHES_PER_CALL = {"invert_cdf": 1, "composite_fwd": 1,
                      "fused_mlp_fwd": 1, "composite_bwd": 1,
                      "fused_mlp_bwd": 3}
@@ -51,16 +52,27 @@ _SIGNATURES = {
     # rgb, sigma, z, comp, depth, opacity, weights, n, s, softplus,
     # white_bkgd, stream
     "nerfsr_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x0, dmb, w, b, rgb, sigma, n_points, bf16, stream
-    "nerfsr_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # x0, dmb, w, b, rgb, sigma, n_points, stream
+    "nerfsr_fused_mlp_fwd": [_P] * 6 + [_I, _P],
     # rgb, sigma, z, gc, gd, go, gw, grgb, gsigma, gz, n, s, softplus,
     # white_bkgd, stream
     "nerfsr_composite_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     # x0, dmb, grgb, gsigma, w, wt, b, acts, grads, partial, out,
-    # n_points, bf16, stream
-    "nerfsr_fused_mlp_bwd": [_P] * 11 + [_I, _I, _P],
+    # n_points, stream
+    "nerfsr_fused_mlp_bwd": [_P] * 11 + [_I, _P],
     # -> act_width, grad_width, splits, total
     "nerfsr_fused_mlp_bwd_layout": [_IP, _IP, _IP, _IP],
+    # x0, dmb, wimg, b, heads, rgb, sigma, n_points, stream
+    "nerfsr_fused_mlp_fwd_tc": [_P] * 7 + [_I, _P],
+    # x0, dmb, grgb, gsigma, wimg, wimg_bwd, b, heads, acts, grads,
+    # partial, out, n_points, stream
+    "nerfsr_fused_mlp_bwd_tc": [_P] * 12 + [_I, _P],
+    # -> fwd_image_bytes, bwd_image_bytes, head_floats
+    "nerfsr_fused_mlp_tc_layout": [_IP, _IP, _IP],
+    # -> act_width, grad_width, splits, total
+    "nerfsr_fused_mlp_bwd_tc_layout": [_IP, _IP, _IP, _IP],
+    # x, wimg, d, stream
+    "nerfsr_tc_probe": [_P, _P, _P, _P],
 }
 
 _state = {"lib": None, "log": ""}

@@ -1,5 +1,6 @@
 """Kernels C and E: fused NeRF MLP forward and backward
-(``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu``).
+(``csrc/fused_mlp_tc.cu``, ``csrc/fused_mlp_bwd_tc.cu`` in bf16;
+``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu`` in f32).
 
 Twin of ``nerfsr_tpu/ops/experimental/pallas_mlp.py``: ``fused_nerf_mlp``'s
 forward (``_fwd`` / ``_fwd_pass``, kernel C) and its custom VJP's
@@ -22,12 +23,23 @@ PyTorch.
 x0, dmb): forward kernel C, backward kernel E. It returns no gradient for
 x0 and dmb, the JAX contract (their gradients are zero: sample points
 come from detached depths). A CPU tensor takes the plain versions; a
-CUDA tensor launches the kernels or raises.
+CUDA tensor launches the kernels or raises. The compute dtype picks the
+kernels: bfloat16 runs the tensor-core kernels (``csrc/fused_mlp_tc.cu``,
+``csrc/fused_mlp_bwd_tc.cu``), float32 the SIMT ones (``csrc/fused_mlp.cu``,
+``csrc/fused_mlp_bwd.cu``).
+
+The packed weights are cached on the parameters' identity and version
+counters (``packed``): serving packs once for all chunks of all views,
+training once per step for kernels C and E together. An in-place update
+of a parameter (an optimizer step, ``copy_`` under ``no_grad``) bumps its
+version and repacks; a write through ``.data`` is not seen.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -58,6 +70,23 @@ N_BIASES = sum(_OUT_DIMS)                                      # 2,436
 ACT_WIDTH = 8 * W + C_POS + W + C_DIR + W_HALF                 # 2,522
 E_SPLITS = 16
 
+# The bf16 tensor-core kernels (csrc/mlp_tc.cuh). Weights go in as
+# chunks of 64 reduction rows (32 for the direction layer's dmb rows),
+# each the exact shared-memory image wgmma reads: B (N, K) K-major in
+# 8 x 8 core matrices, [N/8][K/8][8][8]. x0 is padded 63 -> 64 and dmb
+# 27 -> 32 with zero rows.
+TC_X0 = 64
+TC_DMB = 32
+TC_CHUNK = 64
+TC_FWD_IMAGE = 593_920          # bf16 values: 34 x 64x256, 4 x 64x128, 32x128
+TC_BWD_IMAGE = 34 * TC_CHUNK * W
+TC_HEADS = W + W_HALF * 3       # f32: w_sig, then w_rgb (128, 3)
+# kernel E's bf16 scratch rows (csrc/fused_mlp_bwd_tc.cu): activations
+# a0 | a1 | a2 | x0 (64) | a3 .. a7 | feat | dmb (32) | g, and gradients
+# gh0 .. gh7 | gfeat | gg | grgb_pre (8)
+TC_ACT_WIDTH = 8 * W + TC_X0 + W + TC_DMB + W_HALF             # 2,528
+TC_GRAD_WIDTH = 8 * W + W + W_HALF + 8                         # 2,440
+
 
 def flatten_params(mlp) -> tuple:
     """VanillaMLP module -> flat (kernel (in, out), bias (1, out)) tuple in
@@ -73,7 +102,7 @@ def flatten_params(mlp) -> tuple:
 
 def _rounder(compute_dtype):
     if compute_dtype == torch.bfloat16:
-        return lambda t: t.to(torch.bfloat16).float()
+        return lambda t: t.to(torch.bfloat16).to(t.dtype)
     if compute_dtype == torch.float32:
         return lambda t: t.float()
     raise ValueError(f"compute dtype {compute_dtype}: bfloat16 or float32")
@@ -101,37 +130,207 @@ def fused_mlp_plain(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
     return rgb, sigma[:, 0]
 
 
-def pack_params(params_flat, compute_dtype):
-    """The kernel's two buffers: every kernel (in, out) row-major back to
-    back in ``compute_dtype``, and every bias in f32, in PARAM_NAMES
-    order."""
+def tc_chunk_image(b: torch.Tensor) -> torch.Tensor:
+    """B (N, K) -> its wgmma image: K-major 8 x 8 core matrices,
+    [N/8][K/8][8][8], flat."""
+    n, k = b.shape
+    return b.reshape(n // 8, 8, k // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+def _rows_padded(w: torch.Tensor, r0: int, r1: int, k: int) -> torch.Tensor:
+    """Rows r0:r1 of a kernel (in, out), zero-padded to k rows."""
+    out = w.new_zeros((k, w.shape[1]))
+    out[:r1 - r0] = w[r0:r1]
+    return out
+
+
+def tc_fwd_chunks(kernels):
+    """The forward image's chunks as B (N, K) = the rows of W^T that one
+    chunk covers, in the kernel's consumption order (csrc/mlp_tc.cuh):
+    layer 0, layers 1-3, layer 4 (x0 rows, then h rows), layers 5-7,
+    final, direction layer (feat rows in 4 chunks, then dmb rows)."""
+    chunks = []
+    for i in range(D):
+        w = kernels[i]
+        if i in (0, SKIP):
+            chunks.append(_rows_padded(w, 0, C_POS, TC_X0).t())
+        h0 = C_POS if i == SKIP else 0
+        if i > 0:
+            chunks += [w[h0 + c:h0 + c + TC_CHUNK].t()
+                       for c in range(0, W, TC_CHUNK)]
+    w_fin, w_dir = kernels[D], kernels[D + 2]
+    chunks += [w_fin[c:c + TC_CHUNK].t() for c in range(0, W, TC_CHUNK)]
+    chunks += [w_dir[c:c + TC_CHUNK].t() for c in range(0, W, TC_CHUNK)]
+    chunks.append(_rows_padded(w_dir, W, W + C_DIR, TC_DMB).t())
+    return chunks
+
+
+def tc_bwd_chunks(kernels):
+    """The backward image's chunks as B (N, K) = W[h rows, out block]
+    (the product gh @ W^T reduces over the layer's outputs), in the
+    kernel's order: the direction layer's feat rows, final, layers 7..1."""
+    mats = [kernels[D + 2][:W], kernels[D]]
+    mats += [kernels[i][C_POS:] if i == SKIP else kernels[i]
+             for i in range(D - 1, 0, -1)]
+    return [m[:, c:c + TC_CHUNK] for m in mats
+            for c in range(0, m.shape[1], TC_CHUNK)]
+
+
+_image_index: dict = {}
+
+
+def _tc_index(chunks_fn, device) -> torch.Tensor:
+    """Where each value of a weight image comes from: an index into the
+    kernels' transposes (each ``(out, in)`` row-major) back to back in
+    PARAM_NAMES order, then one zero (the padding rows). Built once per
+    image and device by running the chunk packer on the indices."""
+    key = (chunks_fn, device)
+    if key not in _image_index:
+        src = torch.arange(1, N_WEIGHTS + 1, dtype=torch.float64)
+        kernels, o = [], 0
+        for i, n in zip(_IN_DIMS, _OUT_DIMS):
+            kernels.append(src[o:o + i * n].view(n, i).t())
+            o += i * n
+        idx = torch.cat([tc_chunk_image(c) for c in chunks_fn(kernels)])
+        idx = idx.long() - 1
+        idx[idx < 0] = N_WEIGHTS
+        _image_index[key] = idx.to(device)
+    return _image_index[key]
+
+
+def _tc_image(params_flat, chunks_fn) -> torch.Tensor:
+    """A bf16 weight image: one gather from the kernels' transposes."""
+    src = torch.cat([k.t().reshape(-1) for k in params_flat[0::2]]
+                    + [params_flat[0].new_zeros(1)]).to(torch.bfloat16)
+    return src[_tc_index(chunks_fn, src.device)]
+
+
+def pack_tc(params_flat):
+    """Kernel C's bf16 buffers: the forward weight image (bf16), the
+    packed f32 biases and the f32 head weights (w_sig, then w_rgb, as
+    bf16 values)."""
+    biases = torch.cat([b.reshape(-1) for b in params_flat[1::2]]).float()
+    heads = torch.cat([params_flat[2 * D + 2].reshape(-1),
+                       params_flat[2 * D + 6].reshape(-1)])
+    return (_tc_image(params_flat, tc_fwd_chunks), biases.contiguous(),
+            heads.to(torch.bfloat16).float().contiguous())
+
+
+def pack_tc_bwd(params_flat):
+    """Kernel E's second bf16 image (the input-gradient products)."""
+    return _tc_image(params_flat, tc_bwd_chunks)
+
+
+def pack_params(params_flat):
+    """The f32 SIMT kernel C's two buffers: every kernel (in, out)
+    row-major back to back, and every bias, in PARAM_NAMES order."""
     kernels = torch.cat([k.reshape(-1) for k in params_flat[0::2]])
     biases = torch.cat([b.reshape(-1) for b in params_flat[1::2]])
-    return (kernels.to(compute_dtype).contiguous(),
-            biases.float().contiguous())
+    return kernels.float().contiguous(), biases.float().contiguous()
+
+
+_CACHE_SLOTS = 4
+_cache: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def packed(params_flat, kind: str):
+    """The packed buffers of ``kind`` ("tc", "tc_bwd", "simt", "simt_bwd")
+    for these parameters, packed again only when a parameter is another
+    tensor or its version counter moved. The entry holds the parameters
+    (the bases of views such as ``weight.t()``), so their ids stay
+    theirs while it lives."""
+    bases = tuple(t if t._base is None else t._base for t in params_flat)
+    key = (kind,) + tuple(id(b) for b in bases)
+    versions = tuple(t._version for t in params_flat)
+    hit = _cache.get(key)
+    if hit is not None and hit[0] == versions:
+        _cache.move_to_end(key)
+        return hit[2]
+    with torch.no_grad():
+        if kind == "tc":
+            value = pack_tc(params_flat)
+        elif kind == "tc_bwd":
+            value = pack_tc_bwd(params_flat)
+        elif kind == "simt":
+            value = pack_params(params_flat)
+        elif kind == "simt_bwd":
+            value = pack_bwd_params(params_flat)
+        else:
+            raise ValueError(f"packing kind {kind}")
+    _cache[key] = (versions, bases, value)
+    _cache.move_to_end(key)
+    while len(_cache) > _CACHE_SLOTS:
+        _cache.popitem(last=False)
+    return value
+
+
+@functools.lru_cache(maxsize=None)
+def _check_tc_layout():
+    """The bf16 kernels' image and scratch sizes as the library reports
+    them (checked once per process)."""
+    vals = [ctypes.c_int() for _ in range(7)]
+    _lib.lib().nerfsr_fused_mlp_tc_layout(*map(ctypes.byref, vals[:3]))
+    _lib.lib().nerfsr_fused_mlp_bwd_tc_layout(*map(ctypes.byref, vals[3:]))
+    got = tuple(v.value for v in vals)
+    want = (2 * TC_FWD_IMAGE, 2 * TC_BWD_IMAGE, TC_HEADS, TC_ACT_WIDTH,
+            TC_GRAD_WIDTH, E_SPLITS, N_WEIGHTS + N_BIASES)
+    if got != want:
+        raise RuntimeError(f"tensor-core kernel layout {got}, expected "
+                           f"{want}")
 
 
 def _kernel_c(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
               compute_dtype):
     """Launch kernel C: x0 (P, 63), dmb (P, 27) f32 -> rgb (P, 3) f32,
-    sigma (P,) f32."""
-    p = x0.shape[0]
+    sigma (P,) f32; the tensor-core kernel in bf16, the SIMT one in
+    f32."""
+    p, dev = x0.shape[0], x0.device
     _lib.check_cuda(x0, "x0", (p, C_POS))
-    _lib.check_cuda(dmb, "dmb", (p, C_DIR), device=x0.device)
-    w, b = pack_params(params_flat, compute_dtype)
-    _lib.check_cuda(w, "packed weights", (N_WEIGHTS,), compute_dtype,
-                    device=x0.device)
-    _lib.check_cuda(b, "packed biases", (N_BIASES,), device=x0.device)
-    rgb = torch.empty((p, 3), dtype=torch.float32, device=x0.device)
-    sigma = torch.empty((p,), dtype=torch.float32, device=x0.device)
-    with torch.cuda.device(x0.device):
-        err = _lib.lib().nerfsr_fused_mlp_fwd(
-            x0.data_ptr(), dmb.data_ptr(), w.data_ptr(), b.data_ptr(),
-            rgb.data_ptr(), sigma.data_ptr(), p,
-            int(compute_dtype == torch.bfloat16), _lib.stream_ptr(x0))
+    _lib.check_cuda(dmb, "dmb", (p, C_DIR), device=dev)
+    rgb = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    sigma = torch.empty((p,), dtype=torch.float32, device=dev)
+    if compute_dtype == torch.bfloat16:
+        img, b, heads = packed(params_flat, "tc")
+        _lib.check_cuda(img, "weight image", (TC_FWD_IMAGE,),
+                        torch.bfloat16, device=dev)
+        _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
+        _lib.check_cuda(heads, "head weights", (TC_HEADS,), device=dev)
+        _check_tc_layout()
+        with torch.cuda.device(dev):
+            err = _lib.lib().nerfsr_fused_mlp_fwd_tc(
+                x0.data_ptr(), dmb.data_ptr(), img.data_ptr(),
+                b.data_ptr(), heads.data_ptr(), rgb.data_ptr(),
+                sigma.data_ptr(), p, _lib.stream_ptr(x0))
+    else:
+        w, b = packed(params_flat, "simt")
+        _lib.check_cuda(w, "packed weights", (N_WEIGHTS,), device=dev)
+        _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
+        with torch.cuda.device(dev):
+            err = _lib.lib().nerfsr_fused_mlp_fwd(
+                x0.data_ptr(), dmb.data_ptr(), w.data_ptr(), b.data_ptr(),
+                rgb.data_ptr(), sigma.data_ptr(), p, _lib.stream_ptr(x0))
     _lib.check(err, "fused_mlp_fwd")
     _lib.COUNTS["fused_mlp_fwd"] += 1
     return rgb, sigma
+
+
+def tc_probe(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One 256 -> 256 product through the tensor-core tile, its ring and
+    descriptors: x (128, 256) bf16 @ w (256, 256) as a trunk layer's
+    kernel (rounded to bf16) -> (128, 256) f32. Pins the image and
+    descriptor layout on its own; no launch count (not a main-path
+    kernel)."""
+    _lib.check_cuda(x, "x", (128, W), torch.bfloat16)
+    _lib.check_cuda(w, "w", (W, W), device=x.device)
+    kb = w.to(torch.bfloat16)
+    img = torch.cat([tc_chunk_image(kb[c:c + TC_CHUNK].t())
+                     for c in range(0, W, TC_CHUNK)]).contiguous()
+    d = torch.empty((128, W), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib.lib().nerfsr_tc_probe(x.data_ptr(), img.data_ptr(),
+                                         d.data_ptr(), _lib.stream_ptr(x))
+    _lib.check(err, "tc_probe")
+    return d
 
 
 def fused_mlp_bwd_plain(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
@@ -162,7 +361,7 @@ def fused_mlp_bwd_plain(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
     grgb_pre = r(grgb * rgb * (1.0 - rgb))
     gg = r((grgb_pre @ w_rgb.t()) * (g > 0))
     gfeat = r(gg @ w_dir[:W].t())
-    gsig = gsigma.reshape(-1, 1).float()
+    gsig = gsigma.reshape(-1, 1).to(x0.dtype)
     dws, dbs = [None] * (D + 4), [None] * (D + 4)
     dws[D + 3], dbs[D + 3] = g.t() @ grgb_pre, grgb_pre.sum(0)
     dws[D + 2], dbs[D + 2] = din.t() @ gg, gg.sum(0)
@@ -181,12 +380,11 @@ def fused_mlp_bwd_plain(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
     return tuple(out)
 
 
-def pack_bwd_params(params_flat, compute_dtype):
-    """Kernel E's three buffers, all f32: the kernels rounded by the
-    ``compute_dtype`` rule, row-major (in, out) back to back, the same
-    transposed to (out, in) at the same offsets, and the biases."""
-    r = _rounder(compute_dtype)
-    kernels = [r(k) for k in params_flat[0::2]]
+def pack_bwd_params(params_flat):
+    """The f32 SIMT kernel E's three buffers: the kernels row-major (in,
+    out) back to back, the same transposed to (out, in) at the same
+    offsets, and the biases."""
+    kernels = [k.float() for k in params_flat[0::2]]
     w = torch.cat([k.reshape(-1) for k in kernels])
     wt = torch.cat([k.t().reshape(-1) for k in kernels])
     b = torch.cat([b.reshape(-1) for b in params_flat[1::2]]).float()
@@ -204,8 +402,10 @@ def _unpack_grads(flat_grad):
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
 def _layout_ok():
-    """Kernel E's scratch layout as the library reports it."""
+    """Kernel E's scratch layout as the library reports it (checked once
+    per process)."""
     vals = [ctypes.c_int() for _ in range(4)]
     _lib.lib().nerfsr_fused_mlp_bwd_layout(*map(ctypes.byref, vals))
     got = tuple(v.value for v in vals)
@@ -227,24 +427,47 @@ def fused_mlp_bwd(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
     _lib.check_cuda(dmb, "dmb", (p, C_DIR), device=dev)
     _lib.check_cuda(grgb, "grgb", (p, 3), device=dev)
     _lib.check_cuda(gsigma, "gsigma", (p,), device=dev)
-    w, wt, b = pack_bwd_params(params_flat, compute_dtype)
-    for name, x in (("packed weights", w), ("transposed weights", wt)):
-        _lib.check_cuda(x, name, (N_WEIGHTS,), device=dev)
-    _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
-    _layout_ok()
-    acts = torch.empty((p, ACT_WIDTH), dtype=torch.float32, device=dev)
-    grads = torch.empty((p, N_BIASES), dtype=torch.float32, device=dev)
     partial = torch.empty((E_SPLITS, N_WEIGHTS + N_BIASES),
                           dtype=torch.float32, device=dev)
     out = torch.empty((N_WEIGHTS + N_BIASES,), dtype=torch.float32,
                       device=dev)
-    with torch.cuda.device(dev):
-        err = _lib.lib().nerfsr_fused_mlp_bwd(
-            x0.data_ptr(), dmb.data_ptr(), grgb.data_ptr(),
-            gsigma.data_ptr(), w.data_ptr(), wt.data_ptr(), b.data_ptr(),
-            acts.data_ptr(), grads.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), p, int(compute_dtype == torch.bfloat16),
-            _lib.stream_ptr(x0))
+    if compute_dtype == torch.bfloat16:
+        img, b, heads = packed(params_flat, "tc")
+        img_bwd = packed(params_flat, "tc_bwd")
+        _lib.check_cuda(img, "weight image", (TC_FWD_IMAGE,),
+                        torch.bfloat16, device=dev)
+        _lib.check_cuda(img_bwd, "backward weight image", (TC_BWD_IMAGE,),
+                        torch.bfloat16, device=dev)
+        _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
+        _lib.check_cuda(heads, "head weights", (TC_HEADS,), device=dev)
+        _check_tc_layout()
+        if gsigma.data_ptr() % 16:   # E2 reads it by TMA
+            gsigma = gsigma.clone()
+        acts = torch.empty((p, TC_ACT_WIDTH), dtype=torch.bfloat16,
+                           device=dev)
+        grads = torch.empty((p, TC_GRAD_WIDTH), dtype=torch.bfloat16,
+                            device=dev)
+        with torch.cuda.device(dev):
+            err = _lib.lib().nerfsr_fused_mlp_bwd_tc(
+                x0.data_ptr(), dmb.data_ptr(), grgb.data_ptr(),
+                gsigma.data_ptr(), img.data_ptr(), img_bwd.data_ptr(),
+                b.data_ptr(), heads.data_ptr(), acts.data_ptr(),
+                grads.data_ptr(), partial.data_ptr(), out.data_ptr(), p,
+                _lib.stream_ptr(x0))
+    else:
+        w, wt, b = packed(params_flat, "simt_bwd")
+        for name, x in (("packed weights", w), ("transposed weights", wt)):
+            _lib.check_cuda(x, name, (N_WEIGHTS,), device=dev)
+        _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
+        _layout_ok()
+        acts = torch.empty((p, ACT_WIDTH), dtype=torch.float32, device=dev)
+        grads = torch.empty((p, N_BIASES), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = _lib.lib().nerfsr_fused_mlp_bwd(
+                x0.data_ptr(), dmb.data_ptr(), grgb.data_ptr(),
+                gsigma.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                b.data_ptr(), acts.data_ptr(), grads.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), p, _lib.stream_ptr(x0))
     _lib.check(err, "fused_mlp_bwd")
     _lib.COUNTS["fused_mlp_bwd"] += 1
     return _unpack_grads(out)

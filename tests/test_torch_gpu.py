@@ -153,3 +153,48 @@ def test_fused_mlp_bwd_kernel(dev, dtype, bar):
     assert COUNTS["fused_mlp_fwd"] == 1 and COUNTS["fused_mlp_bwd"] == 3
     assert torch.equal(net.rgb.weight.grad.t(), got[-2])
     assert torch.equal(net.xyz_encoding_1.bias.grad, got[1][0])
+
+
+def test_tc_probe_one_layer(dev):
+    """One 256 -> 256 product through the tensor-core tile (weight image,
+    ring, descriptors, accumulator layout) against torch.matmul of the
+    same bf16 operands in f32 (another f32 summation order)."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((128, 256), generator=gen).to(torch.bfloat16).to(dev)
+    w = (torch.randn((256, 256), generator=gen) / 16).to(dev)
+    got = kmlp.tc_probe(x, w)
+    ref = x.float() @ w.to(torch.bfloat16).float()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("p", [1, 63, 127, 129, 1000])
+def test_fused_mlp_tc_ragged(dev, p):
+    """The bf16 tensor-core kernels C and E at ragged sizes against their
+    plain versions; E gives the same bits twice. C's bar is
+    test_fused_mlp_kernel's. E's is wider than test_fused_mlp_bwd_kernel's:
+    over a few hundred points one row's cascade of bf16 rounding flips
+    (chip_smoke.py, TOL_MLP_BWD) dominates a leaf (seen 2.2e-2 at P = 127
+    on the H100, where the plain version was 4e-4 from the f64 rule)."""
+    gen = torch.Generator().manual_seed(6)
+    net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
+    pts = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((p, 3), generator=gen), dim=-1).to(dev)
+    grgb = torch.randn((p, 3), generator=gen).to(dev)
+    gsig = torch.randn((p,), generator=gen).to(dev)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        flat = kmlp.flatten_params(net)
+        x0, dmb = kmlp.embed(pts, dirs)
+        reset_counts()
+        rgb, sigma = kmlp.fused_mlp_fwd(flat, x0, dmb, bf16)
+        got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, bf16)
+        again = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, bf16)
+        torch.cuda.synchronize()
+        assert COUNTS["fused_mlp_fwd"] == 1 and COUNTS["fused_mlp_bwd"] == 2
+        ref_rgb, ref_sigma = kmlp.fused_mlp_plain(flat, x0, dmb, bf16)
+        ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, bf16)
+    torch.testing.assert_close(rgb, ref_rgb, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(sigma, ref_sigma, rtol=2e-2, atol=2e-2)
+    assert max(_rel_errs(got, ref)) < 5e-2
+    assert all(torch.equal(a, g) for a, g in zip(again, got))

@@ -7,9 +7,11 @@ The backward kernels' plain versions (D: ``composite_bwd_plain``, E:
 kernels in interpret mode, its XLA backward and torch autograd.
 
 Also checks what the CUDA kernels rely on and the CPU can reach: kernel
-C's packed weight layout (walked here exactly as ``csrc/fused_mlp.cu``
-walks it), that gradients flow through the wrappers' autograd Functions,
-and that the CPU path launches nothing.
+C's packed weight layouts (the f32 buffers walked here exactly as
+``csrc/fused_mlp.cu`` walks them; the bf16 tensor-core image unpacked and
+walked in ``csrc/mlp_tc.cuh``'s chunk order), kernel E's bf16 image and
+scratch layout, the packing cache, that gradients flow through the
+wrappers' autograd Functions, and that the CPU path launches nothing.
 """
 
 import jax
@@ -285,12 +287,77 @@ def _forward_from_packed(w, b, x0, dmb):
     return rgb, sigma
 
 
+# (N, K) of every chunk of the tensor-core weight images, in the order
+# csrc/mlp_tc.cuh consumes them
+_W, _H = kmlp.W, kmlp.W_HALF
+TC_FWD_SHAPES = ([(_W, 64)] + [(_W, 64)] * 12 + [(_W, 64)] * 5
+                 + [(_W, 64)] * 12 + [(_W, 64)] * 4 + [(_H, 64)] * 4
+                 + [(_H, 32)])
+TC_BWD_SHAPES = [(_W, 64)] * 34
+
+
+def _unpack_tc_image(img, shapes):
+    """Undo the core-matrix order of each chunk: -> B (N, K) per chunk,
+    the kernel's view of its reduction rows."""
+    img = np.asarray(img, np.float64)
+    out, o = [], 0
+    for n, k in shapes:
+        c = img[o:o + n * k].reshape(n // 8, k // 8, 8, 8)
+        out.append(c.transpose(0, 2, 1, 3).reshape(n, k))
+        o += n * k
+    assert o == img.size
+    return out
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x)).to(torch.bfloat16).double() \
+        .numpy()
+
+
+def _forward_from_tc_image(img, b, heads, x0, dmb):
+    """Kernel C's bf16 walk over the tensor-core image, in numpy: each
+    product sums its chunks (A's next K columns against a chunk's B) in
+    consumption order; activations rounded to bf16, biases in f32, the
+    heads from the f32 head buffer."""
+    chunks = iter(_unpack_tc_image(img, TC_FWD_SHAPES))
+    W = kmlp.W
+
+    def prod(a, n_chunks):
+        acc, k0 = 0.0, 0
+        for _ in range(n_chunks):
+            bm = next(chunks)
+            acc = acc + a[:, k0:k0 + bm.shape[1]] @ bm.T
+            k0 += bm.shape[1]
+        assert k0 == a.shape[1]
+        return acc
+
+    x = np.pad(_bf16(x0), ((0, 0), (0, kmlp.TC_X0 - kmlp.C_POS)))
+    d = np.pad(_bf16(dmb), ((0, 0), (0, kmlp.TC_DMB - kmlp.C_DIR)))
+    h = None
+    for layer in range(kmlp.D):
+        acc = prod(x, 1) if layer in (0, kmlp.SKIP) else 0.0
+        if layer > 0:
+            acc = acc + prod(h, 4)
+        h = _bf16(np.maximum(acc + b[layer * W:(layer + 1) * W], 0))
+    o = kmlp.D * W
+    feat = _bf16(prod(h, 4) + b[o:o + W])
+    sigma = h @ heads[:W] + b[o + W]
+    g = _bf16(np.maximum(prod(feat, 4) + prod(d, 1)
+                         + b[o + W + 1:o + W + 1 + kmlp.W_HALF], 0))
+    pre = g @ heads[W:].reshape(kmlp.W_HALF, 3) + b[-3:]
+    assert next(chunks, None) is None
+    return 1 / (1 + np.exp(-pre)), sigma
+
+
 def test_packed_layout_matches_kernel_walk():
+    """The SIMT kernel's packed buffers and the tensor-core kernel's
+    weight image, each walked in numpy as its kernel walks it, against
+    the plain forward; the image unpacks to every layer's bf16 kernel
+    exactly, padding rows zero."""
     _, _, jflat = _flax_mlp(jnp.float32, seed=1)
     flat = _port_flat(jflat)
-    w, b = kmlp.pack_params(flat, torch.float32)
+    w, b = kmlp.pack_params(flat)
     assert w.shape == (593408,) and b.shape == (2436,)
-    assert kmlp.pack_params(flat, torch.bfloat16)[0].dtype == torch.bfloat16
     pts, dirs = _points(32, 3)
     x0, dmb = kmlp.embed(t(pts), t(dirs))
     rgb, sigma = _forward_from_packed(w.double().numpy(),
@@ -301,6 +368,115 @@ def test_packed_layout_matches_kernel_walk():
         ref_rgb, ref_sigma = kmlp.fused_mlp_plain(flat, x0, dmb)
     np.testing.assert_allclose(rgb, ref_rgb.numpy(), **MLP_F32_TOL)
     np.testing.assert_allclose(sigma, ref_sigma.numpy(), **MLP_F32_TOL)
+
+    img, tb, heads = kmlp.pack_tc(flat)
+    assert img.dtype == torch.bfloat16 and img.shape == (kmlp.TC_FWD_IMAGE,)
+    assert sum(n * k for n, k in TC_FWD_SHAPES) == kmlp.TC_FWD_IMAGE
+    assert kmlp.TC_FWD_IMAGE * 2 == 1187840    # csrc/mlp_tc.cuh
+    torch.testing.assert_close(tb, b, rtol=0, atol=0)
+    kb = [_bf16(k.numpy()) for k in flat[0::2]]
+    np.testing.assert_array_equal(heads.double().numpy(), np.concatenate(
+        [kb[kmlp.D + 1].ravel(), kb[kmlp.D + 3].ravel()]))
+    chunks = [c.T for c in _unpack_tc_image(img.float().numpy(),
+                                            TC_FWD_SHAPES)]
+    rebuilt, i = [], 0
+    for layer in range(kmlp.D):
+        parts = []
+        if layer in (0, kmlp.SKIP):
+            assert not chunks[i][kmlp.C_POS:].any()     # padding row
+            parts.append(chunks[i][:kmlp.C_POS])
+            i += 1
+        if layer > 0:
+            parts += chunks[i:i + 4]
+            i += 4
+        rebuilt.append(np.concatenate(parts))
+    rebuilt.append(np.concatenate(chunks[i:i + 4]))
+    assert not chunks[i + 8][kmlp.C_DIR:].any()
+    rebuilt.append(np.concatenate(chunks[i + 4:i + 8]
+                                  + [chunks[i + 8][:kmlp.C_DIR]]))
+    for layer, got in zip(list(range(kmlp.D + 1)) + [kmlp.D + 2], rebuilt):
+        np.testing.assert_array_equal(got, kb[layer], err_msg=str(layer))
+
+    rgb, sigma = _forward_from_tc_image(img.float().numpy(),
+                                        tb.double().numpy(),
+                                        heads.double().numpy(),
+                                        x0.numpy(), dmb.numpy())
+    with torch.no_grad():
+        ref_rgb, ref_sigma = kmlp.fused_mlp_plain(flat, x0, dmb,
+                                                  torch.bfloat16)
+    # the same bf16 rule in f64 vs f32 sums: rounding flips of single
+    # activations, as TOL_MLP_BF16 in chip_smoke.py
+    np.testing.assert_allclose(rgb, ref_rgb.numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(sigma, ref_sigma.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_tc_bwd_image_unpacks_to_kernels():
+    """Kernel E's second image: chunk j of matrix m is W[h rows, 64 j:64
+    (j + 1)] for the direction layer's feat rows, final, layers 7..1 (the
+    skip layer's h rows), exactly, in bf16."""
+    _, _, jflat = _flax_mlp(jnp.float32, seed=2)
+    flat = _port_flat(jflat)
+    img = kmlp.pack_tc_bwd(flat)
+    assert img.dtype == torch.bfloat16 and img.shape == (kmlp.TC_BWD_IMAGE,)
+    chunks = _unpack_tc_image(img.float().numpy(), TC_BWD_SHAPES)
+    kb = [_bf16(k.numpy()) for k in flat[0::2]]
+    mats = [kb[kmlp.D + 2][:kmlp.W], kb[kmlp.D]]
+    mats += [kb[i][kmlp.C_POS:] if i == kmlp.SKIP else kb[i]
+             for i in range(kmlp.D - 1, 0, -1)]
+    i = 0
+    for m in mats:
+        n_chunks = m.shape[1] // 64
+        np.testing.assert_array_equal(
+            np.concatenate(chunks[i:i + n_chunks], axis=1), m)
+        i += n_chunks
+    assert i == len(chunks)
+
+
+def test_tc_scratch_layout():
+    """Kernel E's bf16 scratch rows (csrc/fused_mlp_bwd_tc.cu): every
+    block 8-aligned (16-byte copies), the skip and direction inputs
+    contiguous, the widths the wrapper allocates."""
+    W, H = kmlp.W, kmlp.W_HALF
+    act = [W, W, W, kmlp.TC_X0, W, W, W, W, W, W, kmlp.TC_DMB, H]
+    grad = [W] * 8 + [W, H, 8]
+    assert sum(act) == kmlp.TC_ACT_WIDTH == 2528
+    assert sum(grad) == kmlp.TC_GRAD_WIDTH == 2440
+    offs = np.cumsum([0] + act)
+    assert all(o % 8 == 0 for o in offs) and all(o % 8 == 0 for o in
+                                                  np.cumsum(grad))
+    # [x0 | a3] starts at 3 W; [feat | dmb] right after a7
+    assert offs[3] == 3 * W and offs[4] - offs[3] == kmlp.TC_X0
+    assert offs[10] - offs[9] == W
+    assert kmlp.TC_ACT_WIDTH > kmlp.ACT_WIDTH    # the f32 path's rows
+    assert kmlp.TC_HEADS == W + 3 * H
+
+
+def test_packed_cache_reuses_and_repacks():
+    """The packed buffers are reused while the parameters are untouched
+    (new views of the same tensors included) and rebuilt after an in-place
+    update, such as an optimizer step."""
+    from nerfsr_torch.models.mlp import VanillaMLP
+    gen = torch.Generator().manual_seed(5)
+    net = VanillaMLP().reset_parameters("kaiming", 0.02, gen)
+    first = kmlp.packed(kmlp.flatten_params(net), "tc")
+    again = kmlp.packed(kmlp.flatten_params(net), "tc")
+    assert all(a is b for a, b in zip(first, again))
+    opt = torch.optim.Adam(net.parameters(), lr=1e-2, foreach=True)
+    for p in net.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    moved = kmlp.packed(kmlp.flatten_params(net), "tc")
+    assert moved[0] is not first[0]
+    assert not torch.equal(moved[0], first[0])
+    torch.testing.assert_close(moved[0], kmlp.pack_tc(
+        kmlp.flatten_params(net))[0], rtol=0, atol=0)
+    with torch.no_grad():
+        net.rgb.bias.copy_(torch.full((3,), 0.5))
+    assert kmlp.packed(kmlp.flatten_params(net), "tc")[1][-1] == 0.5
+    # each kind is its own entry
+    assert kmlp.packed(kmlp.flatten_params(net), "tc_bwd").shape == \
+        (kmlp.TC_BWD_IMAGE,)
 
 
 def test_fused_mlp_guards():
