@@ -7,9 +7,13 @@
 2. builds the CUDA kernels from ``nerfsr_torch/csrc`` (one nvcc per
    source, in parallel) and writes the compiler's report to
    ``chiprun_out/chip_smoke_build.log``;
+   checks in that report that kernels A and B use no stack frame and no
+   spills; times an empty kernel through the same harness as the
+   kernels (the launch floor);
 3. holds each kernel against its plain PyTorch version on the card and
-   times both: the forward kernels at the serving path's shapes (inverse
-   CDF at both (B, Q) pairs, composite with both activations and both
+   times both (device time per call, ``nerfsr_torch/timing.py``): the
+   forward kernels at the serving path's shapes (inverse CDF per call at
+   each of its two (B, Q) pairs, composite with both activations and both
    backgrounds, fused MLP in bf16 on the tensor cores and in f32 on
    SIMT, beside the same bf16 forward as a chain of cuBLAS products), the
    backward kernels at the training path's (composite backward at
@@ -127,7 +131,6 @@ def fail(msg):
     sys.exit(1)
 
 
-
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,29 +139,6 @@ def card_line():
     if res.returncode != 0:
         fail(f"nvidia-smi: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` per call: ``iters`` calls captured in a
-    CUDA graph, one replay timed by CUDA events. Replaying keeps the
-    host's per-call overhead (Python, the wrappers' checks) out of the
-    time of kernels that take microseconds."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def max_err(got, ref, rtol, atol, what):
@@ -207,47 +187,78 @@ def launch_split_ms(fn, calls=5):
     return out
 
 
+def check_registers(log):
+    """Kernels A and B keep every value in registers: no stack frame and
+    no spills in the compiler's report."""
+    from nerfsr_torch.timing import ptxas_report
+    report = ptxas_report(log, ("invert_cdf_kernel", "composite_fwd_kernel"))
+    if len(report) != 5:        # A, and B's four template cases
+        fail(f"ptxas report of kernels A and B incomplete: {report}")
+    for name, fig in report.items():
+        print(f"[registers] {name}: {fig}")
+        if fig["stack"] or fig["spill_stores"] or fig["spill_loads"]:
+            fail(f"{name} uses local memory: {fig}")
+    return report
+
+
+def launch_floor():
+    """Device ms of an empty kernel (one block of 32 threads) through the
+    same graph harness as the kernels: what any launch costs."""
+    from nerfsr_torch.timing import floor_ms
+    floor = floor_ms()
+    print(f"[floor] empty kernel: {floor:.4f} ms a launch")
+    return floor
+
+
 def check_invert_cdf(dev, gen):
-    from nerfsr_torch.core.sampling import _invert_cdf, stratified_uniforms
+    from nerfsr_torch.core.sampling import _invert_cdf
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels.sampling import invert_cdf
+    from nerfsr_torch.timing import (invert_cdf_bytes, invert_cdf_inputs,
+                                     time_ms)
 
+    # both (B, Q) pairs of the serving chunk; each launches once a chunk
+    # (and once a training step), so the launch-weighted mean per call is
+    # their plain mean
     n = 4096
-    errs, ms, plain_ms, bytes_moved = [], 0.0, 0.0, 0
+    shapes = []
     for b, q in ((47, 24), (23, 16)):
-        z = torch.sort(torch.rand((n, b + 1), generator=gen), -1)[0]
-        bins = (0.5 * (z[:, :-1] + z[:, 1:])).to(dev)
-        w = torch.rand((n, b - 1), generator=gen)
-        w[0] = 0.0          # degenerate-denominator row
-        w[1, :2] = 100.0    # concentrated mass
-        w = w.to(dev)
-        u = stratified_uniforms(bins, q, False).contiguous()
+        bins, w, u = invert_cdf_inputs(n, b, q, gen, dev)
         got = invert_cdf(bins, w, u)
         torch.cuda.synchronize()
-        errs.append(max_err(got, _invert_cdf(bins, w, u), 0.0,
-                            TOL_INVERT_CDF, f"invert_cdf B={b} Q={q}"))
-        ms += time_ms(lambda: invert_cdf(bins, w, u))
-        plain_ms += time_ms(lambda: _invert_cdf(bins, w, u))
-        bytes_moved += 4 * n * (b + (b - 1) + q + q)
+        err = max_err(got, _invert_cdf(bins, w, u), 0.0, TOL_INVERT_CDF,
+                      f"invert_cdf B={b} Q={q}")
+        again = invert_cdf(bins, w, u)
+        if not torch.equal(again, got):
+            fail(f"invert_cdf B={b} Q={q}: two calls differ")
+        shapes.append({
+            "b": b, "q": q, "max_abs_err": err,
+            "ms": time_ms(lambda: invert_cdf(bins, w, u)),
+            "plain_ms": time_ms(lambda: _invert_cdf(bins, w, u)),
+            "bound_ms": invert_cdf_bytes(n, b, q) / HBM_BYTES_PER_S * 1e3})
         print(f"[kernel A] invert_cdf N={n} B={b} Q={q}: max abs err "
-              f"{errs[-1]:.3e} (tol {TOL_INVERT_CDF})")
-    print(f"[kernel A] both calls of a chunk: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; launches so far {COUNTS['invert_cdf']}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes"}
+              f"{err:.3e} (tol {TOL_INVERT_CDF}); {shapes[-1]['ms']:.4f} ms "
+              f"a call, plain {shapes[-1]['plain_ms']:.4f} ms, bound "
+              f"{shapes[-1]['bound_ms']:.5f} ms")
+    out = {k: sum(sh[k] for sh in shapes) / len(shapes)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"[kernel A] per call, mean of the two shapes: {out['ms']:.4f} ms, "
+          f"plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms; "
+          f"launches so far {COUNTS['invert_cdf']}")
+    return {**out, "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
+            "bound_by": "bytes", "shapes": shapes}
 
 
 def check_composite(dev, gen):
     from nerfsr_torch.core.rendering import volumetric_rendering as plain
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels.composite import volumetric_rendering
+    from nerfsr_torch.timing import (composite_fwd_bytes, composite_inputs,
+                                     time_ms)
 
     n, s = 4096, 16
-    rgb = torch.rand((n, s, 3), generator=gen).to(dev)
-    sigma = (torch.randn((n, s), generator=gen) * 2).to(dev)
-    z = torch.sort(torch.rand((n, s), generator=gen), -1)[0].to(dev)
-    errs, timed = [], None
+    rgb, sigma, z = composite_inputs(n, s, gen, dev)
+    errs = []
     for act in ("relu", "softplus"):
         for white in (False, True):
             got = volumetric_rendering(rgb, sigma, z, white, act)
@@ -261,9 +272,13 @@ def check_composite(dev, gen):
             print(f"[kernel B] composite {act} white={white}: max abs "
                   f"err {max(errs[-4:]):.3e} (rtol, atol {TOL_COMPOSITE})")
     # the serving path's variant: relu, no white background
+    got = volumetric_rendering(rgb, sigma, z, False)
+    if not all(torch.equal(a, g) for a, g in
+               zip(volumetric_rendering(rgb, sigma, z, False), got)):
+        fail("composite: two calls differ")
     timed = (time_ms(lambda: volumetric_rendering(rgb, sigma, z, False)),
              time_ms(lambda: plain(rgb, sigma, z, False)))
-    bytes_moved = 4 * n * (3 * s + s + s + 3 + 1 + 1 + s)
+    bytes_moved = composite_fwd_bytes(n, s)
     print(f"[kernel B] relu, no white background: {timed[0]:.4f} ms, plain "
           f"{timed[1]:.4f} ms; launches so far {COUNTS['composite_fwd']}")
     return {"max_abs_err": max(errs), "ms": timed[0], "plain_ms": timed[1],
@@ -298,6 +313,7 @@ def check_fused_mlp(dev, gen):
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels import mlp as kmlp
     from nerfsr_torch.models.mlp import VanillaMLP
+    from nerfsr_torch.timing import time_ms
 
     p = 4096 * 16
     net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
@@ -348,6 +364,7 @@ def check_composite_bwd(dev, gen):
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels.composite import (composite_bwd,
                                                 composite_bwd_plain)
+    from nerfsr_torch.timing import time_ms
 
     n, s = 2048, 16
     rgb = torch.rand((n, s, 3), generator=gen).to(dev)
@@ -395,6 +412,7 @@ def check_fused_mlp_bwd(dev, gen):
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels import mlp as kmlp
     from nerfsr_torch.models.mlp import VanillaMLP
+    from nerfsr_torch.timing import time_ms
 
     p = BATCH * DOWNSCALE ** 2 * 16      # the training step's points
     net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
@@ -739,8 +757,11 @@ def main():
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
+    log = _lib.build_log()
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
-        f.write(_lib.build_log())
+        f.write(log)
+    regs = check_registers(log)
+    floor = launch_floor()
 
     gen = torch.Generator().manual_seed(0)
     a = check_invert_cdf(dev, gen)
@@ -780,7 +801,10 @@ def main():
     ]
     for k in kernels:
         k["library_ms"] = None
-    print(json.dumps({"detail": {"fused_mlp_f32": c["f32"],
+    print(json.dumps({"detail": {"invert_cdf_shapes": a["shapes"],
+                                 "launch_floor_ms": floor,
+                                 "registers_a_b": regs,
+                                 "fused_mlp_f32": c["f32"],
                                  "fused_mlp_bf16_tflops":
                                      c["bf16"]["tflops"],
                                  "fused_mlp_bf16_cublas_chain_ms":

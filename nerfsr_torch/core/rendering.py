@@ -31,8 +31,11 @@ def compute_weights(sigma: torch.Tensor, z_vals: torch.Tensor,
                     activation: str = "relu") -> torch.Tensor:
     """Compositing weights alone: (..., S), (..., S) -> (..., S)."""
     eps = 1e-10
+    # the terminal is cut from z_vals, not from the inner deltas, so a
+    # single sample (S = 1) gets it too; the JAX package's form yields no
+    # weights there
     deltas = z_vals[..., 1:] - z_vals[..., :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)],
+    deltas = torch.cat([deltas, torch.full_like(z_vals[..., :1], 1e10)],
                        dim=-1)
     alpha = 1.0 - torch.exp(-deltas * sigma_activation(sigma, activation))
     trans = torch.cat(

@@ -3,21 +3,34 @@
 // Replaces the TPU kernel _invert_cdf_kernel of
 // nerfsr_tpu/ops/experimental/pallas_sampling.py (pallas_invert_cdf). It
 // computes what core/sampling.py:_invert_cdf computes: eps 1e-5 added to
-// the weights, normalised PDF, inclusive cumsum with a zero prefix,
-// searchsorted (right), below/above clamp, degenerate denominator -> 1,
-// then the lerp inside the bin.
+// the weights, normalised PDF (each weight divided by the total, then
+// scanned), inclusive cumsum with a zero prefix, searchsorted (right),
+// below/above clamp, degenerate denominator -> 1, then the lerp inside
+// the bin.
 //
 // Bound on the card: bytes. Per ray it reads B + (B-1) + Q floats and
-// writes Q; the arithmetic is O(B + Q log B), far below the memory rate.
-// At the slice's shapes (N = 4096, B <= 47) the whole call moves ~2 MB,
-// so the kernel is launch-latency bound in practice.
+// writes Q; the arithmetic is O(B + Q log B). A call at the slice's
+// shapes (N = 4096, B <= 47) moves ~1 MB, a third of a microsecond at the
+// memory rate, so what bounds it in practice is latency: the launch, the
+// number of warps in flight to hide load latency with, and the longest
+// chain of dependent loads a ray takes.
 //
-// Design: one thread per ray. The CDF is a serial f32 sum in a per-thread
-// array (B <= NERFSR_MAX_BINS), in the same order as the plain version
-// (divide each weight by the total, then accumulate). A binary search
-// gives searchsorted-right; because the CDF is non-decreasing it equals
-// the TPU kernel's compare-all count. No triangular matmul and no one-hot
-// selects: those were TPU formulations of a prefix sum and a gather.
+// Design: one warp per ray, kWarps rays a block (N warps in all, so the
+// serving chunk puts 4096 warps on 132 SMs). Lane l reads elements l,
+// l + 32, ... of the ray's rows, so every warp load is coalesced, and each
+// row is read once. The total is a shuffle-xor tree (every lane ends with
+// the same bits). The normalised weights go to shared memory; the CDF is
+// a lane-local serial sum over each lane's ceil((B-1)/32) contiguous
+// elements plus an inclusive shuffle-up scan of the lane sums, written
+// back in place beside the row's bins. Each lane then takes queries
+// lane, lane + 32, ...: u is read coalesced (the first query with the
+// row, so its load overlaps the CDF's build), a binary search over the
+// shared CDF gives searchsorted-right (the CDF is non-decreasing, so it
+// equals the TPU kernel's compare-all count), the bins are gathered from
+// shared memory and z is written coalesced. Every value a lane keeps in
+// registers has a compile-time index, so nothing lives in local memory.
+// No triangular matmul and no one-hot selects: those were TPU
+// formulations of a prefix sum and a gather.
 
 #include "common.cuh"
 
@@ -25,32 +38,78 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;                       // rays a block
+constexpr int kPerLane = NERFSR_MAX_BINS / 32;  // row elements a lane
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarps * 32)
 invert_cdf_kernel(const float* __restrict__ bins, const float* __restrict__ w,
                   const float* __restrict__ u, float* __restrict__ z, int n,
                   int nb, int nq) {
+  __shared__ float s_cdf[kWarps][NERFSR_MAX_BINS];
+  __shared__ float s_bins[kWarps][NERFSR_MAX_BINS];
   const float eps = 1e-5f;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float* wr = w + (size_t)r * (nb - 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= n) return;  // a whole warp leaves together
+  const int nw = nb - 1;
+  const float* wr = w + (size_t)r * nw;
   const float* br = bins + (size_t)r * nb;
+  float* cdf = s_cdf[warp];
+  float* sb = s_bins[warp];
   const float* ur = u + (size_t)r * nq;
   float* zr = z + (size_t)r * nq;
+  // the lane's first query, loaded with the row rather than after the CDF
+  const float u_first = lane < nq ? ur[lane] : 0.f;
 
+  // coalesced loads: lane l holds weights l, l + 32, ... (0 past the row)
+  float v[kPerLane];
   float total = 0.f;
-  for (int i = 0; i < nb - 1; ++i) total += wr[i] + eps;
-  float cdf[NERFSR_MAX_BINS];
-  cdf[0] = 0.f;
-  float acc = 0.f;
-  for (int i = 0; i < nb - 1; ++i) {
-    acc += (wr[i] + eps) / total;
-    cdf[i + 1] = acc;
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int i = lane + 32 * k;
+    v[k] = i < nw ? wr[i] + eps : 0.f;
+    total += v[k];
+    if (i < nb) sb[i] = br[i];
   }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    total += __shfl_xor_sync(kFull, total, m);
+  // pdf_i parked at cdf[i + 1]
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int i = lane + 32 * k;
+    if (i < nw) cdf[i + 1] = v[k] / total;
+  }
+  __syncwarp();
 
-  for (int q = 0; q < nq; ++q) {
-    const float uq = ur[q];
+  // CDF: lane l sums its contiguous run [l * run, l * run + run) serially,
+  // then the lane sums are scanned; each lane rewrites only its own run
+  const int run = (nw + 31) >> 5;
+  const int first = lane * run;
+  float pre[kPerLane];
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    if (j < run && first + j < nw) acc += cdf[first + j + 1];
+    pre[j] = acc;
+  }
+  float incl = acc;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  float excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    if (j < run && first + j < nw) cdf[first + j + 1] = excl + pre[j];
+  if (lane == 0) cdf[0] = 0.f;
+  __syncwarp();
+
+  for (int q = lane; q < nq; q += 32) {
+    const float uq = q == lane ? u_first : ur[q];
     int lo = 0, hi = nb;  // first index with cdf > uq == #{cdf <= uq}
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -60,13 +119,16 @@ invert_cdf_kernel(const float* __restrict__ bins, const float* __restrict__ w,
     const int below = max(lo - 1, 0);
     const int above = min(lo, nb - 1);
     const float cb = cdf[below], ca = cdf[above];
-    const float bb = br[below], ba = br[above];
+    const float bb = sb[below], ba = sb[above];
     float denom = ca - cb;
     if (denom < eps) denom = 1.f;
     const float t = (uq - cb) / denom;
     zr[q] = bb + t * (ba - bb);
   }
 }
+
+// does nothing: timing it gives the cost of a launch itself
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -75,10 +137,17 @@ NERFSR_API int nerfsr_invert_cdf(const void* bins, const void* w,
                                  int nq, void* stream) {
   if (nb < 2 || nb > NERFSR_MAX_BINS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || nq <= 0) return 0;
-  const int grid = (n + kThreads - 1) / kThreads;
-  invert_cdf_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (n + kWarps - 1) / kWarps;
+  invert_cdf_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)bins, (const float*)w, (const float*)u, (float*)z, n, nb,
       nq);
+  return (int)cudaGetLastError();
+}
+
+// the launch floor, a measurement aid: an empty kernel on this grid
+NERFSR_API int nerfsr_empty_kernel(int blocks, int threads, void* stream) {
+  if (blocks <= 0 || threads <= 0) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,6 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp.cu",
            "fused_mlp_bwd.cu", "fused_mlp_tc.cu", "fused_mlp_bwd_tc.cu")
-HEADERS = ("common.cuh", "mlp_tile.cuh", "mlp_tc.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,9 +72,11 @@ _SIGNATURES = {
     "nerfsr_fused_mlp_bwd_tc_layout": [_IP, _IP, _IP, _IP],
     # x, wimg, d, stream
     "nerfsr_tc_probe": [_P, _P, _P, _P],
+    # blocks, threads, stream: the empty kernel (launch floor)
+    "nerfsr_empty_kernel": [_I, _I, _P],
 }
 
-_state = {"lib": None, "log": ""}
+_state = {"lib": None}
 
 
 def reset_counts():
@@ -91,18 +92,22 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _digest() -> str:
+def _digest(csrc: Path, sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in (*sources, *sorted(p.name for p in csrc.glob("*.cuh"))):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources (in parallel) and link the shared library,
-    unless this content's library is already built. Returns its path."""
-    so = BUILD / f"libnerfsr_kernels-{_digest()}.so"
+def build(csrc: Path = CSRC, sources=SOURCES,
+          name: str = "nerfsr_kernels") -> Path:
+    """Compile ``sources`` of ``csrc`` (in parallel) and link them into
+    ``_build/lib<name>-<hash>.so``, unless this content's library is
+    already built. Returns its path. The defaults build the port's
+    library; another checkout's ``csrc`` builds a library to time it
+    against (``nerfsr_torch/timing.py``)."""
+    so = BUILD / f"lib{name}-{_digest(csrc, sources)}.so"
     if so.exists():
         return so
     nvcc = _nvcc()
@@ -110,11 +115,11 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(dir=BUILD))
     try:
         objs, procs = [], []
-        for src in SOURCES:
+        for src in sources:
             obj = tmp / (src + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, "-c", str(csrc / src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
@@ -133,26 +138,32 @@ def build() -> Path:
             text=True)
         if link.returncode != 0:
             raise RuntimeError("link failed\n" + link.stdout)
+        so.with_suffix(".log").write_text("\n".join(logs))
         os.replace(part, so)
-        _state["log"] = "\n".join(logs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 
-def build_log() -> str:
-    """The compiler's output (``-Xptxas -v``) of this process's build."""
-    return _state["log"]
+def build_log(so: Path = None) -> str:
+    """The compiler's output (``-Xptxas -v``) that built the library at
+    ``so`` (by default the port's), kept beside it."""
+    return (so or build()).with_suffix(".log").read_text()
+
+
+def bind(handle: ctypes.CDLL, names) -> ctypes.CDLL:
+    """Declare the C signatures of the entries ``names`` of ``handle``."""
+    for name in names:
+        fn = getattr(handle, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     if _state["lib"] is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        handle = bind(ctypes.CDLL(str(build())), _SIGNATURES)
         handle.nerfsr_error_string.argtypes = [ctypes.c_int]
         handle.nerfsr_error_string.restype = ctypes.c_char_p
         _state["lib"] = handle

@@ -72,7 +72,7 @@ def composite_bwd_plain(rgb, sigma, z_vals, gc, gd, go, gw,
     sa = rendering.sigma_activation(sigma, activation)
     deltas = z_vals[..., 1:] - z_vals[..., :-1]
     deltas = torch.cat(
-        [deltas, torch.full_like(deltas[..., :1], TERMINAL_DELTA)], dim=-1)
+        [deltas, torch.full_like(z_vals[..., :1], TERMINAL_DELTA)], dim=-1)
     one_m_alpha = torch.exp(-deltas * sa)
     alpha = 1.0 - one_m_alpha
     trans = torch.cat(

@@ -13,12 +13,12 @@ import torch
 
 from nerfsr_torch.core.rendering import volumetric_rendering as plain_comp
 from nerfsr_torch.core.sampling import _invert_cdf, stratified_uniforms
-from nerfsr_torch.kernels import LAUNCHES_PER_CALL
-from nerfsr_torch.kernels import COUNTS, reset_counts
+from nerfsr_torch.kernels import COUNTS, LAUNCHES_PER_CALL, _lib, reset_counts
 from nerfsr_torch.kernels import composite as kcomposite
 from nerfsr_torch.kernels import mlp as kmlp
 from nerfsr_torch.kernels import sampling as ksampling
 from nerfsr_torch.models.mlp import VanillaMLP
+from nerfsr_torch.timing import floor_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -31,34 +31,115 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def test_invert_cdf_kernel(dev):
-    gen = torch.Generator().manual_seed(0)
-    z = torch.sort(torch.rand((300, 48), generator=gen), -1)[0]
-    bins = (0.5 * (z[:, :-1] + z[:, 1:])).to(dev)
-    w = torch.rand((300, 46), generator=gen).to(dev)
-    u = stratified_uniforms(bins, 24, False).contiguous()
+# kernel A's bar (chip_smoke.py TOL_INVERT_CDF): the CDF's f32 rounding in
+# another sum order, over the local density
+Z_ATOL = 1e-4
+# kernel B's bar (chip_smoke.py TOL_COMPOSITE): scanned vs serial products
+COMPOSITE_TOL = dict(rtol=2e-4, atol=1e-5)
+RAGGED_N = 4097   # one ray past a multiple of every rays-a-block count
+
+
+def _invert_cdf_rows(n, b, q, seed, dev):
+    """Sorted bins, uniform weights with a degenerate (all-0) and a
+    concentrated row, and uniform u (unsorted, anywhere in [0, 1))."""
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.sort(torch.rand((n, b + 1), generator=gen), -1)[0]
+    bins = 0.5 * (z[:, :-1] + z[:, 1:])
+    w = torch.rand((n, b - 1), generator=gen)
+    w[0] = 0.0
+    w[1, :2] = 100.0
+    u = torch.rand((n, q), generator=gen)
+    return bins.to(dev), w.to(dev), u.to(dev)
+
+
+@pytest.mark.parametrize("q", [1, 16, 24, 40])
+@pytest.mark.parametrize("b", [2, 25, 47, 128])
+def test_invert_cdf_kernel(dev, b, q):
+    """Kernel A against its plain version at ragged N, bin counts from 2
+    to MAX_BINS, queries fewer and more than a warp's lanes; two calls
+    give the same bits."""
+    bins, w, u = _invert_cdf_rows(RAGGED_N, b, q, 100 * b + q, dev)
     reset_counts()
     got = ksampling.invert_cdf(bins, w, u)
+    again = ksampling.invert_cdf(bins, w, u)
     torch.cuda.synchronize()
-    assert COUNTS["invert_cdf"] == 1
-    # CDF rounding over the local density (see chip_smoke.py)
+    assert COUNTS["invert_cdf"] == 2
     torch.testing.assert_close(got, _invert_cdf(bins, w, u), rtol=0,
-                               atol=1e-4)
+                               atol=Z_ATOL)
+    assert torch.equal(got, again)
+
+
+def test_invert_cdf_kernel_degenerate_rows(dev):
+    """Rows of all-zero weights (the eps pad alone: a uniform pdf) and
+    rows of all mass in one bin, with queries at the cell centres."""
+    n, b, q = 64, 47, 24
+    bins, w, _ = _invert_cdf_rows(n, b, q, 9, dev)
+    w.zero_()
+    w[n // 2:, 5] = 1.0
+    u = stratified_uniforms(bins, q, False).contiguous()
+    got = ksampling.invert_cdf(bins, w, u)
+    torch.testing.assert_close(got, _invert_cdf(bins, w, u), rtol=0,
+                               atol=Z_ATOL)
+
+
+def test_invert_cdf_guards(dev):
+    bins, w, u = _invert_cdf_rows(8, 24, 16, 0, dev)
     with pytest.raises(ValueError, match="contiguous"):
         ksampling.invert_cdf(bins, w, u.t().contiguous().t())
+    with pytest.raises(ValueError, match="shape"):
+        ksampling.invert_cdf(bins, w[:, 1:].contiguous(), u)
+    with pytest.raises(TypeError, match="dtype"):
+        ksampling.invert_cdf(bins, w.double(), u)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksampling.invert_cdf(bins, w, u.cpu())
+    big, wbig, ubig = _invert_cdf_rows(8, ksampling.MAX_BINS + 1, 4, 0, dev)
+    with pytest.raises(ValueError, match="bins"):
+        ksampling.invert_cdf(big, wbig, ubig)
 
 
 @pytest.mark.parametrize("act", ["relu", "softplus"])
 @pytest.mark.parametrize("white", [False, True])
-def test_composite_kernel(dev, act, white):
-    gen = torch.Generator().manual_seed(1)
-    rgb = torch.rand((300, 16, 3), generator=gen).to(dev)
-    sigma = (torch.randn((300, 16), generator=gen) * 2).to(dev)
-    z = torch.sort(torch.rand((300, 16), generator=gen), -1)[0].to(dev)
+@pytest.mark.parametrize("s", [1, 16, 33, 64, 128])
+def test_composite_kernel(dev, s, act, white):
+    """Kernel B against its plain version at ragged N: a lane a sample
+    (S <= 32, S = 1 included) and runs of consecutive samples a lane
+    (S > 32, ragged S = 33 included); two calls give the same bits."""
+    gen = torch.Generator().manual_seed(s)
+    rgb = torch.rand((RAGGED_N, s, 3), generator=gen).to(dev)
+    sigma = (torch.randn((RAGGED_N, s), generator=gen) * 2).to(dev)
+    z = torch.sort(torch.rand((RAGGED_N, s), generator=gen), -1)[0].to(dev)
+    reset_counts()
     got = kcomposite.volumetric_rendering(rgb, sigma, z, white, act)
+    again = kcomposite.composite_fwd(rgb, sigma, z, white, act)
+    torch.cuda.synchronize()
+    assert COUNTS["composite_fwd"] == 2
     ref = plain_comp(rgb, sigma, z, white, act)
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=2e-4, atol=1e-5)
+    for g, a, r in zip(got, again, ref):
+        torch.testing.assert_close(g, r, **COMPOSITE_TOL)
+        assert torch.equal(g, a)
+
+
+def test_composite_guards(dev):
+    rgb = torch.rand((8, 16, 3), device=dev)
+    sigma = torch.randn((8, 16), device=dev)
+    z = torch.sort(torch.rand((8, 16), device=dev), -1)[0]
+    with pytest.raises(ValueError, match="contiguous"):
+        kcomposite.composite_fwd(rgb, sigma, z.t().contiguous().t(), False)
+    with pytest.raises(ValueError, match="shape"):
+        kcomposite.composite_fwd(rgb[:, :15].contiguous(), sigma, z, False)
+    with pytest.raises(TypeError, match="dtype"):
+        kcomposite.composite_fwd(rgb, sigma.double(), z, False)
+    with pytest.raises(ValueError, match="activation"):
+        kcomposite.composite_fwd(rgb, sigma, z, False, "tanh")
+
+
+def test_launch_floor(dev):
+    """The empty kernel launches (on one block and on A's serving grid)
+    and takes a positive time; a grid of no blocks is refused."""
+    assert floor_ms() > 0 and floor_ms(512, 256) > 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _lib.check(_lib.lib().nerfsr_empty_kernel(
+            0, 32, torch.cuda.current_stream().cuda_stream), "empty_kernel")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),

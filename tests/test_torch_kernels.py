@@ -27,6 +27,7 @@ from nerfsr_tpu.ops.experimental.pallas_composite import (
 from nerfsr_tpu.ops.experimental.pallas_sampling import (
     pallas_invert_cdf, pallas_sample_pdf_stratified)
 
+from nerfsr_torch.core.rendering import compute_weights as plain_weights
 from nerfsr_torch.core.rendering import volumetric_rendering as \
     plain_composite
 from nerfsr_torch.kernels import COUNTS, reset_counts
@@ -567,3 +568,239 @@ def test_fused_mlp_bwd_plain_is_autograd_in_f32():
     got = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, t(grgb), t(gsig))
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6)
+
+
+# numpy models of the order in which kernels A (csrc/invert_cdf.cu) and B
+# (csrc/composite.cu, forward) round: every f32 operation in the kernels'
+# order, lanes along an axis. nvcc contracts a * b + c into one fused
+# multiply-add; `_fma` rounds it once (through f64, where the product is
+# exact).
+
+F32 = np.float32
+
+
+def _fma(a, b, c):
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(F32)
+
+
+def _warp_invert_cdf(bins, w, u, eps=F32(1e-5)):
+    """Kernel A's order for each ray (one warp of 32 lanes): lane l holds
+    weights l, l + 32, ... plus eps and sums them serially; a shuffle-xor
+    tree gives the total; pdf = weight / total; lane l then sums its
+    contiguous run of ceil((B-1)/32) pdf values serially, the lane sums
+    are scanned (Hillis-Steele, shuffle-up) and each CDF entry is the
+    lane's exclusive prefix plus its run's partial sum; a binary search
+    (searchsorted right), the clamps, the eps rule and the lerp."""
+    n, nb = bins.shape
+    nw = nb - 1
+    lane = np.arange(32)
+    total = np.zeros((n, 32), F32)
+    for k in range(4):
+        i = lane + 32 * k
+        vk = np.where(i < nw, w[:, np.minimum(i, nw - 1)] + eps, F32(0))
+        total = total + vk
+    for m in (16, 8, 4, 2, 1):
+        total = total + total[:, lane ^ m]
+    assert (total == total[:, :1]).all()     # every lane has the same bits
+    pdf = (w + eps) / total[:, :1]
+    run = -(-nw // 32)
+    acc = np.zeros((n, 32), F32)
+    pre = np.zeros((n, 32, run), F32)
+    for j in range(run):
+        i = lane * run + j
+        acc = np.where(i < nw, acc + pdf[:, np.minimum(i, nw - 1)], acc)
+        pre[:, :, j] = acc
+    incl = acc
+    d = 1
+    while d < 32:
+        y = incl[:, np.maximum(lane - d, 0)]
+        incl = np.where(lane >= d, incl + y, incl)
+        d *= 2
+    excl = np.where(lane == 0, F32(0), incl[:, np.maximum(lane - 1, 0)])
+    cdf = np.zeros((n, nb), F32)
+    for j in range(run):
+        i = lane * run + j
+        ok = i < nw
+        cdf[:, i[ok] + 1] = excl[:, ok] + pre[:, ok, j]
+    lo = np.zeros(u.shape, np.int64)
+    hi = np.full(u.shape, nb)
+    while (lo < hi).any():
+        mid = (lo + hi) >> 1
+        le = np.take_along_axis(cdf, np.minimum(mid, nb - 1), -1) <= u
+        act = lo < hi
+        lo = np.where(act & le, mid + 1, lo)
+        hi = np.where(act & ~le, mid, hi)
+    below = np.maximum(lo - 1, 0)
+    above = np.minimum(lo, nb - 1)
+    cb, ca = (np.take_along_axis(cdf, x, -1) for x in (below, above))
+    bb, ba = (np.take_along_axis(bins, x, -1) for x in (below, above))
+    denom = ca - cb
+    denom = np.where(denom < eps, F32(1), denom)
+    return _fma((u - cb) / denom, ba - bb, bb), cdf
+
+
+def _segmented_composite(rgb, sigma, z, white_bkgd, activation):
+    """Kernel B's order: a segment of `seg` lanes per ray (S rounded up to
+    a power of two, at most 32), lane l taking samples l * per, ...,
+    l * per + per - 1 serially; each lane's product of (1 - alpha +
+    1e-10), a segmented Hillis-Steele product scan of the lane products,
+    the exclusive prefix as T before the lane's first sample, then a
+    serial walk (w = alpha T, fused multiply-add sums, T *= factor) and a
+    shuffle-xor tree over the segment's lanes."""
+    n, s = sigma.shape
+    seg = 1
+    while seg < s and seg < 32:
+        seg *= 2
+    per = -(-s // seg)
+    sl = np.arange(seg)
+    idx = sl[:, None] * per + np.arange(per)[None, :]        # (seg, per)
+    valid = idx < s
+    inner = idx + 1 < s
+    zi = z[:, np.minimum(idx, s - 1)]
+    znext = z[:, np.minimum(idx + 1, s - 1)]
+    x = sigma[:, np.minimum(idx, s - 1)]
+    cols = rgb[:, np.minimum(idx, s - 1)]                    # (n, seg, per, 3)
+    delta = np.where(inner, znext - zi, F32(1e10))
+    if activation == "relu":
+        act = np.maximum(x, F32(0))
+    else:
+        xm = x - F32(1)
+        act = np.maximum(xm, F32(0)) + np.log1p(np.exp(-np.abs(xm)))
+    alpha = F32(1) - np.exp(-delta * act)
+    factor = np.where(valid, (F32(1) - alpha) + F32(1e-10), F32(1))
+    prod = np.ones((n, seg), F32)
+    for j in range(per):
+        prod = prod * factor[:, :, j]
+    incl = prod
+    k = 1
+    while k < seg:
+        y = incl[:, np.maximum(sl - k, 0)]
+        incl = np.where(sl >= k, incl * y, incl)
+        k *= 2
+    trans = np.where(sl == 0, F32(1), incl[:, np.maximum(sl - 1, 0)])
+    weights = np.zeros((n, seg, per), F32)
+    c = np.zeros((n, seg, 3), F32)
+    d = np.zeros((n, seg), F32)
+    op = np.zeros((n, seg), F32)
+    for j in range(per):
+        ok = valid[None, :, j]
+        wj = np.where(ok, alpha[:, :, j] * trans, F32(0))
+        weights[:, :, j] = wj
+        c = np.where(ok[..., None], _fma(wj[..., None], cols[:, :, j], c), c)
+        d = np.where(ok, _fma(wj, zi[:, :, j], d), d)
+        op = np.where(ok, op + wj, op)
+        trans = trans * factor[:, :, j]
+    m = seg // 2
+    while m > 0:
+        c = c + c[:, sl ^ m]
+        d = d + d[:, sl ^ m]
+        op = op + op[:, sl ^ m]
+        m //= 2
+    comp, depth, opacity = c[:, 0], d[:, 0], op[:, 0]
+    if white_bkgd:
+        comp = comp + (F32(1) - opacity[:, None])
+    return comp, depth, opacity, weights.reshape(n, seg * per)[:, :s]
+
+
+@pytest.mark.parametrize("b,q", [(2, 1), (23, 16), (47, 24), (128, 40)])
+def test_warp_invert_cdf_order_vs_jax_and_plain(b, q):
+    """Kernel A's order (warp-tree total, lane-blocked scan) against the
+    JAX package's _invert_cdf and the port's plain version, at the bar the
+    card holds the kernel to (Z_ATOL), with a degenerate (all-zero) row
+    and a row of concentrated mass."""
+    bins, w = hist(64, b, seed=100 + b)
+    u = ((np.arange(q) + np.random.RandomState(q).rand(64, q)) / q
+         ).astype(np.float32)
+    got, _ = _warp_invert_cdf(bins, w, u)
+    ref_jax = np.asarray(j_invert_cdf(jnp.asarray(bins), jnp.asarray(w),
+                                      jnp.asarray(u)))
+    ref_plain = ksampling.invert_cdf(t(bins), t(w), t(u)).numpy()
+    np.testing.assert_allclose(got, ref_jax, rtol=0, atol=Z_ATOL)
+    np.testing.assert_allclose(got, ref_plain, rtol=0, atol=Z_ATOL)
+
+
+def test_warp_invert_cdf_order_pad0_empty_bins():
+    """Rows as the annealed path makes them (pad 0, proposal weights with
+    many empty bins, totals near 1). An empty bin's pdf is eps / total,
+    within f32 rounding of the `denom < eps -> 1` threshold when the total
+    is near 1, so another summation order can flip the rule there and
+    move a query inside its bin, by up to the bin's width. On these 4096
+    rays x 24 queries the two references (the JAX function and the port's
+    plain version) already differ beyond Z_ATOL at 16 of 98,304 queries;
+    the kernel's order differs from the plain version at 9 and from the
+    JAX function at 19 (seen, this seed). The bar: every such query lies
+    in an empty bin and moves by at most the bin's width, and there are
+    no more of them than twice the references' own count."""
+    rng = np.random.RandomState(7)
+    n, s, q = 4096, 48, 24
+    z = np.sort(rng.rand(n, s).astype(np.float32), -1)
+    sigma = (rng.randn(n, s) * 30 - 15).astype(np.float32)
+    w = plain_weights(t(sigma), t(z)).numpy()
+    bins = 0.5 * (z[:, :-1] + z[:, 1:])
+    w = w[:, 1:-1]                                       # pad 0
+    u = ((np.arange(q) + 0.5) / q * np.ones((n, 1))).astype(np.float32)
+    got, cdf = _warp_invert_cdf(bins, w, u)
+    ref = ksampling.invert_cdf(t(bins), t(w), t(u)).numpy()
+    ref_jax = np.asarray(j_invert_cdf(jnp.asarray(bins), jnp.asarray(w),
+                                      jnp.asarray(u)))
+    assert (w == 0).mean() > 0.3                          # many empty bins
+    refs_moved = int((np.abs(ref - ref_jax) > Z_ATOL).sum())
+    for other in (ref, ref_jax):
+        moved = np.abs(got - other) > Z_ATOL
+        assert moved.sum() <= 2 * max(refs_moved, 1), (moved.sum(),
+                                                         refs_moved)
+        rows, cols = np.nonzero(moved)
+        k = (cdf[rows] <= u[rows, cols, None]).sum(-1)   # above index
+        below, above = np.maximum(k - 1, 0), np.minimum(k, s - 2)
+        assert (w[rows, np.minimum(below, s - 3)] == 0).all()
+        width = bins[rows, above] - bins[rows, below]
+        assert (np.abs(got - other)[moved] <= width + Z_ATOL).all()
+
+
+def _composite_rays(n, s, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, s, 3).astype(np.float32),
+            (rng.randn(n, s) * 2).astype(np.float32),
+            np.sort(rng.rand(n, s).astype(np.float32), -1))
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+@pytest.mark.parametrize("s", [2, 16, 33, 64, 128])
+def test_segmented_composite_order_vs_jax_and_plain(s, act, white_bkgd):
+    """Kernel B's order (one lane per sample up to 32, then consecutive
+    runs; segmented product scan and shuffle reductions) against the JAX
+    package's volumetric_rendering and the port's plain version at the
+    bar the card holds the kernel to (COMPOSITE_TOL)."""
+    rgb, sigma, z = _composite_rays(37, s, seed=s)
+    got = _segmented_composite(rgb, sigma, z, white_bkgd, act)
+    ref_jax = j_composite(jnp.asarray(rgb), jnp.asarray(sigma),
+                          jnp.asarray(z), white_bkgd, act)
+    ref_plain = kcomposite.composite_fwd(t(rgb), t(sigma), t(z), white_bkgd,
+                                         act)
+    for g, a, p in zip(got, ref_jax, ref_plain):
+        np.testing.assert_allclose(g, np.asarray(a), **COMPOSITE_TOL)
+        np.testing.assert_allclose(g, p.numpy(), **COMPOSITE_TOL)
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+def test_segmented_composite_order_one_sample(act, white_bkgd):
+    """S = 1: one lane a ray, 32 rays a warp. The single sample takes the
+    1e10 terminal delta, so its weight is 1 - exp(-1e10 act(sigma)) and
+    the ray's colour that weight times its rgb. The JAX package's
+    compute_weights cuts the terminal from the (empty) inner deltas and
+    returns no weights at S = 1, so the closed form stands in for it; the
+    port's plain version keeps the terminal and is held as at every S."""
+    rgb, sigma, z = _composite_rays(37, 1, seed=1)
+    got = _segmented_composite(rgb, sigma, z, white_bkgd, act)
+    ref_plain = kcomposite.composite_fwd(t(rgb), t(sigma), t(z), white_bkgd,
+                                         act)
+    sa = np.asarray(jax.nn.relu(sigma) if act == "relu"
+                    else jax.nn.softplus(sigma - 1.0))
+    w = 1.0 - np.exp(-1e10 * sa)
+    comp = w * rgb[:, 0] + (1.0 - w if white_bkgd else 0.0)
+    closed = (comp, w[:, 0] * z[:, 0], w[:, 0], w)
+    for g, c, p in zip(got, closed, ref_plain):
+        np.testing.assert_allclose(g, c, **COMPOSITE_TOL)
+        np.testing.assert_allclose(g, p.numpy(), **COMPOSITE_TOL)

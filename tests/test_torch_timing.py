@@ -1,0 +1,78 @@
+"""What the kernel-timing tools compute on the host: the compiler-report
+reader that holds kernels A and B to no local memory, the inputs and
+byte counts behind the bounds ``chip_smoke.py`` reports, and the build
+digest that decides when the kernel library is rebuilt. No card needed.
+"""
+
+import shutil
+
+import torch
+
+from nerfsr_torch.kernels import _lib
+from nerfsr_torch.timing import (composite_fwd_bytes, composite_inputs,
+                                 invert_cdf_bytes, invert_cdf_inputs,
+                                 ptxas_report)
+
+PTXAS_LOG = """== invert_cdf.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117invert_cdf_kernelEPKfS1_S1_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117invert_cdf_kernelEPKfS1_S1_Pfiii
+    512 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 31 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112empty_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112empty_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 4 registers, used 0 barriers, 352 bytes cmem[0]
+== composite.cu
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120composite_fwd_kernelILb1ELb0EEEvPKfS2_S2_PfS3_S3_S3_iiii
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 46 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report_reads_each_kernel():
+    rep = ptxas_report(PTXAS_LOG, ("invert_cdf_kernel",
+                                   "composite_fwd_kernel"))
+    assert len(rep) == 2                        # the empty kernel left out
+    by_kernel = {("A" if "invert_cdf" in k else "B"): v
+                 for k, v in rep.items()}
+    assert by_kernel == {
+        "A": {"stack": 512, "spill_stores": 0, "spill_loads": 0,
+              "registers": 31},
+        "B": {"stack": 0, "spill_stores": 8, "spill_loads": 4,
+              "registers": 46}}
+
+
+def test_timing_inputs_and_bytes():
+    """The inputs chip_smoke.py and the timing tool hold and time kernels
+    A and B on, and the bytes their bounds count: every input read once,
+    every output written once."""
+    gen = torch.Generator().manual_seed(0)
+    n, b, q = 16, 47, 24
+    bins, w, u = invert_cdf_inputs(n, b, q, gen, torch.device("cpu"))
+    assert bins.shape == (n, b) and w.shape == (n, b - 1)
+    assert u.shape == (n, q) and u.is_contiguous()
+    assert (bins.diff(dim=-1) >= 0).all()
+    assert (w[0] == 0).all() and (w[1, :2] == 100).all()
+    assert invert_cdf_bytes(n, b, q) == 4 * (bins.numel() + w.numel()
+                                             + 2 * u.numel())
+    s = 16
+    rgb, sigma, z = composite_inputs(n, s, gen, torch.device("cpu"))
+    assert rgb.shape == (n, s, 3) and sigma.shape == z.shape == (n, s)
+    outputs = n * 3 + n + n + n * s             # comp, depth, opacity, w
+    assert composite_fwd_bytes(n, s) == 4 * (rgb.numel() + sigma.numel()
+                                             + z.numel() + outputs)
+
+
+def test_build_digest_follows_sources_and_headers(tmp_path):
+    """The library's name hashes the sources it is built from and every
+    header beside them, so an edit to either rebuilds it; another tree's
+    kernels (the timing tool's other checkout) get their own digest."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_lib.CSRC, csrc)
+    pair = ("invert_cdf.cu", "composite.cu")
+    base = _lib._digest(csrc, pair)
+    assert base == _lib._digest(_lib.CSRC, pair)
+    assert base != _lib._digest(csrc, _lib.SOURCES)
+    (csrc / "common.cuh").write_text((csrc / "common.cuh").read_text()
+                                     + "\n// edited\n")
+    assert _lib._digest(csrc, pair) != base
