@@ -7,8 +7,8 @@
 2. builds the CUDA kernels from ``nerfsr_torch/csrc`` (one nvcc per
    source, in parallel) and writes the compiler's report to
    ``chiprun_out/chip_smoke_build.log``;
-   checks in that report that kernels A and B use no stack frame and no
-   spills; times an empty kernel through the same harness as the
+   checks in that report that kernels A, B and D use no stack frame and
+   no spills; times an empty kernel through the same harness as the
    kernels (the launch floor);
 3. holds each kernel against its plain PyTorch version on the card and
    times both (device time per call, ``nerfsr_torch/timing.py``): the
@@ -17,7 +17,9 @@
    backgrounds, fused MLP in bf16 on the tensor cores and in f32 on
    SIMT, beside the same bf16 forward as a chain of cuBLAS products), the
    backward kernels at the training path's (composite backward at
-   N=2048, S=16 with every cotangent nonzero; fused MLP backward at
+   N=2048 with every cotangent nonzero, both activations and both
+   backgrounds, at S=16 (the llff step) and S=64 and 128 (the parity
+   step's two levels), each timed beside its bound; fused MLP backward at
    P=32,768 in bf16 and f32, with its three launches' split from the
    profiler). The MLP kernels are timed on weights packed before the
    timed calls (the wrapper's cache), so the packing is not in the time;
@@ -72,8 +74,9 @@ TOL_MLP_BF16 = (2e-2, 2e-2)  # (rtol, atol): as f32, plus rare bf16
                              # activations where the two sum orders
                              # straddle a rounding midpoint; a flip
                              # cascades to ~1e-3 (seen 2.5e-3)
-# kernel D: serial vs scanned transmittance and suffix sums, on
-# gradients of order 1-100 (seen: 4.7e-6 abs at most)
+# kernel D: its segmented shuffle scans (transmittance and suffix sums)
+# vs the plain version's torch.cumprod and cumsum, on gradients of order
+# 1-100 (seen: 4.8e-6, 9.5e-6 and 1.1e-5 abs at S = 16, 64 and 128)
 TOL_COMPOSITE_BWD = (1e-3, 1e-4)
 # kernel E, per leaf ||got - ref|| / ||ref||: sums over 32,768 points in
 # another order (f32; seen 1.5e-6). In bf16 the rule itself is chaotic:
@@ -188,12 +191,13 @@ def launch_split_ms(fn, calls=5):
 
 
 def check_registers(log):
-    """Kernels A and B keep every value in registers: no stack frame and
-    no spills in the compiler's report."""
+    """Kernels A, B and D keep every value in registers: no stack frame
+    and no spills in the compiler's report."""
     from nerfsr_torch.timing import ptxas_report
-    report = ptxas_report(log, ("invert_cdf_kernel", "composite_fwd_kernel"))
-    if len(report) != 5:        # A, and B's four template cases
-        fail(f"ptxas report of kernels A and B incomplete: {report}")
+    report = ptxas_report(log, ("invert_cdf_kernel", "composite_fwd_kernel",
+                                "composite_bwd_kernel"))
+    if len(report) != 9:        # A, and B's and D's four template cases
+        fail(f"ptxas report of kernels A, B and D incomplete: {report}")
     for name, fig in report.items():
         print(f"[registers] {name}: {fig}")
         if fig["stack"] or fig["spill_stores"] or fig["spill_loads"]:
@@ -361,43 +365,53 @@ def check_fused_mlp(dev, gen):
 
 
 def check_composite_bwd(dev, gen):
+    """Kernel D at the training batch (N = 2048) and each S a training step
+    composites: 16 (llff), 64 and 128 (parity's coarse and fine levels).
+    The first is the kernels line's entry, the others the detail line's."""
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels.composite import (composite_bwd,
-                                                composite_bwd_plain)
-    from nerfsr_torch.timing import time_ms
+                                                composite_bwd_plain,
+                                                composite_fwd)
+    from nerfsr_torch.timing import (composite_bwd_bytes,
+                                     composite_bwd_inputs, time_ms)
 
-    n, s = 2048, 16
-    rgb = torch.rand((n, s, 3), generator=gen).to(dev)
-    sigma = (torch.randn((n, s), generator=gen) * 2).to(dev)
-    z = torch.sort(torch.rand((n, s), generator=gen), -1)[0].to(dev)
-    gc = torch.randn((n, 3), generator=gen).to(dev)
-    gd = torch.randn((n,), generator=gen).to(dev)
-    go = torch.randn((n,), generator=gen).to(dev)
-    gw = torch.randn((n, s), generator=gen).to(dev)
-    args = (rgb, sigma, z, gc, gd, go, gw)
-    errs = []
-    for act in ("relu", "softplus"):
-        for white in (False, True):
-            got = composite_bwd(*args, white, act)
-            torch.cuda.synchronize()
-            ref = composite_bwd_plain(*args, white, act)
-            for g, r, name in zip(got, ref, ("grgb", "gsigma", "gz")):
-                errs.append(max_err(g, r, *TOL_COMPOSITE_BWD,
-                                    f"composite_bwd {act} white={white} "
-                                    f"{name}"))
-            print(f"[kernel D] composite_bwd {act} white={white}: max abs "
-                  f"err {max(errs[-3:]):.3e} (rtol, atol "
-                  f"{TOL_COMPOSITE_BWD})")
-    # the training path's variant: relu, no white background
-    ms = time_ms(lambda: composite_bwd(*args, False))
-    plain_ms = time_ms(lambda: composite_bwd_plain(*args, False))
-    bytes_moved = 4 * n * ((3 * s + s + s + 3 + 1 + 1 + s)
-                           + (3 * s + s + s))
-    print(f"[kernel D] relu, no white background: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; launches so far {COUNTS['composite_bwd']}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes"}
+    n = BATCH * DOWNSCALE ** 2
+    shapes = []
+    for s in (16, 64, 128):
+        args = composite_bwd_inputs(n, s, gen, dev)
+        errs = []
+        for act in ("relu", "softplus"):
+            for white in (False, True):
+                got = composite_bwd(*args, white, act)
+                torch.cuda.synchronize()
+                ref = composite_bwd_plain(*args, white, act)
+                for g, r, name in zip(got, ref, ("grgb", "gsigma", "gz")):
+                    errs.append(max_err(g, r, *TOL_COMPOSITE_BWD,
+                                        f"composite_bwd S={s} {act} "
+                                        f"white={white} {name}"))
+                if not all(torch.equal(a, g) for a, g in
+                           zip(composite_bwd(*args, white, act), got)):
+                    fail(f"composite_bwd S={s} {act} white={white}: two "
+                         "calls differ")
+        # grgb = w gc: with gc = 1 it is B's weights, to the bit
+        ones = (torch.ones_like(args[3]), torch.zeros_like(args[4]),
+                torch.zeros_like(args[5]), torch.zeros_like(args[6]))
+        if not torch.equal(composite_bwd(*args[:3], *ones, False)[0][..., 0],
+                           composite_fwd(*args[:3], False)[3]):
+            fail(f"composite_bwd S={s}: its weights are not B's")
+        # the training path's variant: relu, no white background
+        shapes.append({
+            "n": n, "s": s, "max_abs_err": max(errs),
+            "ms": time_ms(lambda: composite_bwd(*args, False)),
+            "plain_ms": time_ms(lambda: composite_bwd_plain(*args, False)),
+            "bound_ms": composite_bwd_bytes(n, s) / HBM_BYTES_PER_S * 1e3})
+        sh = shapes[-1]
+        print(f"[kernel D] composite_bwd N={n} S={s}: max abs err "
+              f"{sh['max_abs_err']:.3e} (rtol, atol {TOL_COMPOSITE_BWD}); "
+              f"relu, no white background {sh['ms']:.4f} ms a call, plain "
+              f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.5f} ms; "
+              f"launches so far {COUNTS['composite_bwd']}")
+    return {**shapes[0], "bound_by": "bytes", "shapes": shapes}
 
 
 # multiply-adds per point of kernel E: forward recompute, input gradients
@@ -803,7 +817,8 @@ def main():
         k["library_ms"] = None
     print(json.dumps({"detail": {"invert_cdf_shapes": a["shapes"],
                                  "launch_floor_ms": floor,
-                                 "registers_a_b": regs,
+                                 "registers_a_b_d": regs,
+                                 "composite_bwd_shapes": d["shapes"],
                                  "fused_mlp_f32": c["f32"],
                                  "fused_mlp_bf16_tflops":
                                      c["bf16"]["tflops"],

@@ -95,9 +95,10 @@ def composite_bwd_plain(rgb, sigma, z_vals, gc, gd, go, gw,
         act_grad = torch.sigmoid(sigma - 1.0)
     gsigma = ga * deltas * one_m_alpha * act_grad
     gdelta = (ga * sa * one_m_alpha)[..., :-1]    # terminal delta: constant
+    zero = torch.zeros_like(z_vals[..., :1])      # (also at S = 1)
     gz = weights * gd[..., None]
-    gz = gz - torch.cat([gdelta, torch.zeros_like(gdelta[..., :1])], -1)
-    gz = gz + torch.cat([torch.zeros_like(gdelta[..., :1]), gdelta], -1)
+    gz = gz - torch.cat([gdelta, zero], -1)
+    gz = gz + torch.cat([zero, gdelta], -1)
     return grgb, gsigma, gz
 
 

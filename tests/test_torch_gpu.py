@@ -36,6 +36,9 @@ def dev():
 Z_ATOL = 1e-4
 # kernel B's bar (chip_smoke.py TOL_COMPOSITE): scanned vs serial products
 COMPOSITE_TOL = dict(rtol=2e-4, atol=1e-5)
+# kernel D's bar (chip_smoke.py TOL_COMPOSITE_BWD): scanned products and
+# suffix sums against serial ones, on gradients of order 1-100
+COMPOSITE_BWD_TOL = dict(rtol=1e-3, atol=1e-4)
 RAGGED_N = 4097   # one ray past a multiple of every rays-a-block count
 
 
@@ -161,11 +164,17 @@ def test_fused_mlp_kernel(dev, dtype, tol):
 
 @pytest.mark.parametrize("act", ["relu", "softplus"])
 @pytest.mark.parametrize("white", [False, True])
-def test_composite_bwd_kernel(dev, act, white):
-    """Kernel D against its plain version, with every cotangent nonzero,
-    and through the autograd Function (B forward, D backward)."""
-    gen = torch.Generator().manual_seed(3)
-    n, s = 300, 16
+@pytest.mark.parametrize("s", [1, 16, 33, 64, 128])
+def test_composite_bwd_kernel(dev, s, act, white):
+    """Kernel D against its plain version at ragged N with every cotangent
+    nonzero: a lane a sample (S <= 32, S = 1 included) and runs of
+    consecutive samples a lane (S > 32, ragged S = 33 included); two calls
+    give the same bits; with gc = (1, 1, 1) and the other cotangents zero,
+    grgb is B's weights to the bit (B and D share one T/alpha helper); and
+    through the autograd Function, B forward and D backward, one launch
+    each."""
+    gen = torch.Generator().manual_seed(3 + s)
+    n = RAGGED_N
     rgb = torch.rand((n, s, 3), generator=gen).to(dev)
     sigma = (torch.randn((n, s), generator=gen) * 2).to(dev)
     z = torch.sort(torch.rand((n, s), generator=gen), -1)[0].to(dev)
@@ -174,22 +183,33 @@ def test_composite_bwd_kernel(dev, act, white):
     gw = torch.randn((n, s), generator=gen).to(dev)
     reset_counts()
     got = kcomposite.composite_bwd(rgb, sigma, z, gc, gd, go, gw, white, act)
+    again = kcomposite.composite_bwd(rgb, sigma, z, gc, gd, go, gw, white,
+                                     act)
     torch.cuda.synchronize()
-    assert COUNTS["composite_bwd"] == 1
+    assert COUNTS["composite_bwd"] == 2
     ref = kcomposite.composite_bwd_plain(rgb, sigma, z, gc, gd, go, gw,
                                          white, act)
-    for g, r in zip(got, ref):
-        # serial vs scanned products and suffix sums (as chip_smoke.py)
-        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4)
+    for g, a, r in zip(got, again, ref):
+        torch.testing.assert_close(g, r, **COMPOSITE_BWD_TOL)
+        assert torch.equal(g, a)
+
+    zeros = torch.zeros_like(gd)
+    grgb = kcomposite.composite_bwd(rgb, sigma, z, torch.ones_like(gc),
+                                    zeros, zeros, torch.zeros_like(gw),
+                                    white, act)[0]
+    weights = kcomposite.composite_fwd(rgb, sigma, z, white, act)[3]
+    for k in range(3):
+        assert torch.equal(grgb[..., k], weights)
+
     sig = sigma.clone().requires_grad_(True)
+    reset_counts()
     out = kcomposite.volumetric_rendering(rgb, sig, z, white, act)
     (out[0] * gc).sum().backward()
-    assert COUNTS["composite_fwd"] == 1 and COUNTS["composite_bwd"] == 2
-    zeros = torch.zeros_like(gd)
+    assert COUNTS["composite_fwd"] == 1 and COUNTS["composite_bwd"] == 1
     ref_s = kcomposite.composite_bwd_plain(rgb, sigma, z, gc, zeros, zeros,
                                            torch.zeros_like(gw), white,
                                            act)[1]
-    torch.testing.assert_close(sig.grad, ref_s, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(sig.grad, ref_s, **COMPOSITE_BWD_TOL)
 
 
 def _rel_errs(got, ref):

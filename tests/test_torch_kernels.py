@@ -14,6 +14,8 @@ scratch layout, the packing cache, that gradients flow through the
 wrappers' autograd Functions, and that the CPU path launches nothing.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -639,14 +641,14 @@ def _warp_invert_cdf(bins, w, u, eps=F32(1e-5)):
     return _fma((u - cb) / denom, ba - bb, bb), cdf
 
 
-def _segmented_composite(rgb, sigma, z, white_bkgd, activation):
-    """Kernel B's order: a segment of `seg` lanes per ray (S rounded up to
-    a power of two, at most 32), lane l taking samples l * per, ...,
-    l * per + per - 1 serially; each lane's product of (1 - alpha +
-    1e-10), a segmented Hillis-Steele product scan of the lane products,
-    the exclusive prefix as T before the lane's first sample, then a
-    serial walk (w = alpha T, fused multiply-add sums, T *= factor) and a
-    shuffle-xor tree over the segment's lanes."""
+def _segmented_runs(sigma, z, activation):
+    """The forward half kernels B and D share (``run_start``): a segment of
+    `seg` lanes per ray (S rounded up to a power of two, at most 32), lane
+    l taking samples l * per, ..., l * per + per - 1 (lanes along axis 1,
+    a run's samples along axis 2); each sample's delta, activation,
+    exp(-delta act) and alpha; each lane's product of (1 - alpha + 1e-10),
+    a segmented Hillis-Steele product scan of the lane products, and the
+    exclusive prefix as T before the lane's first sample."""
     n, s = sigma.shape
     seg = 1
     while seg < s and seg < 32:
@@ -654,19 +656,20 @@ def _segmented_composite(rgb, sigma, z, white_bkgd, activation):
     per = -(-s // seg)
     sl = np.arange(seg)
     idx = sl[:, None] * per + np.arange(per)[None, :]        # (seg, per)
+    at = np.minimum(idx, s - 1)
     valid = idx < s
     inner = idx + 1 < s
-    zi = z[:, np.minimum(idx, s - 1)]
+    zi = z[:, at]
     znext = z[:, np.minimum(idx + 1, s - 1)]
-    x = sigma[:, np.minimum(idx, s - 1)]
-    cols = rgb[:, np.minimum(idx, s - 1)]                    # (n, seg, per, 3)
+    x = sigma[:, at]
     delta = np.where(inner, znext - zi, F32(1e10))
     if activation == "relu":
         act = np.maximum(x, F32(0))
     else:
         xm = x - F32(1)
         act = np.maximum(xm, F32(0)) + np.log1p(np.exp(-np.abs(xm)))
-    alpha = F32(1) - np.exp(-delta * act)
+    oma = np.exp(-delta * act)
+    alpha = F32(1) - oma
     factor = np.where(valid, (F32(1) - alpha) + F32(1e-10), F32(1))
     prod = np.ones((n, seg), F32)
     for j in range(per):
@@ -678,18 +681,33 @@ def _segmented_composite(rgb, sigma, z, white_bkgd, activation):
         incl = np.where(sl >= k, incl * y, incl)
         k *= 2
     trans = np.where(sl == 0, F32(1), incl[:, np.maximum(sl - 1, 0)])
+    return SimpleNamespace(seg=seg, per=per, sl=sl, at=at, valid=valid,
+                           inner=inner, zi=zi, x=x, delta=delta, act=act,
+                           oma=oma, alpha=alpha, factor=factor, trans=trans)
+
+
+def _segmented_composite(rgb, sigma, z, white_bkgd, activation):
+    """Kernel B's order: the shared forward half (``_segmented_runs``),
+    then a serial walk over each lane's run (w = alpha T, fused
+    multiply-add sums, T *= factor) and a shuffle-xor tree over the
+    segment's lanes."""
+    n, s = sigma.shape
+    f = _segmented_runs(sigma, z, activation)
+    seg, per, sl, valid = f.seg, f.per, f.sl, f.valid
+    cols = rgb[:, f.at]                                       # (n, seg, per, 3)
+    trans = f.trans
     weights = np.zeros((n, seg, per), F32)
     c = np.zeros((n, seg, 3), F32)
     d = np.zeros((n, seg), F32)
     op = np.zeros((n, seg), F32)
     for j in range(per):
         ok = valid[None, :, j]
-        wj = np.where(ok, alpha[:, :, j] * trans, F32(0))
+        wj = np.where(ok, f.alpha[:, :, j] * trans, F32(0))
         weights[:, :, j] = wj
         c = np.where(ok[..., None], _fma(wj[..., None], cols[:, :, j], c), c)
-        d = np.where(ok, _fma(wj, zi[:, :, j], d), d)
+        d = np.where(ok, _fma(wj, f.zi[:, :, j], d), d)
         op = np.where(ok, op + wj, op)
-        trans = trans * factor[:, :, j]
+        trans = trans * f.factor[:, :, j]
     m = seg // 2
     while m > 0:
         c = c + c[:, sl ^ m]
@@ -700,6 +718,80 @@ def _segmented_composite(rgb, sigma, z, white_bkgd, activation):
     if white_bkgd:
         comp = comp + (F32(1) - opacity[:, None])
     return comp, depth, opacity, weights.reshape(n, seg * per)[:, :s]
+
+
+def _segmented_composite_bwd(rgb, sigma, z, gc, gd, go, gw_in, white_bkgd,
+                             activation):
+    """Kernel D's order: the forward half it shares with B
+    (``_segmented_runs``); walk 1 sums each lane's gw_i w_i (fused
+    multiply-adds); a segmented Hillis-Steele reverse scan (shuffle-down)
+    of the lane sums gives the suffix of the later lanes' runs; walk 2 goes
+    backward over each run carrying that suffix, with T_j by the forward
+    product from the run's start, and writes grgb = w gc, gsigma and
+    ddelta; gz_i = (w_i gd - ddelta_i) + ddelta_{i-1}, ddelta_{i-1} from
+    the previous lane at a run's start. The contractions are the ones nvcc
+    makes of the kernel's expressions (one rounding each, `_fma`)."""
+    n, s = sigma.shape
+    f = _segmented_runs(sigma, z, activation)
+    seg, per, sl, valid = f.seg, f.per, f.sl, f.valid
+    cols = rgb[:, f.at]                                       # (n, seg, per, 3)
+    gwi = gw_in[:, f.at]
+    gc0, gc1, gc2 = (gc[:, k, None, None] for k in range(3))
+    gdr, gor = gd[:, None, None], go[:, None, None]
+    if white_bkgd:
+        gor = gor - ((gc0 + gc1) + gc2)
+    # T_j and w_j in the forward walk's order: B's weights, bit for bit
+    trans = np.zeros((n, seg, per), F32)
+    t = f.trans
+    for j in range(per):
+        trans[:, :, j] = t
+        t = t * f.factor[:, :, j]
+    w = f.alpha * trans
+    gw = _fma(gc2, cols[..., 2], _fma(gc1, cols[..., 1], gc0 * cols[..., 0]))
+    gw = (_fma(gdr, f.zi, gw) + gor) + gwi
+    # walk 1 and the segmented reverse scan
+    run_sum = np.zeros((n, seg), F32)
+    for j in range(per):
+        run_sum = np.where(valid[:, j], _fma(gw[:, :, j], w[:, :, j],
+                                             run_sum), run_sum)
+    incl = run_sum
+    k = 1
+    while k < seg:
+        y = incl[:, np.minimum(sl + k, seg - 1)]
+        incl = np.where(sl + k < seg, incl + y, incl)
+        k *= 2
+    suffix = np.where(sl == seg - 1, F32(0),
+                      incl[:, np.minimum(sl + 1, seg - 1)])
+    # walk 2, backward over each run
+    if activation == "relu":
+        agrad = (f.x > 0).astype(F32)
+    else:
+        agrad = F32(1) / (F32(1) + np.exp(F32(1) - f.x))
+    gsigma = np.zeros((n, seg, per), F32)
+    gz = np.zeros((n, seg, per), F32)
+    pending = np.zeros((n, seg), F32)
+    gdelta_last = np.zeros((n, seg), F32)
+    for j in reversed(range(per)):
+        ok = valid[:, j]
+        has_next = valid[:, j + 1] if j + 1 < per else np.zeros(seg, bool)
+        ga = _fma(gw[:, :, j], trans[:, :, j],
+                  -(suffix / (f.oma[:, :, j] + F32(1e-10))))
+        suffix = np.where(ok, _fma(gw[:, :, j], w[:, :, j], suffix), suffix)
+        gsigma[:, :, j] = ga * f.delta[:, :, j] * f.oma[:, :, j] *             agrad[:, :, j]
+        gdelta = np.where(f.inner[:, j], ga * f.act[:, :, j] * f.oma[:, :, j],
+                          F32(0))
+        gdelta_last = np.where(ok & ~has_next, gdelta, gdelta_last)
+        if j + 1 < per:
+            gz[:, :, j + 1] = np.where(has_next, pending + gdelta,
+                                       gz[:, :, j + 1])
+        pending = np.where(ok, _fma(w[:, :, j], gdr[..., 0], -gdelta),
+                           pending)
+    before = gdelta_last[:, np.maximum(sl - 1, 0)]
+    gz[:, :, 0] = np.where(sl == 0, pending, pending + before)
+    grgb = w[..., None] * gc[:, None, None, :]
+    return (grgb.reshape(n, seg * per, 3)[:, :s],
+            gsigma.reshape(n, seg * per)[:, :s],
+            gz.reshape(n, seg * per)[:, :s])
 
 
 @pytest.mark.parametrize("b,q", [(2, 1), (23, 16), (47, 24), (128, 40)])
@@ -804,3 +896,45 @@ def test_segmented_composite_order_one_sample(act, white_bkgd):
     for g, c, p in zip(got, closed, ref_plain):
         np.testing.assert_allclose(g, c, **COMPOSITE_TOL)
         np.testing.assert_allclose(g, p.numpy(), **COMPOSITE_TOL)
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+@pytest.mark.parametrize("s", [1, 2, 16, 33, 64, 128])
+def test_segmented_composite_bwd_order_vs_jax_and_plain(s, act, white_bkgd):
+    """Kernel D's order (B's forward half, lane sums of gw w, a segmented
+    reverse scan, a backward walk over each run) against the JAX package's
+    backward kernel in interpret mode and the port's plain version, with
+    every cotangent nonzero, at COMPOSITE_BWD_TOL. Its weights are B's
+    order's weights to the bit (gc = (1, 1, 1), the rest zero). At S = 1
+    the JAX composite cannot trace one sample (ROADMAP queue 3), so the
+    plain version alone holds it there."""
+    n = 40
+    rgb, sigma, z = _composite_rays(n, s, seed=10 + s)
+    gc, gd, go, gw = _cotangents(n, s, seed=20 + s)
+    got = _segmented_composite_bwd(rgb, sigma, z, gc, gd, go, gw, white_bkgd,
+                                   act)
+    refs = [kcomposite.composite_bwd_plain(
+        t(rgb), t(sigma), t(z), t(gc), t(gd), t(go), t(gw), white_bkgd, act)]
+    if s > 1:
+        refs.append(_run_bwd(*(jnp.asarray(x) for x in (rgb, sigma, z, gc, gd,
+                                                         go, gw)),
+                             act, white_bkgd, 8, True))
+    for ref in refs:
+        grgb, gsigma, gz = (np.asarray(r) for r in ref)
+        np.testing.assert_allclose(got[0], grgb, **COMPOSITE_BWD_TOL)
+        np.testing.assert_allclose(got[1], gsigma, **COMPOSITE_BWD_TOL)
+        # gz_i = (w_i gd - ddelta_i) + ddelta_{i-1} sums terms as large as
+        # the ray's largest |gz| (~20 at S = 128), which cancel where gz_i
+        # is small; one f32 ulp of 16 is 1.9e-6, above the atol, so two
+        # correct orders differ there by ulps of the terms (seen: 1.5 ulps
+        # beyond the bar at S = 128, softplus). gz's atol adds 4 of them.
+        ulp = np.spacing(np.abs(gz).max(-1, keepdims=True))
+        assert (np.abs(got[2] - gz) <= COMPOSITE_BWD_TOL["atol"] + 4 * ulp
+                + COMPOSITE_BWD_TOL["rtol"] * np.abs(gz)).all()
+    ones, zero = np.ones((n, 3), F32), np.zeros(n, F32)
+    grgb = _segmented_composite_bwd(rgb, sigma, z, ones, zero, zero,
+                                    np.zeros((n, s), F32), white_bkgd, act)[0]
+    weights = _segmented_composite(rgb, sigma, z, white_bkgd, act)[3]
+    for k in range(3):
+        np.testing.assert_array_equal(grgb[..., k], weights)

@@ -1,5 +1,5 @@
 """What the kernel-timing tools compute on the host: the compiler-report
-reader that holds kernels A and B to no local memory, the inputs and
+reader that holds kernels A, B and D to no local memory, the inputs and
 byte counts behind the bounds ``chip_smoke.py`` reports, and the build
 digest that decides when the kernel library is rebuilt. No card needed.
 """
@@ -9,9 +9,10 @@ import shutil
 import torch
 
 from nerfsr_torch.kernels import _lib
-from nerfsr_torch.timing import (composite_fwd_bytes, composite_inputs,
+from nerfsr_torch.timing import (composite_bwd_bytes, composite_bwd_inputs,
+                                 composite_fwd_bytes, composite_inputs,
                                  invert_cdf_bytes, invert_cdf_inputs,
-                                 ptxas_report)
+                                 lane_grid, ptxas_report)
 
 PTXAS_LOG = """== invert_cdf.cu
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117invert_cdf_kernelEPKfS1_S1_Pfiii' for 'sm_90a'
@@ -26,20 +27,28 @@ ptxas info    : Used 4 registers, used 0 barriers, 352 bytes cmem[0]
 ptxas info    : Function properties for _ZN12_GLOBAL__N_120composite_fwd_kernelILb1ELb0EEEvPKfS2_S2_PfS3_S3_S3_iiii
     0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 46 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120composite_bwd_kernelILb0ELb1EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120composite_bwd_kernelILb0ELb1EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 52 registers, used 0 barriers, 424 bytes cmem[0]
 """
 
 
 def test_ptxas_report_reads_each_kernel():
     rep = ptxas_report(PTXAS_LOG, ("invert_cdf_kernel",
-                                   "composite_fwd_kernel"))
-    assert len(rep) == 2                        # the empty kernel left out
-    by_kernel = {("A" if "invert_cdf" in k else "B"): v
+                                   "composite_fwd_kernel",
+                                   "composite_bwd_kernel"))
+    assert len(rep) == 3                        # the empty kernel left out
+    by_kernel = {("A" if "invert_cdf" in k else
+                  "B" if "composite_fwd" in k else "D"): v
                  for k, v in rep.items()}
     assert by_kernel == {
         "A": {"stack": 512, "spill_stores": 0, "spill_loads": 0,
               "registers": 31},
         "B": {"stack": 0, "spill_stores": 8, "spill_loads": 4,
-              "registers": 46}}
+              "registers": 46},
+        "D": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+              "registers": 52}}
 
 
 def test_timing_inputs_and_bytes():
@@ -61,6 +70,27 @@ def test_timing_inputs_and_bytes():
     outputs = n * 3 + n + n + n * s             # comp, depth, opacity, w
     assert composite_fwd_bytes(n, s) == 4 * (rgb.numel() + sigma.numel()
                                              + z.numel() + outputs)
+
+
+def test_composite_bwd_inputs_bytes_and_grid():
+    """Kernel D's inputs (every cotangent nonzero), the bytes its bound
+    counts (4N(11S + 5)) and the grid its launch floor is timed at (8
+    warps a block, a segment of S lanes rounded up to a power of two, at
+    most 32, a ray)."""
+    gen = torch.Generator().manual_seed(0)
+    n = 16
+    for s in (1, 16, 33, 64, 128):
+        args = composite_bwd_inputs(n, s, gen, torch.device("cpu"))
+        assert [tuple(a.shape) for a in args] == [
+            (n, s, 3), (n, s), (n, s), (n, 3), (n,), (n,), (n, s)]
+        assert all((a != 0).all() for a in args[3:])
+        outputs = n * s * 3 + n * s + n * s      # grgb, gsigma, gz
+        assert composite_bwd_bytes(n, s) == 4 * (
+            sum(a.numel() for a in args) + outputs)
+    assert composite_bwd_bytes(2048, 16) == 4 * 2048 * (11 * 16 + 5)
+    assert [lane_grid(2048, s) for s in (1, 2, 16, 33, 64, 128)] == [
+        8, 16, 128, 256, 256, 256]
+    assert lane_grid(4097, 16) == 257
 
 
 def test_build_digest_follows_sources_and_headers(tmp_path):
