@@ -35,7 +35,22 @@
    launch counts, ms/step and HR rays/s over a timed window, finite
    parameters and moments, a falling ``fine_mse``, and one step's loss
    and gradients through the kernels against the plain path;
-6. prints a JSON line of details, the JSON line of kernel summaries
+6. engine: renders the teacher (seed 1) at 504x378 on 8 centred spiral
+   poses, writes them as a COLMAP scene (``nerfsr_torch/data/
+   synthetic.py``) into a temporary directory, and drives
+   ``nerfsr_torch.engine`` in-process with the flags of
+   ``scripts/train_llff_downX_fast.sh`` (``--ds_method lanc``, 40 steps
+   an epoch): trains 2 epochs, resumes with ``--continue_train`` for a
+   third (the resumed parameters, Adam moments and step against the
+   first run's, bit for bit), re-encodes ``latest_state.msgpack`` with
+   the port's codec (same bytes), and renders ``--test_split
+   test_train`` from epoch 3: every artifact file is there and each HR
+   panel of ``{i}-fine-ori.png`` equals ``render_eval_many(...,
+   quantize_rgb=True)``. It checks the exact launch counts of each run
+   (2 A, 1 B, 1 C, 1 D, 1 E a step; 94 A, 47 B, 47 C an image), and
+   prints the engine's ms/step beside ``train_steps``', ms per test image
+   with the writes, and the validation PSNR/SSIM;
+7. prints a JSON line of details, the JSON line of kernel summaries
    (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -49,6 +64,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -753,6 +769,246 @@ def train_phase(dev, card):
                     per_step, "kernel_launches_window": sub}
 
 
+# engine phase (scripts/train_llff_downX_fast.sh at full width; cut to a
+# synthetic scene of 8 views and 40 steps an epoch)
+ENGINE_VIEWS = 8
+ENGINE_STEPS = 40
+ENGINE_RADII = (0.2, 0.2, 0.05)
+ENGINE_FILES = ("{i}-fine.png", "{i}-fine-ori.png", "{i}-fine-depth.npz",
+                "{i}-fine-depth.png", "{i}-fine-depth-ori.npz",
+                "{i}-fine-depth-ori.png")
+
+
+def engine_argv(scene, work, phase, *extra):
+    argv = ["--name", "engine", "--model", "nerf_downX",
+            "--dataset_mode", "llff_downX", "--dataset_root", scene,
+            "--fast_preset", "llff", "--precision", "mixed",
+            "--img_wh", str(HR_WH[0]), str(HR_WH[1]),
+            "--downscale", str(DOWNSCALE), "--ds_method", "lanc",
+            "--sigma_activation", "relu",
+            "--checkpoints_dir", os.path.join(work, "checkpoints")]
+    if phase == "train":
+        argv += ["--batch_size", str(BATCH), "--include_var",
+                 "--lr", "5e-4", "--lr_final", "5e-6", "--lr_policy", "exp",
+                 "--scan_steps", "20",
+                 "--steps_per_epoch", str(ENGINE_STEPS),
+                 "--save_epoch_freq", "1", "--val_epoch_freq", "2",
+                 "--val_freq", "0",
+                 "--summary_dir", os.path.join(work, "runs")]
+    else:
+        argv += ["--results_dir", os.path.join(work, "results")]
+    return argv + list(extra)
+
+
+def engine_scene(dev, scene):
+    """The teacher (seed 1, sigma biases +3) rendered at HR on centred
+    spiral poses, written as a COLMAP scene with points from its depth."""
+    from nerfsr_torch.data.llff import (center_poses, load_colmap_scene,
+                                        spiral_path)
+    from nerfsr_torch.data.synthetic import depth_points, write_llff_scene
+    from nerfsr_torch.data.views import LLFFDownXViews
+    from nerfsr_torch.models import create_model
+
+    system = create_model(train_options("mixed"), device=dev)
+    teacher = system.init_params(seed=1)
+    with torch.no_grad():
+        for net in teacher.values():
+            net.sigma.bias += 3.0
+    poses, _ = center_poses(spiral_path(np.asarray(ENGINE_RADII), 3.5,
+                                        ENGINE_VIEWS))
+    views = LLFFDownXViews(poses, FOCAL, HR_WH, DOWNSCALE)
+    w, h = HR_WH
+    imgs, depths = [], []
+    for out in system.render_eval_many(teacher, views, range(ENGINE_VIEWS)):
+        imgs.append((np.clip(out["fine_rgb_ori"], 0, 1) * 255).astype(
+            np.uint8).reshape(h, w, 3))
+        depths.append(out["fine_depth_ori"].reshape(h, w))
+    imgs = np.stack(imgs)
+    if imgs.std() < 2.0:
+        fail("the engine's teacher scene is blank")
+    pts, cols = depth_points(poses, np.stack(depths), imgs, FOCAL)
+    write_llff_scene(scene, poses, imgs, FOCAL, pts, cols)
+    # the loader must see the poses the images were rendered from
+    loaded, _, focal, _ = load_colmap_scene(scene, HR_WH)
+    err = float(np.abs(loaded - poses).max())
+    if err > 1e-5 or focal != FOCAL:
+        fail(f"the scene reads back to other poses (max err {err:.2e}) "
+             f"or focal ({focal})")
+    return poses
+
+
+def _launches_per(counts, steps, images):
+    """Kernel counts of `steps` training steps and `images` full renders
+    at the engine's shapes."""
+    w, h = HR_WH
+    chunks = -(-(w * h) // 4096)
+    step = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
+            "composite_bwd": 1, "fused_mlp_bwd": 1}
+    image = {"invert_cdf": 2 * chunks, "composite_fwd": chunks,
+             "fused_mlp_fwd": chunks, "composite_bwd": 0, "fused_mlp_bwd": 0}
+    want = {k: steps * step[k] + images * image[k] for k in step}
+    if counts != want:
+        fail(f"engine launch counts {counts}, expected {want} ({steps} "
+             f"steps, {images} images)")
+    return step, image
+
+
+def _state_tensors(state):
+    from nerfsr_torch.weights import param_leaves
+    out = {}
+    for path, p, _ in param_leaves(state.params):
+        out[path] = p
+        moments = state.optimizer.state[p]
+        out[path + "/exp_avg"] = moments["exp_avg"]
+        out[path + "/exp_avg_sq"] = moments["exp_avg_sq"]
+        out[path + "/adam_step"] = moments["step"]
+    return out
+
+
+def engine_phase(dev, card, train_ms_step):
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.utils import checkpoint as ckpt
+    from nerfsr_torch.utils import msgpack, png
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="nerfsr_engine_") as work:
+        scene = os.path.join(work, "scene")
+        t0 = time.perf_counter()
+        engine_scene(dev, scene)
+        print(f"[engine] scene: {ENGINE_VIEWS} views {HR_WH[0]}x{HR_WH[1]} "
+              f"written as COLMAP + PNG in {time.perf_counter() - t0:.1f} s")
+
+        # train 2 epochs, saving each
+        opt = parse_options("train", engine_argv(scene, work, "train",
+                                                 "--n_epochs", "2"))
+        first_t = {}
+        reset_counts()
+        first = engine.train(opt, timings=first_t)
+        torch.cuda.synchronize()
+        # 80 steps, and validation at epoch 2 renders the val view twice
+        # (device metrics, then the read-back strips)
+        _launches_per(dict(COUNTS), 2 * ENGINE_STEPS, 2)
+        if first.step != 2 * ENGINE_STEPS:
+            fail(f"the first run ended at step {first.step}")
+
+        # the state the resume will load, against the first run's
+        opt3 = parse_options("train", engine_argv(
+            scene, work, "train", "--n_epochs", "3", "--continue_train"))
+        probe = create_model(opt3, device=opt3.device)
+        state = probe.create_state(seed=0, steps_per_epoch=ENGINE_STEPS)
+        epoch = ckpt.resume_if_requested(opt3, state)
+        if (epoch, state.step) != (2, 2 * ENGINE_STEPS):
+            fail(f"resumed at epoch {epoch} step {state.step}, expected "
+                 f"epoch 2 step {2 * ENGINE_STEPS}")
+        got, want = _state_tensors(state), _state_tensors(first)
+        if got.keys() != want.keys():
+            fail("resumed state has other leaves")
+        for k in want:
+            if not torch.equal(got[k].cpu(), want[k].cpu()):
+                fail(f"resumed {k} differs from the saved state")
+        print(f"[engine] resume: epoch 2, step {state.step}; "
+              f"{len(want)} parameter and Adam tensors equal the first "
+              "run's bit for bit")
+        del probe, state
+
+        # the resumed run: epoch 3, timed by the engine
+        timings = {}
+        reset_counts()
+        third = engine.train(opt3, timings=timings)
+        torch.cuda.synchronize()
+        step_counts, image_counts = _launches_per(dict(COUNTS),
+                                                  ENGINE_STEPS, 2)
+        if third.step != 3 * ENGINE_STEPS:
+            fail(f"the resumed run ended at step {third.step}")
+        ms_step = timings["epoch_s"][3] / ENGINE_STEPS * 1e3
+        first_ms = [first_t["epoch_s"][e] / ENGINE_STEPS * 1e3
+                    for e in (1, 2)]
+        print(f"[engine] resumed epoch: {ms_step:.2f} ms/step over "
+              f"{ENGINE_STEPS} steps (engine, host clock to the chunk's "
+              f"loss read; the first run's epochs {first_ms[0]:.2f} and "
+              f"{first_ms[1]:.2f}), train_steps in the training phase "
+              f"{train_ms_step:.2f} ms/step, on {card}")
+        print(f"[engine] launches a step under the engine {step_counts}; "
+              f"an image {image_counts}")
+
+        # the checkpoint codec round trip
+        latest = os.path.join(work, "checkpoints", "engine",
+                              "latest_state.msgpack")
+        with open(latest, "rb") as f:
+            blob = f.read()
+        if msgpack.packb(msgpack.unpackb(blob)) != blob:
+            fail("latest_state.msgpack re-encodes to other bytes")
+        print(f"[engine] latest_state.msgpack ({len(blob)} bytes) "
+              "re-encodes to the same bytes")
+
+        metrics = {}
+        with open(os.path.join(work, "runs", "engine", "metrics.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["tag"].startswith("val/") and \
+                        rec["step"] == 3 * ENGINE_STEPS:
+                    metrics[rec["tag"][4:]] = rec["value"]
+        if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"validation metrics at epoch 3: {metrics}")
+        print(f"[engine] validation at epoch 3: {metrics} on {card}")
+
+        # test: render test_train from epoch 3
+        topt = parse_options("test", engine_argv(
+            scene, work, "test", "--test_split", "test_train",
+            "--load_epoch", "3"))
+        test_t = {}
+        reset_counts()
+        out_dir = engine.test(topt, timings=test_t)
+        _launches_per(dict(COUNTS), 0, ENGINE_VIEWS)
+        ms_image = test_t["seconds"] / test_t["views"] * 1e3
+        ms_write = test_t["write_s"] / test_t["views"] * 1e3
+        print(f"[engine] test: {test_t['views']} views rendered and written "
+              f"in {test_t['seconds']:.2f} s, {ms_image:.1f} ms/image with "
+              f"the writes, of which {ms_write:.1f} ms/image on the host "
+              f"between renders (rays and truth of the view, strips, PNG, "
+              f"npz, the GIFs' share), on {card}")
+        names = set(os.listdir(out_dir))
+        need = {f.format(i=i) for i in range(ENGINE_VIEWS)
+                for f in ENGINE_FILES} | {"fine.gif", "fine-ori.gif"}
+        if need - names:
+            fail(f"test artifacts missing: {sorted(need - names)}")
+        system = create_model(topt, device=dev)
+        dataset = create_dataset(topt, "test_train")
+        w, h = HR_WH
+        for i, r in enumerate(system.render_eval_many(
+                third.params, dataset, range(ENGINE_VIEWS),
+                quantize_rgb=True)):
+            panel = png.read_rgb(os.path.join(
+                out_dir, f"{i}-fine-ori.png"))[:, :w]
+            if not np.array_equal(panel, r["fine_rgb_ori"].reshape(h, w, 3)):
+                fail(f"{i}-fine-ori.png's render panel differs from "
+                     "render_eval_many(quantize_rgb=True)")
+            depth = np.load(os.path.join(out_dir,
+                                         f"{i}-fine-depth-ori.npz"))["matrix"]
+            if not np.array_equal(depth, r["fine_depth_ori"].reshape(h, w)):
+                fail(f"{i}-fine-depth-ori.npz differs from the render")
+        print(f"[engine] {len(need)} test artifacts present; the "
+              f"{ENGINE_VIEWS} HR render panels and depth maps equal "
+              "render_eval_many's")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        for name in ("0-fine-ori.png", "0-fine.png"):
+            with open(os.path.join(out_dir, name), "rb") as src, \
+                    open(os.path.join(OUT_DIR, f"engine_{name}"), "wb") as dst:
+                dst.write(src.read())
+        out.update(ms_per_step=ms_step, first_run_ms_per_step=first_ms,
+                   train_steps_ms_per_step=train_ms_step,
+                   test_ms_per_image=ms_image,
+                   test_host_ms_per_image=ms_write, val_metrics=metrics,
+                   launches_per_step=step_counts,
+                   launches_per_image=image_counts,
+                   checkpoint_bytes=len(blob), card=card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -785,6 +1041,7 @@ def main():
     e = check_fused_mlp_bwd(dev, gen)
     serve_counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
     counts, train = train_phase(dev, card)
+    engine_out = engine_phase(dev, card, train["ms_per_step"])
 
     # launches: the timed training window, which runs all five kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -830,6 +1087,7 @@ def main():
                                            "chunk_errors": slice_err,
                                            "launches": serve_counts},
                                  "train": train,
+                                 "engine": engine_out,
                                  "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,17 +1,23 @@
 """Configuration: the option surface the port reads.
 
 Port of ``nerfsr_tpu/config.py`` (its own copy: the port imports nothing
-of the JAX package). The flags the serving slice reads keep the JAX
-package's names and defaults, as do ``FAST_PRESETS``,
-``apply_fast_preset``, ``_DATASET_DEFAULTS`` and ``check_config_guard``.
+of the JAX package). Every flag the port reads keeps the JAX package's
+name and default, as do ``FAST_PRESETS``, ``apply_fast_preset``,
+``_DATASET_DEFAULTS`` and ``check_config_guard``: the model and render
+flags, the training flags (optimizer, schedule, loss weights,
+``--randomized``, ``--ds_method``, ``--include_var``, ``--scan_steps``),
+and the engine's (experiment and checkpoint directories, resume,
+``--init_weights``, ``--fix_layers``, the save/val/vis/log cadences, the
+dataset options of ``llff_downX``, ``--test_split``). ``--device``
+(default ``cuda``) is the port's own: ``cpu`` runs the plain PyTorch
+versions on the CPU, as ``JAX_PLATFORMS=cpu`` does for the JAX package.
 The JAX package's TPU-only flags (``--use_pallas*``, ``--pallas_mlp_bwd``,
-``--pallas_interpret``, ``--mesh_devices``, ``--compilation_cache_dir``)
-are accepted and ignored: on CUDA the kernels run wherever their JAX
-counterparts could. The training flags of the supersampling path
-(optimizer, schedule, loss weights, ``--randomized``, ``--ds_method``,
-``--include_var``, ``--scan_steps``) keep their JAX names and defaults.
-Flags that only checkpoints, data loading, the GAN, refine or multi-host
-runs read come with the slices that read them.
+``--pallas_interpret``, ``--compilation_cache_dir``) are accepted and
+ignored: on CUDA the kernels run wherever their JAX counterparts could.
+Flags of paths the port does not cover yet (``--with_ref``,
+``--with_netD``, ``--reg_patch``, ``--patch_size``, ``--train_crop``,
+``--mesh_devices``) are accepted so that the engine can refuse them by
+name.
 """
 
 from __future__ import annotations
@@ -55,16 +61,50 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
 
     # ---- base options ----
     p.add_argument("--name", type=str, required=True)
+    p.add_argument("--checkpoints_dir", type=str, default="./checkpoints")
+    p.add_argument("--ckpt_backend", type=str, default="msgpack",
+                   choices=["msgpack", "orbax"],
+                   help="msgpack: atomic single-file checkpoints (the "
+                        "port's only backend; orbax is refused)")
+    p.add_argument("--summary_dir", type=str, default="./runs")
+    p.add_argument("--seed", type=int, default=99)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the card) or cpu (the plain versions)")
     p.add_argument("--model", type=str, default="template")
     p.add_argument("--init_type", type=str, default="kaiming")
     p.add_argument("--init_gain", type=float, default=0.02)
     p.add_argument("--dataset_mode", type=str, default="template")
     p.add_argument("--dataset_root", type=str, required=True)
+    p.add_argument("--sisr_path", type=str, default=None)
+    p.add_argument("--max_dataset_size", type=float, default=float("inf"))
     p.add_argument("--img_wh", type=int, nargs=2, required=True)
+    p.add_argument("--use_pixel_centers", type=str2bool, default=True)
+    p.add_argument("--patch_size", type=int, default=1)
     p.add_argument("--phase", type=str, default=phase,
                    choices=["train", "test", "infer"])
+    p.add_argument("--load_epoch", type=str, default="latest")
     p.add_argument("--ray_chunk", type=int, default=4096,
                    help="eval ray chunk")
+
+    if phase == "train":
+        p.add_argument("--print_freq", type=int, default=10)
+        p.add_argument("--vis_freq", type=int, default=10)
+        p.add_argument("--vis_epoch_freq", type=int, default=5)
+        p.add_argument("--val_freq", type=int, default=10)
+        p.add_argument("--val_epoch_freq", type=int, default=1)
+        p.add_argument("--save_epoch_freq", type=int, default=1)
+        p.add_argument("--continue_train", action="store_true")
+        p.add_argument("--init_weights", type=str, default=None)
+        p.add_argument("--init_weights_keys", type=str, default=".+")
+        p.add_argument("--fix_layers", type=str, default=None)
+        p.add_argument("--keep_last", action="store_true",
+                       help="count the final partial batch in the epoch")
+        p.add_argument("--train_split", type=str, default="train")
+        p.add_argument("--val_split", type=str, default="val")
+        p.add_argument("--val_epoch_split", type=str, default="test_train")
+    else:
+        p.add_argument("--results_dir", type=str, default="./results/")
+    p.add_argument("--test_split", type=str, default="test")
     p.add_argument("--n_epochs", type=int, default=20)
 
     # ---- nerf model options ----
@@ -141,7 +181,21 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--include_var", action="store_true")
     p.add_argument("--scan_steps", type=int, default=20,
                    help="steps per train_steps call of the training "
-                        "engine (not ported yet)")
+                        "engine; losses are read once per chunk")
+    p.add_argument("--log_every", type=int, default=0,
+                   help="train-loss log cadence (0 = --print_freq)")
+    p.add_argument("--with_ref", action="store_true")
+    p.add_argument("--no_ref_loss", action="store_true")
+    p.add_argument("--with_netD", action="store_true")
+    p.add_argument("--reg_patch", action="store_true")
+    p.add_argument("--train_crop", action="store_true")
+
+    # ---- llff / llff_downX dataset options ----
+    p.add_argument("--spheric_poses", action="store_true")
+    p.add_argument("--val_num", type=int, default=1)
+    p.add_argument("--unified_dir", action="store_true")
+    p.add_argument("--use_subset", action="store_true")
+    p.add_argument("--subset_num", type=int, default=20)
 
     # ---- accepted and ignored (TPU-only in the JAX package) ----
     p.add_argument("--use_pallas", action="store_true")
@@ -245,3 +299,22 @@ def default_options(phase: str = "train", **overrides):
         apply_fast_preset(opt, explicit=set(overrides) - {"fast_preset"})
     check_config_guard(opt)
     return opt
+
+
+def save_options(opt):
+    """Write the options to ``{checkpoints_dir}/{name}/{phase}_opt.txt``
+    and ``.json``; returns the text."""
+    import json
+    expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    os.makedirs(expr_dir, exist_ok=True)
+    d = dict(sorted(vars(opt).items()))
+    msg = "\n".join(["----------------- Options ---------------"]
+                    + [f"{str(k):>25}: {v}" for k, v in d.items()]
+                    + ["----------------- End -------------------"])
+    with open(os.path.join(expr_dir, f"{opt.phase}_opt.txt"), "w") as f:
+        f.write(msg + "\n")
+    with open(os.path.join(expr_dir, f"{opt.phase}_opt.json"), "w") as f:
+        json.dump({k: v if isinstance(v, (int, float, str, bool, list,
+                                           type(None))) else str(v)
+                   for k, v in d.items()}, f)
+    return msg

@@ -1,0 +1,152 @@
+"""Sub-pixel grouping, downscaling and resampling of the supersampling
+datasets.
+
+Port of ``nerfsr_tpu/data/downx_common.py``: ``group_subpixels`` /
+``ungroup_subpixels`` (the einops order ``'(h s1) (w s2) c -> (h w)
+(s1 s2) c'``), ``blend_white``, and ``downscale`` by ``--ds_method``
+(``avg``: block means; ``lanc``: Lanczos).
+
+``lanczos_resize`` is a numpy port of PIL's ``Image.resize(size,
+Image.LANCZOS)`` for uint8 images (``libImaging/Resample.c``): a
+separable filter of support 3 x scale, coefficients normalized in double
+and rounded to 22-bit fixed point, the horizontal pass first and then
+the vertical, each output clipped to uint8 (so the vertical pass reads
+the clipped horizontal result). It gives PIL's bytes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+PRECISION_BITS = 32 - 8 - 2       # PIL's fixed-point precision
+_LANCZOS_SUPPORT = 3.0
+
+
+def group_subpixels(arr: np.ndarray, ds: int) -> np.ndarray:
+    """(H, W, C) -> (H/ds * W/ds, ds*ds, C): each LR pixel's ds^2 HR
+    sub-elements, row-major within the block."""
+    h, w = arr.shape[:2]
+    c = arr.shape[2:]
+    x = arr.reshape((h // ds, ds, w // ds, ds) + c)
+    x = np.moveaxis(x, 1, 2)  # (h1, w1, ds, ds, C)
+    return x.reshape((h // ds * (w // ds), ds * ds) + c)
+
+
+def ungroup_subpixels(arr: np.ndarray, hw, ds: int) -> np.ndarray:
+    """Inverse of ``group_subpixels``: (N_lr, ds^2, C) -> (H, W, C)."""
+    h, w = hw
+    c = arr.shape[2:]
+    x = arr.reshape((h // ds, w // ds, ds, ds) + c)
+    x = np.moveaxis(x, 2, 1)
+    return x.reshape((h, w) + c)
+
+
+def blend_white(arr: np.ndarray) -> np.ndarray:
+    """RGBA -> RGB over white (the blender convention)."""
+    if arr.shape[-1] == 4:
+        rgb, a = arr[..., :3], arr[..., 3:]
+        return rgb * a + (1.0 - a)
+    return arr
+
+
+def _lanczos(x: float) -> float:
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+    if -3.0 <= x < 3.0:
+        return sinc(x) * sinc(x / 3)
+    return 0.0
+
+
+def _coeffs(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    Lanczos filter over the whole input: (first source index (out,),
+    fixed-point weights (out, ksize) int64, zero past each window)."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    ss = 1.0 / filterscale
+    one = float(1 << PRECISION_BITS)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            if total != 0.0:
+                v /= total
+            # C's (int) truncates toward zero
+            kk[xx, x] = int(-0.5 + v * one) if v < 0 else int(0.5 + v * one)
+        first[xx] = xmin
+    return first, kk
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   block: int = 64) -> np.ndarray:
+    """One pass along ``axis`` (0 rows, 1 columns) of an (H, W, C) uint8
+    image, clipped to uint8; rows of the other axis go ``block`` at a
+    time to bound the gather's memory."""
+    in_size = img.shape[axis]
+    first, kk = _coeffs(in_size, out_size)
+    idx = np.minimum(first[:, None] + np.arange(kk.shape[1]), in_size - 1)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)   # (in, other, C)
+    out = np.empty((out_size,) + src.shape[1:], np.uint8)
+    half = 1 << (PRECISION_BITS - 1)
+    for s in range(0, src.shape[1], block):
+        part = src[:, s:s + block]                      # (in, b, C)
+        acc = np.einsum("okbc,ok->obc", part[idx], kk) + half
+        out[:, s:s + block] = np.clip(acc >> PRECISION_BITS, 0, 255)
+    return np.moveaxis(out, 0, axis)
+
+
+def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
+    """PIL's ``Image.resize(size, Image.LANCZOS)`` of a uint8 (H, W) or
+    (H, W, C) image; ``size`` is (w, h) as PIL takes it. Every channel is
+    filtered alike, as PIL does for L and RGB (PIL premultiplies the
+    alpha of LA and RGBA first, so pass those only without alpha)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"lanczos_resize takes uint8 pixels, got "
+                        f"{img.dtype}")
+    gray = img.ndim == 2
+    x = img[..., None] if gray else img
+    w, h = int(size[0]), int(size[1])
+    if x.shape[1] != w:              # horizontal pass first, as PIL
+        x = _resample_axis(x, w, axis=1)
+    if x.shape[0] != h:
+        x = _resample_axis(x, h, axis=0)
+    return x[..., 0] if gray else x
+
+
+def downscale(img: np.ndarray, ds: int, method: str) -> np.ndarray:
+    """LR ground truth of an HR image by ``--ds_method``, as float32 in
+    [0, 1] with the image's channels (``downscale_pil`` of the JAX
+    package). ``lanc``: Lanczos to (W/ds, H/ds) of a uint8 image. ``avg``:
+    the mean of each ds x ds block (rows and columns past a multiple of
+    ds dropped) of a uint8 image / 255 or of a float image in [0, 1]."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    if method == "lanc":
+        if img.dtype != np.uint8:
+            raise ValueError("--ds_method lanc resamples uint8 pixels, as "
+                             "PIL does; got " + str(img.dtype))
+        return lanczos_resize(img, (w // ds, h // ds)).astype(
+            np.float32) / 255.0
+    if method != "avg":
+        raise ValueError(f"unknown --ds_method {method}")
+    arr = img.astype(np.float32) / 255.0 if img.dtype == np.uint8 \
+        else img.astype(np.float32)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    arr = arr[:(h // ds) * ds, :(w // ds) * ds]
+    return arr.reshape(h // ds, ds, w // ds, ds, -1).mean((1, 3))

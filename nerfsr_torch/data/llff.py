@@ -1,0 +1,217 @@
+"""Forward-facing (LLFF) scene geometry: COLMAP poses to NeRF poses,
+render paths and rays, in numpy.
+
+Port of the pose half of ``nerfsr_tpu/data/llff.py`` (``average_pose``,
+``center_poses``, ``spiral_path``, ``spheric_path``, ``ndc_rays_np``,
+``llff_eval_raygen_spec``, ``load_colmap_scene``) and of the camera
+helpers of ``nerfsr_tpu/data/blender.py`` (``_ray_dirs_np``,
+``rays_from_pose``, ``cached_eval_dirs``) that the LLFF datasets share.
+
+``load_colmap_scene`` reads the sparse model, turns each image's w2c
+into a c2w, takes per-image depth bounds from the 0.1 and 99.9
+percentiles of its visible points, sorts by image name, flips COLMAP's
+"right down front" axes to NeRF's "right up back", centres the poses on
+their average pose and rescales the world so the nearest bound is 4/3.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from nerfsr_torch.data.colmap import read_model
+from nerfsr_torch.data.downx_common import group_subpixels
+
+
+def _normalize(v):
+    return v / np.linalg.norm(v)
+
+
+def _ray_dirs_np(h, w, focal, use_pixel_centers=True):
+    """Camera-space ray directions (H, W, 3) of a pinhole camera looking
+    down -z."""
+    center = 0.5 if use_pixel_centers else 0.0
+    i, j = np.meshgrid(
+        np.arange(w, dtype=np.float32) + center,
+        np.arange(h, dtype=np.float32) + center,
+        indexing="xy")
+    return np.stack(
+        [(i - w / 2) / focal, -(j - h / 2) / focal, -np.ones_like(i)], -1)
+
+
+def rays_from_pose(directions, c2w):
+    """World rays of camera-space directions under a (3, 4) c2w: unit
+    directions and the camera centre as every origin."""
+    rays_d = directions @ c2w[:, :3].T
+    rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    rays_o = np.broadcast_to(c2w[:, 3], rays_d.shape).copy()
+    return rays_o.astype(np.float32), rays_d.astype(np.float32)
+
+
+def cached_eval_dirs(ds_obj, group_ds: int = 0):
+    """The dataset's flat camera-space direction grid in its eval ray
+    order (raster, or sub-pixel grouped when ``group_ds`` > 1), cached on
+    the dataset: ``NeRFSystem.render_pose`` uploads it once."""
+    if getattr(ds_obj, "_eval_dirs", None) is None:
+        d = ds_obj.directions.astype(np.float32)
+        if group_ds > 1:
+            d = group_subpixels(d, group_ds)
+        ds_obj._eval_dirs = np.ascontiguousarray(d.reshape(-1, 3))
+    return ds_obj._eval_dirs
+
+
+def average_pose(poses):
+    """Average c2w: mean centre, mean z, y from the mean y via x = y' x z."""
+    center = poses[..., 3].mean(0)
+    z = _normalize(poses[..., 2].mean(0))
+    y_ = poses[..., 1].mean(0)
+    x = _normalize(np.cross(y_, z))
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)
+
+
+def center_poses(poses):
+    """Express every pose in the frame of the average pose."""
+    avg = average_pose(poses)
+    avg_homo = np.eye(4)
+    avg_homo[:3] = avg
+    last = np.tile(np.array([0, 0, 0, 1.0]), (len(poses), 1, 1))
+    homo = np.concatenate([poses, last], 1)
+    centered = (np.linalg.inv(avg_homo) @ homo)[:, :3]
+    return centered, avg
+
+
+def spiral_path(radii, focus_depth, n_poses=120):
+    """Two-turn spiral render path: (n_poses, 3, 4) c2w."""
+    poses = []
+    for t in np.linspace(0, 4 * np.pi, n_poses + 1)[:-1]:
+        center = np.array([np.cos(t), -np.sin(t), -np.sin(0.5 * t)]) * radii
+        z = _normalize(center - np.array([0, 0, -focus_depth]))
+        x = _normalize(np.cross(np.array([0, 1.0, 0]), z))
+        y = np.cross(z, x)
+        poses.append(np.stack([x, y, z, center], 1))
+    return np.stack(poses)
+
+
+def spheric_path(radius, n_poses=120):
+    """Circular path looking 36 degrees down: (n_poses, 3, 4) c2w."""
+    def pose(theta, phi, r):
+        trans = np.array([[1, 0, 0, 0], [0, 1, 0, -0.9 * r],
+                          [0, 0, 1, r], [0, 0, 0, 1.0]])
+        rot_phi = np.array([
+            [1, 0, 0, 0],
+            [0, np.cos(phi), -np.sin(phi), 0],
+            [0, np.sin(phi), np.cos(phi), 0],
+            [0, 0, 0, 1]])
+        rot_theta = np.array([
+            [np.cos(theta), 0, -np.sin(theta), 0],
+            [0, 1, 0, 0],
+            [np.sin(theta), 0, np.cos(theta), 0],
+            [0, 0, 0, 1]])
+        c2w = rot_theta @ rot_phi @ trans
+        flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0],
+                         [0, 1, 0, 0], [0, 0, 0, 1.0]])
+        return (flip @ c2w)[:3]
+
+    return np.stack([pose(th, -np.pi / 5, radius)
+                     for th in np.linspace(0, 2 * np.pi, n_poses + 1)[:-1]])
+
+
+def ndc_rays_np(h, w, focal, near, rays_o, rays_d):
+    """Rays into normalized device coordinates (numpy twin of
+    ``core.rays.ndc_rays``)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+    o0 = -1.0 / (w / (2.0 * focal)) * ox_oz
+    o1 = -1.0 / (h / (2.0 * focal)) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (w / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - ox_oz)
+    d1 = -1.0 / (h / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - oy_oz)
+    d2 = 1.0 - o2
+    return (np.stack([o0, o1, o2], -1).astype(np.float32),
+            np.stack([d0, d1, d2], -1).astype(np.float32))
+
+
+def llff_eval_raygen_spec(ds_obj, idx):
+    """Pose and static geometry of view ``idx`` for device-side eval
+    raygen: the val view, a training pose (``test_train``) or a test-path
+    pose; NDC geometry for forward-facing scenes, world bounds for
+    spheric ones."""
+    if ds_obj.mode == "val":
+        c2w = ds_obj.poses[ds_obj.val_idx]
+    elif ds_obj.mode == "test_train":
+        c2w = ds_obj.poses[idx]
+    else:
+        c2w = ds_obj._poses_test[idx]
+    near, far = ds_obj._near_far()
+    w, h = ds_obj.img_wh
+    if ds_obj.spheric:
+        geom = ("world", float(near), float(far))
+    else:
+        geom = ("ndc", h, w, float(ds_obj.focal), float(near),
+                float(far))
+    return {"c2w": c2w, "vd_c2w": c2w, "geom": geom}
+
+
+def load_colmap_scene(root_dir, img_wh):
+    """COLMAP sparse model under ``root_dir/sparse/0`` -> (poses (N, 3, 4),
+    bounds (N, 2), focal at ``img_wh``, image paths), processed as the
+    module docstring says."""
+    cams, imdata, pts3d = read_model(os.path.join(root_dir, "sparse/0"))
+    cam = cams[min(cams)]
+    focal = cam.params[0] * img_wh[0] / cam.width
+
+    keys = list(imdata)
+    names = [imdata[k].name for k in keys]
+    perm = np.argsort(names)
+    image_paths = [os.path.join(root_dir, "images", n)
+                   for n in sorted(names)]
+
+    w2c = []
+    bottom = np.array([[0, 0, 0, 1.0]])
+    for k in keys:
+        im = imdata[k]
+        R = im.qvec2rotmat()
+        t = im.tvec.reshape(3, 1)
+        w2c.append(np.concatenate(
+            [np.concatenate([R, t], 1), bottom], 0))
+    poses = np.linalg.inv(np.stack(w2c))[:, :3]  # c2w, order of `keys`
+
+    # per-image depth bounds from visible 3D points
+    id_to_idx = {imdata[k].id: i for i, k in enumerate(keys)}
+    n_img = len(keys)
+    pts_xyz = np.stack([p.xyz for p in pts3d.values()])  # (P, 3)
+    vis = np.zeros((n_img, len(pts_xyz)), bool)
+    for j, p in enumerate(pts3d.values()):
+        for img_id in p.image_ids:
+            if img_id in id_to_idx:
+                vis[id_to_idx[img_id], j] = True
+    # depth of each point w.r.t. each camera: (p - center) . z_axis
+    depths = np.einsum(
+        "pk,nk->np", pts_xyz, poses[..., 2]) - np.einsum(
+        "nk,nk->n", poses[..., 3], poses[..., 2])[:, None]
+    bounds = np.zeros((n_img, 2))
+    for i in range(n_img):
+        zs = depths[i][vis[i]]
+        if len(zs) == 0:
+            zs = depths[i]
+        bounds[i] = [np.percentile(zs, 0.1), np.percentile(zs, 99.9)]
+
+    poses = poses[perm]
+    bounds = bounds[perm]
+
+    # COLMAP "right down front" -> NeRF "right up back"
+    poses = np.concatenate(
+        [poses[..., 0:1], -poses[..., 1:3], poses[..., 3:4]], -1)
+    poses, _ = center_poses(poses)
+
+    scale = bounds.min() * 0.75  # nearest depth at ~1.33
+    bounds /= scale
+    poses[..., 3] /= scale
+    return poses.astype(np.float32), bounds.astype(np.float32), focal, \
+        image_paths

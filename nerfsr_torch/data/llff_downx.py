@@ -1,0 +1,242 @@
+"""The LLFF supersampling dataset (``--dataset_mode llff_downX``).
+
+Port of ``nerfsr_tpu/data/llff_downx.py:LLFFDownXDataset``: the COLMAP
+pose pipeline (``data/llff.py``), HR rays at ``img_wh``, NDC-warped for
+forward-facing scenes and grouped per LR pixel, LR ground truth by
+``--ds_method`` from the HR image (read by the port's PNG reader and
+Lanczos-resized to ``img_wh`` when its size differs), HR truth kept
+grouped as ``rgbs_ori``. Modes ``train``, ``val``, ``test`` and
+``test_train``; options ``--use_subset``/``--subset_num``,
+``--spheric_poses``, ``--unified_dir``, ``--include_var`` and
+``--sisr_path``.
+
+``pose_rays_grouped`` and ``load_pair`` are shared with the in-memory
+views of ``data/views.py``.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from nerfsr_torch.data import register_dataset
+from nerfsr_torch.data.downx_common import (blend_white, downscale,
+                                            group_subpixels,
+                                            lanczos_resize)
+from nerfsr_torch.data.llff import (_ray_dirs_np, cached_eval_dirs,
+                                    llff_eval_raygen_spec,
+                                    load_colmap_scene, ndc_rays_np,
+                                    rays_from_pose, spheric_path,
+                                    spiral_path)
+from nerfsr_torch.utils import png
+
+_AUX = ("not ported yet (ROADMAP.md queue 1: auxiliary training paths)")
+
+
+def pose_rays_grouped(directions, c2w, img_wh, focal, ds, near_far,
+                      spheric=False):
+    """HR rays of one pose (NDC-warped unless ``spheric``), grouped:
+    origins, directions, near, far as (N_lr, ds^2, .)."""
+    w, h = img_wh
+    ro, rd = rays_from_pose(directions, c2w)
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    near, far = near_far
+    if not spheric:
+        ro, rd = ndc_rays_np(h, w, focal, 1.0, ro, rd)
+    fields = {
+        "origins": ro.reshape(h, w, 3),
+        "directions": rd.reshape(h, w, 3),
+        "near": np.full((h, w, 1), near, np.float32),
+        "far": np.full((h, w, 1), far, np.float32),
+    }
+    return {k: group_subpixels(v, ds) for k, v in fields.items()}
+
+
+def load_pair(hr_u8, img_wh, ds, ds_method):
+    """HR uint8 (H, W, 3) -> HR float (h, w, 3) in [0, 1] at ``img_wh``
+    (Lanczos when the size differs) and LR truth (h/ds, w/ds, 3)."""
+    if tuple(hr_u8.shape[1::-1]) != tuple(img_wh):
+        hr_u8 = lanczos_resize(hr_u8, img_wh)
+    lr = downscale(hr_u8, ds, ds_method)
+    return hr_u8.astype(np.float32) / 255.0, lr
+
+
+def load_image(path, wh):
+    """An image as float RGB in [0, 1] at ``wh`` (``load_image`` of the
+    JAX package): gray repeated, alpha blended over white."""
+    img = png.read(path)
+    px = img.pixels
+    if img.mode == "P":
+        px = np.concatenate([img.palette, img.palette_alpha[:, None]],
+                            1)[px]
+    if tuple(px.shape[1::-1]) != tuple(wh):
+        if px.ndim == 3 and px.shape[-1] in (2, 4):
+            raise NotImplementedError(
+                f"{path}: resizing an image with alpha is not ported "
+                "(PIL premultiplies it); store it at --img_wh")
+        px = lanczos_resize(px, wh)
+    arr = px.astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, -1)
+    elif arr.shape[-1] == 2:
+        arr = np.concatenate([np.repeat(arr[..., :1], 3, -1),
+                              arr[..., 1:]], -1)
+    return blend_white(arr)
+
+
+@register_dataset("llff_downX")
+class LLFFDownXDataset:
+    """Modes: train, val, test, test_train."""
+
+    MODES = ("train", "val", "test", "test_train")
+
+    def __init__(self, opt, mode):
+        if mode in ("reg_patch", "gan"):
+            raise NotImplementedError(f"llff_downX mode {mode} is {_AUX}")
+        if mode not in self.MODES:
+            raise ValueError(f"llff_downX has no mode {mode!r}; modes: "
+                             f"{self.MODES}")
+        self.opt = opt
+        self.mode = mode
+        self.img_wh = tuple(opt.img_wh)  # HR size
+        self.ds = opt.downscale
+        self.spheric = opt.spheric_poses
+        w, h = self.img_wh
+
+        self.poses, self.bounds, self.focal, self.image_paths = \
+            load_colmap_scene(opt.dataset_root, self.img_wh)
+        dists = np.linalg.norm(self.poses[..., 3], axis=1)
+        self.val_idx = int(np.argmin(dists))
+
+        if opt.use_subset:
+            self.poses = self.poses[:opt.subset_num]
+            self.image_paths = self.image_paths[:opt.subset_num]
+            # val_idx is chosen before the subset (as the JAX package
+            # does) and clamped into it
+            if self.val_idx >= len(self.poses):
+                self.val_idx = len(self.poses) - 1
+
+        self.sr_image_paths = None
+        if opt.sisr_path:
+            self.sr_image_paths = [
+                os.path.join(opt.sisr_path, f)
+                for f in sorted(os.listdir(opt.sisr_path))
+                if f.lower().endswith(("jpg", "jpeg", "png"))]
+            if opt.use_subset:
+                self.sr_image_paths = self.sr_image_paths[:opt.subset_num]
+
+        if not opt.unified_dir:
+            self.directions = _ray_dirs_np(h, w, self.focal,
+                                           opt.use_pixel_centers)
+        else:
+            # every sub-pixel takes its LR pixel's centre direction;
+            # focal / ds is true division
+            lr_dirs = _ray_dirs_np(h // self.ds, w // self.ds,
+                                   self.focal / self.ds,
+                                   opt.use_pixel_centers)
+            self.directions = np.repeat(
+                np.repeat(lr_dirs, self.ds, axis=0), self.ds, axis=1)
+
+        self._poses_test = None
+        if mode == "test":
+            if not self.spheric:
+                radii = np.percentile(
+                    np.abs(self.poses[..., 3]), 90, axis=0)
+                self._poses_test = spiral_path(radii, focus_depth=3.5)
+            else:
+                self._poses_test = spheric_path(1.1 * self.bounds.min())
+
+    # ------------------------------------------------------------------
+    def _near_far(self):
+        if not self.spheric:
+            return 0.0, 1.0
+        near = float(self.bounds.min())
+        return near, float(min(8 * near, self.bounds.max()))
+
+    @property
+    def depth_bounds(self):
+        return self._near_far()
+
+    def __len__(self):
+        if self.mode == "train":
+            n = len(self.image_paths)
+            n_eff = n if self.opt.include_var else n - 1
+            wl, hl = self.img_wh[0] // self.ds, self.img_wh[1] // self.ds
+            return n_eff * wl * hl
+        if self.mode == "val":
+            return max(1, self.opt.val_num)
+        if self.mode == "test_train":
+            return len(self.poses)
+        return len(self._poses_test)
+
+    def _pose_rays_grouped(self, c2w):
+        return pose_rays_grouped(self.directions, c2w, self.img_wh,
+                                 self.focal, self.ds, self._near_far(),
+                                 self.spheric)
+
+    def _load_pair(self, path):
+        """-> HR rgb (h, w, 3) + LR rgb (h/ds, w/ds, 3), floats."""
+        return load_pair(png.read_rgb(path), self.img_wh, self.ds,
+                         self.opt.ds_method)
+
+    def ray_buffer(self):
+        """Grouped training buffer (val view left out unless
+        ``--include_var``): origins/directions/near/far (N_lr, ds^2, .),
+        rgbs (N_lr, 3), rgbs_ori (N_lr, ds^2, 3) [+ rgbs_sr]."""
+        if self.mode != "train":
+            raise ValueError(f"ray_buffer is the train split's, not "
+                             f"{self.mode}'s")
+        keys = ["origins", "directions", "near", "far", "rgbs", "rgbs_ori"]
+        if self.sr_image_paths:
+            keys.append("rgbs_sr")
+        parts = {k: [] for k in keys}
+        for i, path in enumerate(self.image_paths):
+            if i == self.val_idx and not self.opt.include_var:
+                continue
+            rays = self._pose_rays_grouped(self.poses[i])
+            hr, lr = self._load_pair(path)
+            for k in ("origins", "directions", "near", "far"):
+                parts[k].append(rays[k])
+            parts["rgbs"].append(lr.reshape(-1, 3).astype(np.float32))
+            parts["rgbs_ori"].append(
+                group_subpixels(hr, self.ds).astype(np.float32))
+            if self.sr_image_paths:
+                sr = load_image(self.sr_image_paths[i], self.img_wh)
+                parts["rgbs_sr"].append(
+                    group_subpixels(sr, self.ds).astype(np.float32))
+        return {k: np.concatenate(v) for k, v in parts.items()}
+
+    def ref_buffer(self):
+        raise NotImplementedError(f"--with_ref's ref_buffer is {_AUX}")
+
+    def eval_raygen_spec(self, idx):
+        """Pose + static geometry for device-side eval raygen."""
+        return llff_eval_raygen_spec(self, idx)
+
+    def eval_dirs(self):
+        """The direction grid in the grouped flatten order (each LR
+        pixel's ds^2 sub-rays contiguous), so device-raygen rows match
+        ``image_rays``'s grouped rows."""
+        return cached_eval_dirs(self, self.ds)
+
+    def image_rays(self, idx):
+        if self.mode == "val":
+            pose_idx = self.val_idx
+            c2w = self.poses[pose_idx]
+        elif self.mode == "test_train":
+            pose_idx = idx
+            c2w = self.poses[idx]
+        else:
+            pose_idx = None
+            c2w = self._poses_test[idx]
+        sample = self._pose_rays_grouped(c2w)
+        sample["c2w"] = c2w
+        if pose_idx is not None:
+            hr, lr = self._load_pair(self.image_paths[pose_idx])
+            sample["rgbs"] = lr.reshape(-1, 3).astype(np.float32)
+            sample["rgbs_ori"] = group_subpixels(
+                hr, self.ds).astype(np.float32)
+        else:
+            sample["rgbs"] = None
+        return sample

@@ -1,22 +1,16 @@
 """Views of a forward-facing supersampling scene, from camera geometry
 and images in memory.
 
-``LLFFDownXViews`` is the pose half of
-``nerfsr_tpu/data/llff_downx.py:LLFFDownXDataset`` in test mode: built
-from ``(poses, focal, img_wh, downscale)`` with no COLMAP model and no
-images, which is all an LLFF test split is (spiral poses and NDC
-geometry). It provides what ``NeRFSystem.render_eval_many`` calls:
-``eval_raygen_spec(idx)`` and ``eval_dirs()``.
+``LLFFDownXViews`` is the pose half of ``LLFFDownXDataset``
+(``data/llff_downx.py``) in ``test_train`` mode, built from ``(poses,
+focal, img_wh, downscale)`` with no COLMAP model and no images: spiral
+poses and NDC geometry. It provides what ``NeRFSystem.render_eval_many``
+calls: ``eval_raygen_spec(idx)`` and ``eval_dirs()``.
 
-``LLFFDownXTrainViews`` adds HR images (H, W, 3) and builds the grouped
-training buffer of ``LLFFDownXDataset.ray_buffer()`` (its own copies of
-``_pose_rays_grouped`` and ``ray_buffer``, NDC through the port's ray
-code), the LR truth by the ``avg`` branch of ``downscale_pil``
-(``data/downx_common.py``); the buffer is uploaded to the device once.
-
-The module holds its own copies of ``_ray_dirs_np`` (``data/blender.py``),
-``group_subpixels`` (``data/downx_common.py``), ``spiral_path`` and the
-non-spheric ``llff_eval_raygen_spec`` (``data/llff.py``).
+``LLFFDownXTrainViews`` adds HR images (H, W, 3), uint8 or float in
+[0, 1], and builds the dataset's grouped training buffer with the
+dataset's own code (``pose_rays_grouped`` and ``downscale``); the buffer
+is uploaded to the device once.
 """
 
 from __future__ import annotations
@@ -24,52 +18,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nerfsr_torch.core.rays import get_rays, ndc_rays
-
-
-def _ray_dirs_np(h, w, focal, use_pixel_centers=True):
-    center = 0.5 if use_pixel_centers else 0.0
-    i, j = np.meshgrid(
-        np.arange(w, dtype=np.float32) + center,
-        np.arange(h, dtype=np.float32) + center,
-        indexing="xy")
-    return np.stack(
-        [(i - w / 2) / focal, -(j - h / 2) / focal, -np.ones_like(i)], -1)
-
-
-def group_subpixels(arr: np.ndarray, ds: int) -> np.ndarray:
-    """(H, W, C) -> (H/ds * W/ds, ds*ds, C): each LR pixel's ds^2 HR
-    sub-elements, row-major within the block."""
-    h, w = arr.shape[:2]
-    c = arr.shape[2:]
-    x = arr.reshape((h // ds, ds, w // ds, ds) + c)
-    x = np.moveaxis(x, 1, 2)  # (h1, w1, ds, ds, C)
-    return x.reshape((h // ds * (w // ds), ds * ds) + c)
-
-
-def _normalize(v):
-    return v / np.linalg.norm(v)
-
-
-def spiral_path(radii, focus_depth, n_poses=120):
-    """Two-turn spiral render path: (n_poses, 3, 4) c2w."""
-    poses = []
-    for t in np.linspace(0, 4 * np.pi, n_poses + 1)[:-1]:
-        center = np.array([np.cos(t), -np.sin(t), -np.sin(0.5 * t)]) * radii
-        z = _normalize(center - np.array([0, 0, -focus_depth]))
-        x = _normalize(np.cross(np.array([0, 1.0, 0]), z))
-        y = np.cross(z, x)
-        poses.append(np.stack([x, y, z, center], 1))
-    return np.stack(poses)
+from nerfsr_torch.data.downx_common import downscale, group_subpixels
+from nerfsr_torch.data.llff import (_ray_dirs_np, cached_eval_dirs,
+                                    llff_eval_raygen_spec, spiral_path)
+from nerfsr_torch.data.llff_downx import pose_rays_grouped
 
 
 class LLFFDownXViews:
-    """Forward-facing (NDC) test views of the supersampling dataset.
+    """Forward-facing (NDC) views of the supersampling dataset.
 
-    poses: (n, 3, 4) c2w test poses; focal in HR pixels; img_wh the HR
-    (w, h); downscale the LR factor. NDC depth bounds are (0, 1)."""
+    poses: (n, 3, 4) c2w; focal in HR pixels; img_wh the HR (w, h);
+    downscale the LR factor. NDC depth bounds are (0, 1)."""
 
     depth_bounds = (0.0, 1.0)
+    mode = "test_train"
+    spheric = False
 
     def __init__(self, poses, focal: float, img_wh, downscale: int,
                  use_pixel_centers: bool = True):
@@ -95,56 +58,31 @@ class LLFFDownXViews:
     def __len__(self):
         return len(self.poses)
 
+    def _near_far(self):
+        return self.depth_bounds
+
     def eval_raygen_spec(self, idx):
         """Pose + static NDC geometry for device-side eval raygen."""
-        c2w = self.poses[idx]
-        near, far = self.depth_bounds
-        w, h = self.img_wh
-        return {"c2w": c2w, "vd_c2w": c2w,
-                "geom": ("ndc", h, w, float(self.focal), float(near),
-                         float(far))}
+        return llff_eval_raygen_spec(self, idx)
 
     def eval_dirs(self):
         """The camera-space direction grid in the grouped flatten order
         (each LR pixel's ds^2 sub-rays contiguous), cached."""
-        if self._eval_dirs is None:
-            d = group_subpixels(self.directions.astype(np.float32), self.ds)
-            self._eval_dirs = np.ascontiguousarray(d.reshape(-1, 3))
-        return self._eval_dirs
-
-
-def downscale_avg(img: np.ndarray, ds: int) -> np.ndarray:
-    """The ``avg`` branch of ``downscale_pil``: (H, W, C) float image ->
-    (H/ds, W/ds, C) mean over each ds x ds block (rows and columns past a
-    multiple of ds are dropped)."""
-    arr = np.asarray(img, np.float32)
-    if arr.ndim == 2:
-        arr = arr[..., None]
-    h, w = arr.shape[:2]
-    arr = arr[:(h // ds) * ds, :(w // ds) * ds]
-    return arr.reshape(h // ds, ds, w // ds, ds, -1).mean((1, 3))
-
-
-def downscale(img: np.ndarray, ds: int, method: str) -> np.ndarray:
-    """LR ground truth by ``--ds_method``. Lanczos (``lanc``) needs PIL's
-    resampler, which the port does not carry yet: it raises rather than
-    substituting another filter."""
-    if method == "avg":
-        return downscale_avg(img, ds)
-    raise NotImplementedError(
-        f"--ds_method {method} is not ported yet (only 'avg')")
+        return cached_eval_dirs(self, self.ds)
 
 
 class LLFFDownXTrainViews(LLFFDownXViews):
     """Training views: poses (n, 3, 4) c2w with their HR images (n, H, W,
-    3) in [0, 1]. ``val_idx`` is the view nearest the mean pose centre
-    (as the JAX dataset picks it); ``ray_buffer`` leaves it out unless
-    ``include_var``."""
+    3), uint8 or float in [0, 1]. ``val_idx`` is the view nearest the
+    mean pose centre (as the dataset picks it); ``ray_buffer`` leaves it
+    out unless ``include_var``. ``lanc`` needs uint8 images."""
 
     def __init__(self, poses, images, focal: float, img_wh, downscale: int,
                  ds_method: str = "avg", use_pixel_centers: bool = True):
         super().__init__(poses, focal, img_wh, downscale, use_pixel_centers)
-        self.images = np.asarray(images, np.float32)
+        self.images = np.asarray(images)
+        if self.images.dtype != np.uint8:
+            self.images = self.images.astype(np.float32)
         w, h = self.img_wh
         if self.images.shape != (len(self.poses), h, w, 3):
             raise ValueError(f"images {self.images.shape}, expected "
@@ -155,35 +93,21 @@ class LLFFDownXTrainViews(LLFFDownXViews):
 
     @classmethod
     def rendered(cls, system, params, focal: float, img_wh, downscale: int,
-                 n_views: int, radii=(0.2, 0.2, 0.05), ds_method="avg"):
+                 n_views: int, radii=(0.2, 0.2, 0.05), ds_method="avg",
+                 poses=None):
         """Training views of the scene that ``system`` renders from
         ``params`` (``render_eval_many``, float rgb clipped to [0, 1]) on
-        ``n_views`` spiral poses: a synthetic scene for runs with no
-        dataset."""
+        ``poses``, by default ``n_views`` spiral poses: a synthetic scene
+        for runs with no dataset."""
         views = LLFFDownXViews.spiral(focal, img_wh, downscale, n_views,
-                                      radii=radii)
+                                      radii=radii) if poses is None \
+            else LLFFDownXViews(poses, focal, img_wh, downscale)
         w, h = img_wh
         imgs = np.stack([
             np.clip(out["fine_rgb_ori"], 0.0, 1.0).reshape(h, w, 3)
             for out in system.render_eval_many(params, views,
-                                               range(n_views))])
+                                               range(len(views)))])
         return cls(views.poses, imgs, focal, img_wh, downscale, ds_method)
-
-    def _pose_rays_grouped(self, c2w):
-        """HR rays for one pose, NDC-warped, grouped (N_lr, ds^2, .)."""
-        w, h = self.img_wh
-        ro, rd = get_rays(torch.from_numpy(self.directions),
-                          torch.from_numpy(np.asarray(c2w, np.float32)))
-        ro, rd = ndc_rays(h, w, self.focal, 1.0, ro.reshape(-1, 3),
-                          rd.reshape(-1, 3))
-        near, far = self.depth_bounds
-        fields = {
-            "origins": ro.numpy().reshape(h, w, 3),
-            "directions": rd.numpy().reshape(h, w, 3),
-            "near": np.full((h, w, 1), near, np.float32),
-            "far": np.full((h, w, 1), far, np.float32),
-        }
-        return {k: group_subpixels(v, self.ds) for k, v in fields.items()}
 
     def ray_buffer(self, device=None, include_var: bool = True):
         """The grouped training buffer on ``device``: origins, directions,
@@ -194,14 +118,16 @@ class LLFFDownXTrainViews(LLFFDownXViews):
         for i, c2w in enumerate(self.poses):
             if i == self.val_idx and not include_var:
                 continue
-            rays = self._pose_rays_grouped(c2w)
+            rays = pose_rays_grouped(self.directions, c2w, self.img_wh,
+                                     self.focal, self.ds, self.depth_bounds)
             for k in ("origins", "directions", "near", "far"):
                 parts[k].append(rays[k])
-            hr = self.images[i]
-            lr = downscale(hr, self.ds, self.ds_method)
+            img = self.images[i]
+            lr = downscale(img, self.ds, self.ds_method)
+            hr = img.astype(np.float32) / 255.0 if img.dtype == np.uint8 \
+                else img
             parts["rgbs"].append(lr.reshape(-1, 3).astype(np.float32))
-            parts["rgbs_ori"].append(
-                group_subpixels(hr, self.ds).astype(np.float32))
+            parts["rgbs_ori"].append(group_subpixels(hr, self.ds))
         return {k: torch.from_numpy(np.ascontiguousarray(
                     np.concatenate(v))).to(device)
                 for k, v in parts.items()}

@@ -1,0 +1,322 @@
+"""Training and eval engine of the port.
+
+Port of ``nerfsr_tpu/engine.py`` (``setup``, ``train``, ``validate``,
+``test``, ``_rays_per_batch``, ``_vis_dir``) on its plain-step route:
+the training buffer is uploaded to the card once, and each epoch runs in
+chunks of ``min(--scan_steps, steps left in the epoch)`` steps of
+``system.train_steps``, whose losses are read back once per chunk and
+written every ``--log_every`` (else ``--print_freq``) steps with
+``rays_per_sec``. Before each chunk the generator on the card is seeded
+from ``(--seed, step)``, so a resumed run draws what an unbroken run
+draws, and the step counter is the saved ``TrainState.step``.
+``validate`` takes PSNR/SSIM on the device where it can and decides per
+view whether its render is read back quantized (uint8 rgb: PNG-only
+views). ``test`` renders ``--test_split`` from a checkpoint into
+``{results_dir}/{name}/{split}_{epoch}/``: ``{i}-fine[-ori].png`` strips,
+``{i}-fine-depth[-ori].npz`` depth maps with their PNGs, and a GIF per
+strip kind.
+
+Paths the port does not cover yet raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item: patch mode (``--patch_size`` > 1),
+``--with_ref``, ``--with_netD``, ``--reg_patch``, the ``train_crop``
+warm-up and ``--mesh_devices`` > 1.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nerfsr_torch.data import create_dataset
+from nerfsr_torch.models import create_model
+from nerfsr_torch.utils import checkpoint as ckpt
+from nerfsr_torch.utils.visualizer import (MetricsWriter, Visualizee,
+                                           save_visuals)
+
+_ROADMAP = "is not ported yet (ROADMAP.md queue 1 item {})"
+
+
+def _refuse_unported(opt, warmup_mode=None):
+    aux = "4, auxiliary training paths"
+    refusals = [
+        (opt.patch_size > 1, "patch mode (--patch_size > 1)", aux),
+        (opt.with_ref and not opt.no_ref_loss, "--with_ref", aux),
+        (opt.with_netD, "--with_netD", aux),
+        (opt.reg_patch, "--reg_patch", aux),
+        (warmup_mode is not None or opt.train_crop,
+         f"the {warmup_mode or 'train_crop'} warm-up",
+         "1, the Blender datasets"),
+        (opt.mesh_devices > 1, "--mesh_devices > 1", "3, distributed"),
+    ]
+    for hit, what, item in refusals:
+        if hit:
+            raise NotImplementedError(f"{what} {_ROADMAP.format(item)}")
+
+
+def setup(opt, warmup_mode=None):
+    """Refuse what is not ported, seed, and build the system on
+    ``--device``."""
+    _refuse_unported(opt, warmup_mode)
+    ckpt.check_backend(opt)
+    np.random.seed(opt.seed)
+    torch.manual_seed(opt.seed)
+    return create_model(opt, device=opt.device)
+
+
+def _seed_chunk(gen: torch.Generator, seed: int, step: int):
+    """Seed the card's generator from (seed, step): every chunk's draws
+    depend on where it starts, not on what ran before it."""
+    gen.manual_seed(((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def _read(losses) -> dict:
+    """Every loss of a chunk to the host in one read."""
+    vals = torch.stack([v.float() for v in losses.values()]).cpu().tolist()
+    return dict(zip(losses, vals))
+
+
+def _fmt(scal):
+    return " ".join(f"{k}={v:.4g}" for k, v in scal.items())
+
+
+def train(opt, warmup_mode: Optional[str] = None, timings=None):
+    """The training loop. ``timings``, when a dict, receives each epoch's
+    host seconds over its steps (ending in the chunk's loss read, which
+    waits for the card) under ``"epoch_s"`` and ``steps_per_epoch``."""
+    system = setup(opt, warmup_mode)
+    writer = MetricsWriter(opt.summary_dir, opt.name)
+
+    train_ds = create_dataset(opt, opt.train_split)
+    buffer_np = train_ds.ray_buffer()
+    n_rays = len(buffer_np["rgbs"])
+    if opt.steps_per_epoch:
+        steps_per_epoch = opt.steps_per_epoch
+    elif opt.keep_last:
+        steps_per_epoch = max(1, int(np.ceil(n_rays / opt.batch_size)))
+    else:
+        steps_per_epoch = max(1, n_rays // opt.batch_size)
+    if np.isfinite(opt.max_dataset_size):
+        steps_per_epoch = min(
+            steps_per_epoch,
+            max(1, int(opt.max_dataset_size) // opt.batch_size))
+    print(f"[train] {n_rays} rays, {steps_per_epoch} steps/epoch, "
+          f"{opt.n_epochs} epochs, device {system.device}")
+    buffer = {k: torch.from_numpy(np.ascontiguousarray(v)).to(system.device)
+              for k, v in buffer_np.items()}
+
+    val_ds = None
+    try:
+        val_ds = create_dataset(opt, opt.val_split)
+    except (ValueError, KeyError, NotImplementedError, OSError) as e:
+        print(f"[train] no val split: {e}")
+
+    log_every = opt.log_every or opt.print_freq
+    state = system.create_state(seed=opt.seed,
+                                steps_per_epoch=steps_per_epoch)
+    start_epoch = ckpt.resume_if_requested(opt, state)
+    if start_epoch:
+        print(f"[train] resumed from epoch {start_epoch} at step "
+              f"{state.step}")
+    ckpt.init_weights_from(opt, state)
+
+    gen = torch.Generator(device=system.device)
+    rays_per_batch = _rays_per_batch(opt, buffer_np)
+    last_log_step, last_log_time = state.step, time.time()
+    if timings is not None:
+        timings.update(epoch_s={}, steps_per_epoch=steps_per_epoch)
+
+    for epoch in range(start_epoch + 1, opt.n_epochs + 1):
+        t_epoch = time.perf_counter()
+        it = 0
+        while it < steps_per_epoch:
+            k = min(max(1, opt.scan_steps), steps_per_epoch - it)
+            _seed_chunk(gen, opt.seed, state.step)
+            state, losses = system.train_steps(state, buffer, k, gen)
+            it += k
+            step = state.step
+            scal = _read(losses)
+            if log_every > 0 and step % log_every < k:
+                now = time.time()
+                scal["rays_per_sec"] = ((step - last_log_step) * rays_per_batch
+                                        / max(now - last_log_time, 1e-9))
+                last_log_step, last_log_time = step, now
+                writer.add_scalars(scal, step, prefix="train/")
+                print(f"[e{epoch} s{step}] {_fmt(scal)}")
+            if (val_ds is not None and opt.val_freq > 0
+                    and step % opt.val_freq < k):
+                _validate_iter(opt, system, state, val_ds, writer, epoch, k)
+        seconds = time.perf_counter() - t_epoch
+        if timings is not None:
+            timings["epoch_s"][epoch] = seconds
+        print(f"[train] epoch {epoch} done in {seconds:.1f}s "
+              f"({seconds / steps_per_epoch * 1e3:.2f} ms/step)")
+
+        if ((opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0)
+                or epoch == opt.n_epochs):
+            print(f"[train] saved {ckpt.save_checkpoint(opt, state, epoch)}")
+
+        if val_ds is not None and opt.val_epoch_freq and \
+                (epoch % opt.val_epoch_freq == 0 or epoch == opt.n_epochs):
+            metrics = validate(opt, system, state.params, val_ds,
+                               out_dir=_vis_dir(opt, epoch, "val"))
+            writer.add_scalars(metrics, state.step, prefix="val/")
+            print(f"[val e{epoch}] {_fmt(metrics)}")
+
+        if opt.vis_epoch_freq and epoch % opt.vis_epoch_freq == 0:
+            vis_ds = create_dataset(opt, opt.val_epoch_split)
+            metrics = validate(opt, system, state.params, vis_ds,
+                               out_dir=_vis_dir(opt, epoch,
+                                                opt.val_epoch_split),
+                               max_images=4)
+            writer.add_scalars(metrics, state.step,
+                               prefix=f"{opt.val_epoch_split}/")
+            print(f"[{opt.val_epoch_split} e{epoch}] {_fmt(metrics)}")
+
+    writer.close()
+    return state
+
+
+def _validate_iter(opt, system, state, val_ds, writer, epoch, k):
+    """Mid-epoch validation of the first val view every ``--val_freq``
+    steps: metrics on the device, or (every ``--vis_freq`` steps) a
+    read-back render that also writes its strips."""
+    step = state.step
+    need_vis = opt.vis_freq > 0 and step % opt.vis_freq < k
+    m = None if need_vis else system.eval_metrics_fast(state.params,
+                                                       val_ds, 0)
+    if m is None:
+        sample = val_ds.image_rays(0)
+        out = system.render_eval(state.params, val_ds, 0, sample)
+        with_gt = sample.get("rgbs") is not None
+        m = system.eval_metrics(out, sample) if with_gt else {}
+        if need_vis:
+            save_visuals(system.eval_visuals(
+                out, sample, f"s{step}", with_gt=with_gt,
+                depth_bounds=val_ds.depth_bounds),
+                _vis_dir(opt, epoch, "iter"))
+    if m:
+        writer.add_scalars(m, step, prefix="val_iter/")
+        print(f"[val_iter s{step}] {_fmt(m)}")
+
+
+def _rays_per_batch(opt, buffer_np):
+    """HR rays a step evaluates (for rays/sec)."""
+    r = buffer_np.get("origins")
+    if r is not None and r.ndim == 3:  # grouped (N_lr, ds^2, 3)
+        return opt.batch_size * r.shape[1]
+    return opt.batch_size
+
+
+def _vis_dir(opt, epoch, split):
+    return os.path.join(opt.checkpoints_dir, opt.name,
+                        f"{epoch}_{split}_vis")
+
+
+def _renders_by_quantize(system, params, dataset, indices, quant):
+    """(i, render) in ``indices``' order; consecutive views with the same
+    quantize decision share one pipelined ``render_eval_many``."""
+    run = []
+    for i in list(indices) + [None]:
+        if run and (i is None or quant[i] != quant[run[0]]):
+            yield from zip(run, system.render_eval_many(
+                params, dataset, run, quantize_rgb=quant[run[0]]))
+            run = []
+        if i is not None:
+            run.append(i)
+
+
+def _gif_visuals(gif_frames):
+    return [Visualizee("gif", frames, name=level)
+            for level, frames in gif_frames.items() if len(frames) > 1]
+
+
+def validate(opt, system, params, dataset, out_dir=None, max_images=None):
+    """Render every view (at most ``max_images``), average its metrics,
+    and, with ``out_dir``, write the strips and a GIF per strip kind.
+
+    Metrics come from the device path (``eval_metrics_fast``) where the
+    view allows it, else from the read-back render. A view's render is
+    read back quantized (uint8 rgb, PNG-identical) when it only feeds
+    PNGs: its metrics came from the device, or it has no ground truth.
+    Metrics never see quantized values."""
+    n = len(dataset)
+    if max_images:
+        n = min(n, max_images)
+    metrics = {}
+    for i in range(n):
+        m = system.eval_metrics_fast(params, dataset, i)
+        if m is not None:
+            metrics[i] = m
+    todo = list(range(n)) if out_dir is not None else \
+        [i for i in range(n) if i not in metrics]
+    quant = {i: out_dir is not None and (
+        i in metrics or dataset.image_rays(i).get("rgbs") is None)
+        for i in todo}
+    visuals, gif_frames = [], {}
+    for i, out in _renders_by_quantize(system, params, dataset, todo,
+                                       quant):
+        sample = dataset.image_rays(i)
+        if i not in metrics and sample.get("rgbs") is not None:
+            metrics[i] = system.eval_metrics(out, sample)
+        if out_dir is not None:
+            for v in system.eval_visuals(out, sample, i, with_gt=True,
+                                         depth_bounds=dataset.depth_bounds):
+                visuals.append(v)
+                if v.kind == "image":
+                    gif_frames.setdefault(v.name.split("-", 1)[1],
+                                          []).append(v.data)
+    if out_dir is not None and visuals:
+        save_visuals(visuals + _gif_visuals(gif_frames), out_dir)
+    if not metrics:            # a split without ground truth
+        return {}
+    rows = [metrics[i] for i in sorted(metrics)]
+    return {k: float(np.mean([m[k] for m in rows])) for k in rows[0]}
+
+
+def test(opt, timings=None):
+    """Render ``--test_split`` from checkpoint ``--load_epoch`` (its
+    parameters) into ``{results_dir}/{name}/{split}_{epoch}/``; each
+    view's strips and depth maps are written as it arrives, the GIFs at
+    the end. Returns the directory. ``timings``, when a dict, receives
+    the host seconds of the render-and-write loop (ending with the last
+    GIF written), the part of them spent building and writing the
+    artifacts, and the view count."""
+    system = setup(opt)
+    dataset = create_dataset(opt, opt.test_split)
+    state = system.create_state(seed=0, steps_per_epoch=1)
+    ckpt.load_checkpoint(opt, state, epoch=opt.load_epoch,
+                         params_only=True)
+    out_dir = os.path.join(opt.results_dir, opt.name,
+                           f"{opt.test_split}_{opt.load_epoch}")
+    t0 = time.perf_counter()
+    gif_frames, n_written, write_s = {}, 0, 0.0
+    # rgb comes back display-quantized (uint8); depth stays f32 for the
+    # npz artifacts
+    renders = system.render_eval_many(state.params, dataset,
+                                      range(len(dataset)), quantize_rgb=True)
+    for i, out in enumerate(renders):
+        t_write = time.perf_counter()
+        sample = dataset.image_rays(i)
+        vis = system.eval_visuals(out, sample, i,
+                                  with_gt=sample.get("rgbs") is not None,
+                                  depth_bounds=dataset.depth_bounds)
+        save_visuals(vis, out_dir)
+        n_written += len(vis)
+        for v in vis:
+            if v.kind == "image":
+                gif_frames.setdefault(v.name.split("-", 1)[1],
+                                      []).append(v.data)
+        write_s += time.perf_counter() - t_write
+    t_write = time.perf_counter()
+    gifs = _gif_visuals(gif_frames)
+    save_visuals(gifs, out_dir)
+    if timings is not None:
+        end = time.perf_counter()
+        timings.update(seconds=end - t0, write_s=write_s + end - t_write,
+                       views=len(dataset))
+    print(f"[test] wrote {n_written + len(gifs)} artifacts to {out_dir}")
+    return out_dir

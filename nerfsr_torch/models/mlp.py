@@ -97,10 +97,13 @@ class _DenseStack(nn.Module):
 class VanillaMLP(_DenseStack):
     """8-layer NeRF MLP: D-layer trunk of width W with a skip concat, a
     sigma head off the trunk, and an rgb branch of width W/2 conditioned
-    on the view direction."""
+    on the view direction. ``stop_grad`` detaches the feature/direction
+    concat, so the rgb loss reaches neither the trunk nor
+    ``xyz_encoding_final``."""
 
     def __init__(self, depth: int = 8, width: int = 256,
                  skips: Sequence[int] = (4,), use_dir: bool = True,
+                 stop_grad: bool = False,
                  dim_rgb: int = 3, color_activation: str = "sigmoid",
                  c_pos: int = 63, c_dir: int = 27,
                  compute_dtype: torch.dtype = torch.float32):
@@ -108,6 +111,7 @@ class VanillaMLP(_DenseStack):
         self.depth, self.width = depth, width
         self.skips = tuple(skips)
         self.use_dir = use_dir
+        self.stop_grad = stop_grad
         self.color_activation = color_activation
         self.compute_dtype = compute_dtype
         in_dim = c_pos
@@ -142,6 +146,8 @@ class VanillaMLP(_DenseStack):
             if dir_emb is None:
                 raise ValueError("use_dir=True but dir_emb is None")
             feat = torch.cat([feat, dir_emb.to(cd)], dim=-1)
+        if self.stop_grad:      # --stop_grad: rgb trains the colour head
+            feat = feat.detach()
         h = torch.relu(self._dense("dir_encoding", feat))
         rgb = self._dense("rgb", h).float()
         if self.color_activation == "sigmoid":

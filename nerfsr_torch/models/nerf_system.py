@@ -5,8 +5,11 @@ Port of ``nerfsr_tpu/models/nerf_system.py``: construction from ``opt``,
 (``create_state``, ``compute_losses``, ``train_step``,
 ``train_step_from_buffer``, ``train_steps``), the eval chunk size, and
 the device-raygen eval render (``eval_image_device_pose`` /
-``_render_dirs_chunks``, ``render_pose``, ``render_eval_many``). The port
-is single-card: there is no mesh.
+``_render_dirs_chunks``, ``render_pose``, ``render_eval_many``), the
+host-rays render (``render_image``), and the engine's metrics and
+visuals (``eval_metrics_fast``: PSNR and SSIM on the device, scalars
+read back; ``eval_metrics``; ``eval_visuals``). The port is single-card:
+there is no mesh.
 
 Parameters are an ``nn.ModuleDict`` of the networks (``prop``/``fine``
 under fast sampling, else ``coarse``/``fine``) on the system's device;
@@ -28,13 +31,18 @@ from torch import nn
 from nerfsr_torch.core.encoding import posenc_channels
 from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
+from nerfsr_torch.kernels import sampling as ksampling
 from nerfsr_torch.models import register_model
 from nerfsr_torch.models.criterions import interlevel_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
+from nerfsr_torch.models.criterions import ssim as ssim_fn
 from nerfsr_torch.models.mlp import ProposalMLP, VanillaMLP
 from nerfsr_torch.models.render import (RenderConfig, render_rays,
                                         render_rays_fast)
+from nerfsr_torch.utils.checkpoint import frozen_paths
 from nerfsr_torch.utils.schedule import make_lr_schedule
+from nerfsr_torch.utils.visualizer import Visualizee, _to_uint8, depth2im
+from nerfsr_torch.weights import param_leaves
 
 
 @dataclasses.dataclass
@@ -91,12 +99,14 @@ class NeRFSystem:
             prop_pad_anneal=opt.prop_pad_anneal,
             prop_pad_final=opt.prop_pad_final,
         )
+        self._check_bins(cfg)
         self._configured_prop_pad_anneal = cfg.prop_pad_anneal
         self._steps_per_epoch = max(1, opt.steps_per_epoch or 1)
         self.render_cfg = self._resolve_pad_anneal(cfg,
                                                    self._steps_per_epoch)
         self.lr_fn = None          # built in create_state
         self._eval_dirs_cache = {}
+        self._eval_gt_cache = {}
 
     @staticmethod
     def _fused_mlp_ok(opt):
@@ -108,6 +118,25 @@ class NeRFSystem:
                 and opt.dim_rgb == 3 and opt.color_activation == "sigmoid"
                 and not opt.no_xyz and not opt.no_logscale
                 and opt.mlp_network == "vanilla_mlp")
+
+    def _check_bins(self, cfg: RenderConfig):
+        """Kernel A takes at most ``MAX_BINS`` bins a ray: refuse a
+        configuration that would give it more, here rather than at its
+        first launch. Fast sampling resamples from the midpoints of
+        ``--n_prop`` (and, with two rounds, ``--n_prop2``) samples; the
+        parity path's resample does not run kernel A. The CPU's plain
+        version takes any count."""
+        if self.device.type != "cuda" or not cfg.fast_sampling:
+            return
+        flags = [("--n_prop", cfg.n_prop)]
+        if cfg.n_prop_levels > 1:
+            flags.append(("--n_prop2", cfg.n_prop2))
+        for flag, n in flags:
+            if n - 1 > ksampling.MAX_BINS:
+                raise ValueError(
+                    f"{flag} {n} gives the inverse-CDF kernel {n - 1} bins "
+                    f"a ray; it takes at most {ksampling.MAX_BINS} (so "
+                    f"{flag} <= {ksampling.MAX_BINS + 1})")
 
     def _resolve_pad_anneal(self, cfg: RenderConfig, steps_per_epoch: int):
         """``--prop_pad_anneal_frac`` -> ``prop_pad_anneal`` steps of the
@@ -128,7 +157,8 @@ class NeRFSystem:
         opt = self.opt
         return VanillaMLP(
             depth=opt.D, width=opt.W, skips=tuple(opt.skips),
-            use_dir=not opt.no_dir, dim_rgb=opt.dim_rgb,
+            use_dir=not opt.no_dir, stop_grad=opt.stop_grad,
+            dim_rgb=opt.dim_rgb,
             color_activation=opt.color_activation,
             c_pos=posenc_channels(opt.dim_pos, opt.deg_pos, not opt.no_xyz),
             c_dir=posenc_channels(opt.dim_dir, opt.deg_dir, not opt.no_xyz),
@@ -189,19 +219,26 @@ class NeRFSystem:
         """Adam (b1 ``--beta1``, b2 0.999, eps 1e-8: optax's
         ``scale_by_adam``) whose LR ``_apply_updates`` sets from the
         per-epoch schedule before each step. The optional clip runs on
-        the gradients first (``_clip_grads``)."""
+        the gradients first (``_clip_grads``). ``--fix_layers`` leaves its
+        leaves out of the optimizer: no update, no moments, and no part
+        in the clip's global norm."""
         self.lr_fn = make_lr_schedule(self.opt, self._steps_per_epoch)
-        return torch.optim.Adam(params.parameters(), lr=self.lr_fn(0),
+        frozen = frozen_paths(self.opt, params)
+        trainable = [p for path, p, _ in param_leaves(params)
+                     if path not in frozen]
+        return torch.optim.Adam(trainable, lr=self.lr_fn(0),
                                 betas=(self.opt.beta1, 0.999), eps=1e-8)
 
-    def _clip_grads(self, params: nn.ModuleDict):
+    def _clip_grads(self, optimizer: torch.optim.Optimizer):
         """``--grad_clip_val``: optax ``clip_by_global_norm`` (scale by
-        max / norm when the global norm exceeds max) or ``clip`` (clamp
-        each element). Stays on the device: no host sync."""
+        max / norm when the global norm of the optimizer's gradients
+        exceeds max) or ``clip`` (clamp each element). Stays on the
+        device: no host sync."""
         val = self.opt.grad_clip_val
         if val <= 0:
             return
-        grads = [p.grad for p in params.parameters() if p.grad is not None]
+        grads = [p.grad for group in optimizer.param_groups
+                 for p in group["params"] if p.grad is not None]
         if self.opt.grad_clip_type == "norm":
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -215,9 +252,9 @@ class NeRFSystem:
 
     def _apply_updates(self, state: TrainState, loss: torch.Tensor):
         """Backward, clip, Adam at the schedule's LR for this step."""
-        state.optimizer.zero_grad(set_to_none=True)
+        state.params.zero_grad(set_to_none=True)
         loss.backward()
-        self._clip_grads(state.params)
+        self._clip_grads(state.optimizer)
         lr = self.lr_fn(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
@@ -429,6 +466,10 @@ class NeRFSystem:
         """Multi-view eval: view i+1's render is enqueued before view i's
         outputs are read back. Yields what ``render_eval`` returns, in
         order. ``quantize_rgb`` returns rgb as uint8."""
+        if getattr(dataset, "eval_raygen_spec", None) is None:
+            for i in indices:
+                yield self.render_eval(params, dataset, i)
+            return
         dirs_flat = np.asarray(dataset.eval_dirs(), np.float32)
         n = dirs_flat.shape[0]
         chunk = self._eval_chunk_size(n)
@@ -445,8 +486,151 @@ class NeRFSystem:
         if pending is not None:
             yield self._postprocess_eval(self._finish_pose(pending, n))
 
-    def render_eval(self, params, dataset, idx: int) -> Dict[str, np.ndarray]:
-        """Eval render of view ``idx`` by device raygen (only a pose
-        crosses to the card)."""
-        return self.render_pose(params, dataset.eval_raygen_spec(idx),
-                                dataset.eval_dirs())
+    def render_eval(self, params, dataset, idx: int,
+                    sample=None) -> Dict[str, np.ndarray]:
+        """Eval render of view ``idx``: device raygen when the dataset
+        gives ``eval_raygen_spec`` (only a pose crosses to the card), else
+        its host rays (``sample`` or ``dataset.image_rays(idx)``)."""
+        if getattr(dataset, "eval_raygen_spec", None) is not None:
+            return self.render_pose(params, dataset.eval_raygen_spec(idx),
+                                    dataset.eval_dirs())
+        return self.render_image(params, sample if sample is not None
+                                 else dataset.image_rays(idx))
+
+    @torch.no_grad()
+    def render_image(self, params, rays_np: Dict[str, np.ndarray],
+                     chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Render host rays (N, .) chunk by chunk, the last chunk padded
+        by repeating the last ray; returns {k: (N, ...)} host arrays."""
+        n = rays_np["origins"].shape[0]
+        chunk = self._eval_chunk_size(n, chunk)
+        pad = (-n) % chunk
+        fields = {}
+        for k in ("origins", "directions", "viewdirs", "near", "far"):
+            if k in rays_np:
+                v = np.asarray(rays_np[k], np.float32)
+                if pad:
+                    v = np.concatenate([v, np.repeat(v[-1:], pad, 0)])
+                fields[k] = torch.from_numpy(v).to(self.device)
+        parts = {}
+        for s in range(0, n + pad, chunk):
+            batch = {k: v[s:s + chunk] for k, v in fields.items()}
+            out = self.render(params, self._batch_to_rays(batch),
+                              randomized=False)
+            for k in self._EVAL_KEEP:
+                if k in out:
+                    parts.setdefault(k, []).append(out[k])
+        return {k: torch.cat(v).cpu().numpy()[:n] for k, v in parts.items()}
+
+    # ------------------------------------------------------------------
+    # eval metrics on the device: render + PSNR/SSIM, scalars read back
+    # ------------------------------------------------------------------
+    _METRIC_KEEP = ("coarse_rgb", "fine_rgb")
+
+    def _metric_gt_pack(self, sample) -> Optional[Dict[str, np.ndarray]]:
+        """Ground truth ``_metrics_device`` reads, as host arrays (uploaded
+        once per (dataset, view)); None without ground truth."""
+        if sample.get("rgbs") is None:
+            return None
+        return {"gt": np.asarray(sample["rgbs"], np.float32)}
+
+    def _metrics_device(self, flat_out, gt_pack):
+        """PSNR/SSIM of flat padded render rows on the device, key for key
+        as ``eval_metrics``; 0-d tensors."""
+        gt = gt_pack["gt"]
+        n = gt.shape[0]
+        m = {}
+        if "coarse_rgb" in flat_out:
+            m["coarse_psnr"] = psnr_fn(flat_out["coarse_rgb"][:n], gt)
+        fine_key = "fine_rgb" if "fine_rgb" in flat_out else "coarse_rgb"
+        m["fine_psnr"] = psnr_fn(flat_out[fine_key][:n], gt)
+        w, h = self.opt.img_wh
+        m["fine_ssim"] = ssim_fn(flat_out[fine_key][:n].reshape(h, w, 3),
+                                 gt.reshape(h, w, 3))
+        return m
+
+    @torch.no_grad()
+    def eval_metrics_fast(self, params, dataset, idx: int):
+        """Metrics of view ``idx`` with device raygen and the reduction on
+        the device: per view a pose goes up and a few scalars come back
+        (one read). Ground truth uploads once per (dataset, view), checked
+        against the dataset's cached direction grid as the grid cache is.
+        Returns ``eval_metrics``' dict, or None when the dataset has no
+        device raygen or the view no ground truth."""
+        spec_fn = getattr(dataset, "eval_raygen_spec", None)
+        if spec_fn is None:
+            return None
+        dirs_flat = np.asarray(dataset.eval_dirs(), np.float32)
+        n = dirs_flat.shape[0]
+        chunk = self._eval_chunk_size(n)
+        dev = self._eval_dirs_device(dirs_flat, n, chunk)
+        cached = self._eval_gt_cache.get((idx, n))
+        if cached is not None and cached[0] is dirs_flat:
+            gt_dev = cached[1]
+        else:
+            pack = self._metric_gt_pack(dataset.image_rays(idx))
+            if pack is None:
+                return None
+            gt_dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in pack.items()}
+            self._eval_gt_cache[(idx, n)] = (dirs_flat, gt_dev)
+        spec = spec_fn(idx)
+        out = self._render_dirs_chunks(params, dev, self._pose_pair(spec),
+                                       spec["geom"], self._METRIC_KEEP)
+        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in out.items()}
+        m = self._metrics_device(flat, gt_dev)
+        vals = torch.stack([v.float() for v in m.values()]).cpu().tolist()
+        return dict(zip(m, vals))
+
+    # ------------------------------------------------------------------
+    # host metrics and visuals (the engine's loops)
+    # ------------------------------------------------------------------
+    def eval_metrics(self, out, sample):
+        """PSNR and SSIM of one rendered image (host arrays) against its
+        ground truth."""
+        gt = torch.from_numpy(np.asarray(sample["rgbs"], np.float32))
+        m = {}
+        if "coarse_rgb" in out:
+            m["coarse_psnr"] = float(psnr_fn(_host(out["coarse_rgb"]), gt))
+        fine_key = "fine_rgb" if "fine_rgb" in out else "coarse_rgb"
+        m["fine_psnr"] = float(psnr_fn(_host(out[fine_key]), gt))
+        w, h = self.opt.img_wh
+        m["fine_ssim"] = float(ssim_fn(_host(out[fine_key]).reshape(h, w, 3),
+                                       gt.reshape(h, w, 3)))
+        return m
+
+    @staticmethod
+    def _vis_strip(parts, rng=(0, 1)):
+        """[pred | gt | depth] side by side. When the prediction arrived
+        quantized (uint8), the other parts are quantized by the same
+        conversion, so the strip's bytes are the float path's."""
+        if any(np.asarray(p).dtype == np.uint8 for p in parts):
+            parts = [_to_uint8(p, rng) for p in parts]
+        return np.concatenate(parts, axis=1)
+
+    def eval_visuals(self, out, sample, idx, with_gt, depth_bounds):
+        """[pred | gt | depth] strips per level."""
+        w, h = self.opt.img_wh
+        near, far = depth_bounds
+        vis = []
+        for level in ("coarse", "fine"):
+            if f"{level}_rgb" not in out:
+                continue
+            img = out[f"{level}_rgb"].reshape(h, w, 3)
+            depth = depth2im(out[f"{level}_depth"].reshape(h, w), near,
+                             far).astype(np.float32) / 255.0
+            parts = [img]
+            if with_gt and sample.get("rgbs") is not None:
+                parts.append(sample["rgbs"].reshape(h, w, 3))
+            parts.append(depth)
+            vis.append(Visualizee("image", self._vis_strip(parts),
+                                  name=f"{idx}-{level}", range=(0, 1)))
+        return vis
+
+
+def _host(x) -> torch.Tensor:
+    """A host array as an f32 CPU tensor (uint8 rgb scaled to [0, 1])."""
+    x = np.asarray(x)
+    if x.dtype == np.uint8:
+        return torch.from_numpy(x.astype(np.float32) / 255.0)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))

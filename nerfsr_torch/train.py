@@ -1,0 +1,23 @@
+"""Train NeRF-SR with the port: ``python -m nerfsr_torch.train``.
+
+The flags are those of the JAX package's ``train.py``, plus ``--device``
+(``cuda`` by default; ``cpu`` runs the plain versions). Example, the
+supersampling model on a COLMAP scene (``scripts/train_llff_downX_fast.sh``)::
+
+    python -m nerfsr_torch.train --name fern-x2 --model nerf_downX \\
+        --dataset_mode llff_downX --dataset_root <scene> --img_wh 504 378 \\
+        --downscale 2 --fast_preset llff --precision mixed --batch_size 512
+"""
+
+from nerfsr_torch.config import parse_options, save_options
+from nerfsr_torch.engine import train
+
+
+def main(argv=None):
+    opt = parse_options("train", argv)
+    print(save_options(opt))
+    train(opt)
+
+
+if __name__ == "__main__":
+    main()

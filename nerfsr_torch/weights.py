@@ -8,16 +8,51 @@ Input: the JAX param tree as nested dicts of numpy arrays, e.g.
 ``tools/convert_reference_ckpt.py`` (``xyz_encoding_{i}``,
 ``xyz_encoding_final``, ``sigma``, ``dir_encoding``, ``rgb``), which the
 port's ``VanillaMLP`` and ``ProposalMLP`` use as attribute names.
-``export_params`` is the inverse of ``load_jax_params``.
+``export_params`` is the inverse of ``load_jax_params``; ``param_leaves``
+names each parameter by its JAX tree path (``fine/params/rgb/kernel``),
+which checkpoints and the ``--fix_layers``/``--init_weights_keys``
+regexes read.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+
+def param_leaves(params: nn.ModuleDict
+                 ) -> Iterator[Tuple[str, nn.Parameter, bool]]:
+    """(JAX path, parameter, is a kernel) for every Linear's weight and
+    bias, in the modules' registration order (``params.parameters()``'s)."""
+    for key, module in params.items():
+        for name, lin in module.named_children():
+            if isinstance(lin, nn.Linear):
+                yield f"{key}/params/{name}/kernel", lin.weight, True
+                yield f"{key}/params/{name}/bias", lin.bias, False
+
+
+def to_jax_layout(t: torch.Tensor, is_kernel: bool) -> np.ndarray:
+    """A Linear weight (out, in) as a flax kernel (in, out), or a bias, as
+    a C-contiguous f32 host array."""
+    arr = t.detach().float().cpu().numpy()
+    return np.ascontiguousarray(arr.T if is_kernel else arr)
+
+
+def from_jax_layout(arr, like: torch.Tensor, is_kernel: bool, what: str
+                    ) -> torch.Tensor:
+    """Inverse of ``to_jax_layout`` onto ``like``'s shape, dtype and
+    device; the shape must match."""
+    arr = np.asarray(arr, np.float32)
+    if is_kernel:
+        arr = arr.T
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"{what}: shape {arr.shape} (port layout), "
+                         f"expected {tuple(like.shape)}")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        device=like.device, dtype=like.dtype)
 
 
 @torch.no_grad()

@@ -299,3 +299,76 @@ def test_fused_mlp_tc_ragged(dev, p):
     torch.testing.assert_close(sigma, ref_sigma, rtol=2e-2, atol=2e-2)
     assert max(_rel_errs(got, ref)) < 5e-2
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# ---------------------------------------------------------------------
+# the engine on the card
+# ---------------------------------------------------------------------
+
+def _engine_argv(scene, work, phase, *extra):
+    argv = ["--name", "gpu", "--model", "nerf_downX",
+            "--dataset_mode", "llff_downX", "--dataset_root", str(scene),
+            "--fast_preset", "llff", "--precision", "mixed",
+            "--img_wh", "64", "64", "--downscale", "2",
+            "--checkpoints_dir", str(work / "ck")]
+    if phase == "train":
+        argv += ["--batch_size", "64", "--steps_per_epoch", "5",
+                 "--scan_steps", "2", "--val_freq", "0",
+                 "--summary_dir", str(work / "runs")]
+    else:
+        argv += ["--results_dir", str(work / "res")]
+    return argv + list(extra)
+
+
+def test_engine_round_trip(dev, tmp_path):
+    """Two epochs, a resume to a third and a test render of a 64x64
+    synthetic COLMAP scene through the engine; training launches all
+    five kernels, the test render A, B and C."""
+    import os
+
+    import numpy as np
+
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data.llff import center_poses, spiral_path
+    from nerfsr_torch.data.synthetic import write_llff_scene
+
+    poses = center_poses(spiral_path(np.array([.2, .2, .05]), 3.5, 4))[0]
+    rng = np.random.RandomState(0)
+    imgs = (rng.rand(4, 64, 64, 3) * 255).astype(np.uint8)
+    pts = rng.rand(300, 3) * [2.0, 2.0, 1.0] + [-1.0, -1.0, -4.0]
+    scene = tmp_path / "scene"
+    write_llff_scene(str(scene), poses, imgs, 52.0, pts)
+
+    reset_counts()
+    state = engine.train(parse_options(
+        "train", _engine_argv(scene, tmp_path, "train", "--n_epochs", "2")))
+    assert state.step == 10 and all(COUNTS[k] > 0 for k in COUNTS), COUNTS
+    state = engine.train(parse_options(
+        "train", _engine_argv(scene, tmp_path, "train", "--n_epochs", "3",
+                              "--continue_train")))
+    assert state.step == 15
+    reset_counts()
+    out = engine.test(parse_options(
+        "test", _engine_argv(scene, tmp_path, "test", "--test_split",
+                             "test_train", "--load_epoch", "3")))
+    assert COUNTS["invert_cdf"] and COUNTS["composite_fwd"] and \
+        COUNTS["fused_mlp_fwd"] and not COUNTS["composite_bwd"]
+    names = set(os.listdir(out))
+    assert {f"{i}-fine-ori.png" for i in range(4)} <= names
+    assert {"fine.gif", "fine-ori.gif", "3-fine-depth-ori.npz"} <= names
+
+
+def test_kernel_a_bin_cap_refused_at_construction(dev):
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.models import create_model
+
+    def opt(**kw):
+        return default_options("train", model="nerf_downX",
+                               dataset_mode="llff_downX",
+                               fast_preset="llff", **kw)
+    with pytest.raises(ValueError, match="--n_prop 130 .*at most 128"):
+        create_model(opt(n_prop=130), device=dev)
+    with pytest.raises(ValueError, match="--n_prop2 200 .*at most 128"):
+        create_model(opt(n_prop2=200), device=dev)
+    create_model(opt(n_prop=129, n_prop2=129), device=dev)   # 128 bins

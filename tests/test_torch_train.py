@@ -34,7 +34,7 @@ from nerfsr_tpu.models import nerf_downx_system as jdownx
 from nerfsr_tpu.utils.schedule import make_jax_lr_schedule
 
 from nerfsr_torch.config import default_options
-from nerfsr_torch.data import views as tviews
+from nerfsr_torch.data import downx_common as tdownx_common
 from nerfsr_torch.data.views import LLFFDownXTrainViews, LLFFDownXViews
 from nerfsr_torch.models import create_model
 from nerfsr_torch.models import criterions as tcrit
@@ -198,7 +198,7 @@ def test_optimizer_step_vs_optax(clip):
         for p, g in zip(state.params.parameters(),
                         grad_module.parameters()):
             p.grad = g.detach().clone()
-        system._clip_grads(state.params)
+        system._clip_grads(state.optimizer)
         state.optimizer.param_groups[0]["lr"] = system.lr_fn(state.step)
         state.optimizer.step()
         state.step += 1
@@ -260,10 +260,18 @@ def test_train_buffer_matches_jax_data_helpers():
                                    rtol=1e-5, atol=2e-6, err_msg=k)
     assert buf["origins"].shape == (2 * (w // 2) * (h // 2), 4, 3)
     assert len(train.ray_buffer("cpu")["rgbs"]) == 3 * (w // 2) * (h // 2)
-    np.testing.assert_allclose(tviews.downscale_avg(imgs[0] / 255.0, 2),
+    np.testing.assert_allclose(tdownx_common.downscale(imgs[0] / 255.0, 2,
+                                                       "avg"),
                                j_downscale(Image.fromarray(imgs[0]), 2,
                                            "avg"), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="lanc"):
+    # lanc resamples uint8 pixels as PIL does: the LR truth is PIL's bytes
+    lanc = LLFFDownXTrainViews(views.poses, imgs, FOCAL, HR_WH, 2,
+                               ds_method="lanc").ray_buffer("cpu")
+    np.testing.assert_array_equal(
+        lanc["rgbs"].numpy(),
+        np.concatenate([j_downscale(Image.fromarray(imgs[i]), 2, "lanc")
+                        .reshape(-1, 3) for i in range(3)]))
+    with pytest.raises(ValueError, match="lanc"):
         LLFFDownXTrainViews(views.poses, imgs / 255.0, FOCAL, HR_WH, 2,
                             ds_method="lanc").ray_buffer("cpu")
 
