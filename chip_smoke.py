@@ -22,7 +22,11 @@
    step's two levels), each timed beside its bound; fused MLP backward at
    P=32,768 in bf16 and f32, with its three launches' split from the
    profiler). The MLP kernels are timed on weights packed before the
-   timed calls (the wrapper's cache), so the packing is not in the time;
+   timed calls (the wrapper's cache), so the packing is not in the time.
+   Then each kernel again at the shapes the datasets phase gives it
+   first (``check_new_shapes``): A at 95 and 47 bins (Q 48), B at S = 48,
+   64 and 128 and D at S = 48 with a white background, C and E in bf16 at
+   P = 131,072 and 262,144;
 4. serving: renders three 504x378 NeRF-SR x2 views (``--fast_preset
    llff``, ``--precision mixed``, full-width D8/W256 MLP, random weights
    from a seed) through ``render_eval_many(..., quantize_rgb=True)``,
@@ -50,8 +54,24 @@
    (2 A, 1 B, 1 C, 1 D, 1 E a step; 94 A, 47 B, 47 C an image), and
    prints the engine's ms/step beside ``train_steps``', ms per test image
    with the writes, and the validation PSNR/SSIM;
-7. prints a JSON line of details, the JSON line of kernel summaries
-   (``{"kernels": [...]}``), the card line, and last
+7. datasets: writes an 800x800 RGBA Blender scene of the blob field
+   (``write_blender_scene``, 8 train, 2 val, 2 test views) and checks
+   that it reads back (poses, PNGs, the loaded HR truth); then trains and
+   tests four runs through the engine with their scripts' flags and the
+   cuts stated at ``DS_RUNS``: bx2 (NeRF-SR x2, parity, with the
+   ``train_crop`` warm-up), bx4 (x4, ``--fast_preset blender``), vb
+   (vanilla NeRF on Blender) and vl (vanilla NeRF on the engine phase's
+   COLMAP scene at 252x189, tested at 504x378). Each run: exact launch
+   counts, finite parameters and moments, ms/step, HR rays/s, the
+   validation metrics, ``fine_mse`` on a fixed batch before and after
+   (it must fall on bx2 and bx4), and the test panels equal to
+   ``render_eval_many(..., quantize_rgb=True)`` with the test ms/image
+   with and without the writes; bx2 also checks that its first 50 steps
+   drew only from the crop buffer and that a resume from epoch 1, across
+   the warm-up's end, equals the unbroken run bit for bit;
+8. prints a JSON line of details (also written to
+   ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
+   summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
 It needs a CUDA card: without one it exits 1 and prints no result.
@@ -59,6 +79,7 @@ It needs a CUDA card: without one it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -329,6 +350,32 @@ def bf16_chain(flat, x0, dmb):
     return run
 
 
+def mlp_fwd_bound(p, key):
+    """(operations, bound ms) of kernel C over P points: the products at
+    the peak rate of their type, or the inputs, weights and outputs over
+    the memory rate."""
+    from nerfsr_torch.kernels import mlp as kmlp
+    flops = 2.0 * kmlp.N_WEIGHTS * p
+    bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
+                   + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
+                   + 4 * kmlp.N_BIASES)
+    return flops, max(flops / PEAK_FLOPS[key],
+                      bytes_moved / HBM_BYTES_PER_S) * 1e3
+
+
+def mlp_bwd_bound(p, key):
+    """(operations, bound ms) of kernel E over P points, as
+    ``mlp_fwd_bound`` with E's multiply-adds and its gradient output."""
+    from nerfsr_torch.kernels import mlp as kmlp
+    flops = 2.0 * E_MACS_PER_POINT * p
+    bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
+                   + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
+                   + 4 * kmlp.N_BIASES
+                   + 4 * (kmlp.N_WEIGHTS + kmlp.N_BIASES))
+    return flops, max(flops / PEAK_FLOPS[key],
+                      bytes_moved / HBM_BYTES_PER_S) * 1e3
+
+
 def check_fused_mlp(dev, gen):
     from nerfsr_torch.kernels import COUNTS
     from nerfsr_torch.kernels import mlp as kmlp
@@ -356,12 +403,7 @@ def check_fused_mlp(dev, gen):
                          iters=10)
             plain_ms = time_ms(
                 lambda: kmlp.fused_mlp_plain(flat, x0, dmb, dtype), iters=10)
-            flops = 2.0 * kmlp.N_WEIGHTS * p
-            bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
-                           + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
-                           + 4 * kmlp.N_BIASES)
-            bound = max(flops / PEAK_FLOPS[key],
-                        bytes_moved / HBM_BYTES_PER_S) * 1e3
+            flops, bound = mlp_fwd_bound(p, key)
             out[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": "operations",
                         "tflops": flops / ms / 1e9}
@@ -488,13 +530,7 @@ def check_fused_mlp_bwd(dev, gen):
                                                     gsig, dtype), iters=10)
             plain_ms = time_ms(lambda: kmlp.fused_mlp_bwd_plain(
                 flat, x0, dmb, grgb, gsig, dtype), iters=10)
-            flops = 2.0 * E_MACS_PER_POINT * p
-            bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
-                           + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
-                           + 4 * kmlp.N_BIASES
-                           + 4 * (kmlp.N_WEIGHTS + kmlp.N_BIASES))
-            bound = max(flops / PEAK_FLOPS[key],
-                        bytes_moved / HBM_BYTES_PER_S) * 1e3
+            flops, bound = mlp_bwd_bound(p, key)
             out[key] = {"max_abs_err": abs_err, "max_leaf_rel_err": rel,
                         "plain_vs_f64_rel": plain_vs_f64,
                         "kernel_vs_f64_rel": kernel_vs_f64,
@@ -512,6 +548,128 @@ def check_fused_mlp_bwd(dev, gen):
                   f"({out[key]['tflops']:.1f} TFLOP/s), plain "
                   f"{plain_ms:.3f} ms, bound {bound:.3f} ms; calls so far "
                   f"{COUNTS['fused_mlp_bwd']}")
+    return out
+
+
+def _mlp_case(p, gen, dev):
+    """A full-width MLP's flat weights and P points' embeddings and
+    cotangents (as kernel E meets them in a step)."""
+    from nerfsr_torch.kernels import mlp as kmlp
+    from nerfsr_torch.models.mlp import VanillaMLP
+    net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
+    pts = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((p, 3), generator=gen), dim=-1).to(dev)
+    grgb = (torch.randn((p, 3), generator=gen) * 1e-3).to(dev)
+    gsig = (torch.randn((p,), generator=gen) * 1e-3).to(dev)
+    with torch.no_grad():
+        flat = tuple(t.detach() for t in kmlp.flatten_params(net))
+        x0, dmb = kmlp.embed(pts, dirs)
+    return flat, x0, dmb, grgb, gsig
+
+
+@torch.no_grad()
+def check_new_shapes(dev, gen):
+    """Every kernel against its plain version, and timed, at the shapes
+    the datasets phase gives it for the first time (N = 2048 HR rays a
+    step): A at the --fast_preset blender step's 95 and 47 bins (Q 48);
+    B and D at S = 48 (that step) and B at 64 and 128 (the parity step's
+    levels), white background; C and E in bf16 at P = 131,072 and 262,144
+    (the parity step's coarse and fine levels), E to its 2e-2-a-leaf bar
+    and within BWD_F64_RATIO of the plain version's distance from the f64
+    rule."""
+    from nerfsr_torch.core.rendering import volumetric_rendering as plain
+    from nerfsr_torch.core.sampling import _invert_cdf
+    from nerfsr_torch.kernels import mlp as kmlp
+    from nerfsr_torch.kernels.composite import (composite_bwd,
+                                                composite_bwd_plain,
+                                                volumetric_rendering)
+    from nerfsr_torch.kernels.sampling import invert_cdf
+    from nerfsr_torch.timing import (composite_bwd_bytes,
+                                     composite_bwd_inputs,
+                                     composite_fwd_bytes, composite_inputs,
+                                     invert_cdf_bytes, invert_cdf_inputs,
+                                     time_ms)
+    n = BATCH * DOWNSCALE ** 2
+    out = {"A": [], "B": [], "D": [], "C": [], "E": []}
+
+    def record(kernel, shape, err, fn, plain_fn, bound, **extra):
+        iters = 5 if kernel in "CE" else 20
+        row = {**shape, "max_abs_err": err, "ms": time_ms(fn, iters=iters),
+               "plain_ms": time_ms(plain_fn, iters=iters),
+               "bound_ms": bound, **extra}
+        out[kernel].append(row)
+        print(f"[new shapes] kernel {kernel} {shape}: max abs err "
+              f"{err:.3e}; {row['ms']:.4f} ms a call, plain "
+              f"{row['plain_ms']:.4f} ms, bound {bound:.5f} ms"
+              + "".join(f", {k} {v:.3e}" for k, v in extra.items()))
+
+    for b, q in ((95, 48), (47, 48)):
+        bins, w, u = invert_cdf_inputs(n, b, q, gen, dev)
+        err = max_err(invert_cdf(bins, w, u), _invert_cdf(bins, w, u), 0.0,
+                      TOL_INVERT_CDF, f"invert_cdf B={b} Q={q}")
+        record("A", {"n": n, "bins": b, "q": q}, err,
+               lambda: invert_cdf(bins, w, u),
+               lambda: _invert_cdf(bins, w, u),
+               invert_cdf_bytes(n, b, q) / HBM_BYTES_PER_S * 1e3)
+    for s in (48, 64, 128):
+        rgb, sigma, z = composite_inputs(n, s, gen, dev)
+        got = volumetric_rendering(rgb, sigma, z, True)
+        err = max(max_err(g, r, *TOL_COMPOSITE, f"composite S={s} white")
+                  for g, r in zip(got, plain(rgb, sigma, z, True)))
+        record("B", {"n": n, "s": s, "white": True}, err,
+               lambda: volumetric_rendering(rgb, sigma, z, True),
+               lambda: plain(rgb, sigma, z, True),
+               composite_fwd_bytes(n, s) / HBM_BYTES_PER_S * 1e3)
+    args = composite_bwd_inputs(n, 48, gen, dev)
+    err = 0.0
+    for act in ("relu", "softplus"):
+        for white in (False, True):
+            for g, r in zip(composite_bwd(*args, white, act),
+                            composite_bwd_plain(*args, white, act)):
+                err = max(err, max_err(g, r, *TOL_COMPOSITE_BWD,
+                                       f"composite_bwd S=48 {act} "
+                                       f"white={white}"))
+    record("D", {"n": n, "s": 48, "white": True}, err,
+           lambda: composite_bwd(*args, True),
+           lambda: composite_bwd_plain(*args, True),
+           composite_bwd_bytes(n, 48) / HBM_BYTES_PER_S * 1e3)
+    bf16 = torch.bfloat16
+    for p in (n * 64, n * 128):
+        flat, x0, dmb, grgb, gsig = _mlp_case(p, gen, dev)
+        rgb, sigma = kmlp.fused_mlp_fwd(flat, x0, dmb, bf16)
+        rgb_r, sigma_r = kmlp.fused_mlp_plain(flat, x0, dmb, bf16)
+        err = max(max_err(rgb, rgb_r, *TOL_MLP_BF16, f"fused_mlp P={p} rgb"),
+                  max_err(sigma, sigma_r, *TOL_MLP_BF16,
+                          f"fused_mlp P={p} sigma"))
+        del rgb, sigma, rgb_r, sigma_r
+        record("C", {"p": p, "dtype": "bf16"}, err,
+               lambda: kmlp.fused_mlp_fwd(flat, x0, dmb, bf16),
+               lambda: kmlp.fused_mlp_plain(flat, x0, dmb, bf16),
+               mlp_fwd_bound(p, "bf16")[1])
+        got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, bf16)
+        ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, bf16)
+        rel, abs_err = leaf_errors(got, ref)
+        ref64 = kmlp.fused_mlp_bwd_plain(
+            tuple(t.double() for t in flat), x0.double(), dmb.double(),
+            grgb.double(), gsig.double(), bf16)
+        plain_vs_f64 = leaf_errors(ref, ref64)[0]
+        kernel_vs_f64 = leaf_errors(got, ref64)[0]
+        del ref64
+        if rel > TOL_MLP_BWD["bf16"] or \
+                kernel_vs_f64 > BWD_F64_RATIO * plain_vs_f64:
+            fail(f"fused_mlp_bwd bf16 P={p}: leaf err {rel:.3e} (bar "
+                 f"{TOL_MLP_BWD['bf16']}), {kernel_vs_f64:.3e} from the f64 "
+                 f"rule against the plain version's {plain_vs_f64:.3e}")
+        record("E", {"p": p, "dtype": "bf16"}, abs_err,
+               lambda: kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, bf16),
+               lambda: kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig,
+                                                bf16),
+               mlp_bwd_bound(p, "bf16")[1], max_leaf_rel_err=rel,
+               plain_vs_f64_rel=plain_vs_f64,
+               kernel_vs_f64_rel=kernel_vs_f64)
+        del flat, x0, dmb, grgb, gsig, got, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -865,7 +1023,7 @@ def _state_tensors(state):
     return out
 
 
-def engine_phase(dev, card, train_ms_step):
+def engine_phase(dev, card, train_ms_step, work):
     from nerfsr_torch import engine
     from nerfsr_torch.config import parse_options
     from nerfsr_torch.data import create_dataset
@@ -875,137 +1033,449 @@ def engine_phase(dev, card, train_ms_step):
     from nerfsr_torch.utils import msgpack, png
 
     out = {}
-    with tempfile.TemporaryDirectory(prefix="nerfsr_engine_") as work:
-        scene = os.path.join(work, "scene")
-        t0 = time.perf_counter()
-        engine_scene(dev, scene)
-        print(f"[engine] scene: {ENGINE_VIEWS} views {HR_WH[0]}x{HR_WH[1]} "
-              f"written as COLMAP + PNG in {time.perf_counter() - t0:.1f} s")
+    scene = os.path.join(work, "scene")
+    t0 = time.perf_counter()
+    engine_scene(dev, scene)
+    print(f"[engine] scene: {ENGINE_VIEWS} views {HR_WH[0]}x{HR_WH[1]} "
+          f"written as COLMAP + PNG in {time.perf_counter() - t0:.1f} s")
 
-        # train 2 epochs, saving each
-        opt = parse_options("train", engine_argv(scene, work, "train",
-                                                 "--n_epochs", "2"))
-        first_t = {}
-        reset_counts()
-        first = engine.train(opt, timings=first_t)
-        torch.cuda.synchronize()
-        # 80 steps, and validation at epoch 2 renders the val view twice
-        # (device metrics, then the read-back strips)
-        _launches_per(dict(COUNTS), 2 * ENGINE_STEPS, 2)
-        if first.step != 2 * ENGINE_STEPS:
-            fail(f"the first run ended at step {first.step}")
+    # train 2 epochs, saving each
+    opt = parse_options("train", engine_argv(scene, work, "train",
+                                             "--n_epochs", "2"))
+    first_t = {}
+    reset_counts()
+    first = engine.train(opt, timings=first_t)
+    torch.cuda.synchronize()
+    # 80 steps, and validation at epoch 2 renders the val view twice
+    # (device metrics, then the read-back strips)
+    _launches_per(dict(COUNTS), 2 * ENGINE_STEPS, 2)
+    if first.step != 2 * ENGINE_STEPS:
+        fail(f"the first run ended at step {first.step}")
 
-        # the state the resume will load, against the first run's
-        opt3 = parse_options("train", engine_argv(
-            scene, work, "train", "--n_epochs", "3", "--continue_train"))
-        probe = create_model(opt3, device=opt3.device)
-        state = probe.create_state(seed=0, steps_per_epoch=ENGINE_STEPS)
-        epoch = ckpt.resume_if_requested(opt3, state)
-        if (epoch, state.step) != (2, 2 * ENGINE_STEPS):
-            fail(f"resumed at epoch {epoch} step {state.step}, expected "
-                 f"epoch 2 step {2 * ENGINE_STEPS}")
-        got, want = _state_tensors(state), _state_tensors(first)
-        if got.keys() != want.keys():
-            fail("resumed state has other leaves")
-        for k in want:
-            if not torch.equal(got[k].cpu(), want[k].cpu()):
-                fail(f"resumed {k} differs from the saved state")
-        print(f"[engine] resume: epoch 2, step {state.step}; "
-              f"{len(want)} parameter and Adam tensors equal the first "
-              "run's bit for bit")
-        del probe, state
+    # the state the resume will load, against the first run's
+    opt3 = parse_options("train", engine_argv(
+        scene, work, "train", "--n_epochs", "3", "--continue_train"))
+    probe = create_model(opt3, device=opt3.device)
+    state = probe.create_state(seed=0, steps_per_epoch=ENGINE_STEPS)
+    epoch = ckpt.resume_if_requested(opt3, state)
+    if (epoch, state.step) != (2, 2 * ENGINE_STEPS):
+        fail(f"resumed at epoch {epoch} step {state.step}, expected "
+             f"epoch 2 step {2 * ENGINE_STEPS}")
+    got, want = _state_tensors(state), _state_tensors(first)
+    if got.keys() != want.keys():
+        fail("resumed state has other leaves")
+    for k in want:
+        if not torch.equal(got[k].cpu(), want[k].cpu()):
+            fail(f"resumed {k} differs from the saved state")
+    print(f"[engine] resume: epoch 2, step {state.step}; "
+          f"{len(want)} parameter and Adam tensors equal the first "
+          "run's bit for bit")
+    del probe, state
 
-        # the resumed run: epoch 3, timed by the engine
+    # the resumed run: epoch 3, timed by the engine
+    timings = {}
+    reset_counts()
+    third = engine.train(opt3, timings=timings)
+    torch.cuda.synchronize()
+    step_counts, image_counts = _launches_per(dict(COUNTS),
+                                              ENGINE_STEPS, 2)
+    if third.step != 3 * ENGINE_STEPS:
+        fail(f"the resumed run ended at step {third.step}")
+    ms_step = timings["epoch_s"][3] / ENGINE_STEPS * 1e3
+    first_ms = [first_t["epoch_s"][e] / ENGINE_STEPS * 1e3
+                for e in (1, 2)]
+    print(f"[engine] resumed epoch: {ms_step:.2f} ms/step over "
+          f"{ENGINE_STEPS} steps (engine, host clock to the chunk's "
+          f"loss read; the first run's epochs {first_ms[0]:.2f} and "
+          f"{first_ms[1]:.2f}), train_steps in the training phase "
+          f"{train_ms_step:.2f} ms/step, on {card}")
+    print(f"[engine] launches a step under the engine {step_counts}; "
+          f"an image {image_counts}")
+
+    # the checkpoint codec round trip
+    latest = os.path.join(work, "checkpoints", "engine",
+                          "latest_state.msgpack")
+    with open(latest, "rb") as f:
+        blob = f.read()
+    if msgpack.packb(msgpack.unpackb(blob)) != blob:
+        fail("latest_state.msgpack re-encodes to other bytes")
+    print(f"[engine] latest_state.msgpack ({len(blob)} bytes) "
+          "re-encodes to the same bytes")
+
+    metrics = _val_metrics(work, "engine", 3 * ENGINE_STEPS)
+    print(f"[engine] validation at epoch 3: {metrics} on {card}")
+
+    # test: render test_train from epoch 3
+    topt = parse_options("test", engine_argv(
+        scene, work, "test", "--test_split", "test_train",
+        "--load_epoch", "3"))
+    test_t = {}
+    reset_counts()
+    out_dir = engine.test(topt, timings=test_t)
+    _launches_per(dict(COUNTS), 0, ENGINE_VIEWS)
+    ms_image = test_t["seconds"] / test_t["views"] * 1e3
+    ms_write = test_t["write_s"] / test_t["views"] * 1e3
+    print(f"[engine] test: {test_t['views']} views rendered and written "
+          f"in {test_t['seconds']:.2f} s, {ms_image:.1f} ms/image with "
+          f"the writes, of which {ms_write:.1f} ms/image on the host "
+          f"between renders (rays and truth of the view, strips, PNG, "
+          f"npz, the GIFs' share), on {card}")
+    names = set(os.listdir(out_dir))
+    need = {f.format(i=i) for i in range(ENGINE_VIEWS)
+            for f in ENGINE_FILES} | {"fine.gif", "fine-ori.gif"}
+    if need - names:
+        fail(f"test artifacts missing: {sorted(need - names)}")
+    system = create_model(topt, device=dev)
+    dataset = create_dataset(topt, "test_train")
+    w, h = HR_WH
+    for i, r in enumerate(system.render_eval_many(
+            third.params, dataset, range(ENGINE_VIEWS),
+            quantize_rgb=True)):
+        panel = png.read_rgb(os.path.join(
+            out_dir, f"{i}-fine-ori.png"))[:, :w]
+        if not np.array_equal(panel, r["fine_rgb_ori"].reshape(h, w, 3)):
+            fail(f"{i}-fine-ori.png's render panel differs from "
+                 "render_eval_many(quantize_rgb=True)")
+        depth = np.load(os.path.join(out_dir,
+                                     f"{i}-fine-depth-ori.npz"))["matrix"]
+        if not np.array_equal(depth, r["fine_depth_ori"].reshape(h, w)):
+            fail(f"{i}-fine-depth-ori.npz differs from the render")
+    print(f"[engine] {len(need)} test artifacts present; the "
+          f"{ENGINE_VIEWS} HR render panels and depth maps equal "
+          "render_eval_many's")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for name in ("0-fine-ori.png", "0-fine.png"):
+        with open(os.path.join(out_dir, name), "rb") as src, \
+                open(os.path.join(OUT_DIR, f"engine_{name}"), "wb") as dst:
+            dst.write(src.read())
+    out.update(ms_per_step=ms_step, first_run_ms_per_step=first_ms,
+               train_steps_ms_per_step=train_ms_step,
+               test_ms_per_image=ms_image,
+               test_host_ms_per_image=ms_write, val_metrics=metrics,
+               launches_per_step=step_counts,
+               launches_per_image=image_counts,
+               checkpoint_bytes=len(blob), card=card)
+    return out
+
+
+# datasets phase: the Blender and vanilla LLFF datasets through the engine
+# at full width, each run with its script's flags and these cuts: a
+# synthetic scene; 2 epochs of 40 steps (vl: 1), the LR held at 5e-4
+# (--n_epochs_decay 0), a loss line every chunk (--print_freq 10),
+# Blender epoch checkpoints (--save_epoch_freq 1, for the resume) and a
+# train_crop warm-up of 50 steps, which ends inside epoch 2 and off the
+# 20-step chunk grid
+BLENDER_HW = (800, 800)            # the size nerf_synthetic ships
+BLENDER_SPLITS = dict(n_train=8, n_val=2, n_test=2)
+DS_STEPS = 40
+DS_WARMUP = 50
+DS_CUTS = ["--n_epochs_decay", "0", "--steps_per_epoch", str(DS_STEPS),
+           "--print_freq", "10"]
+PARITY = ({"invert_cdf": 0, "composite_fwd": 2, "fused_mlp_fwd": 2,
+           "composite_bwd": 2, "fused_mlp_bwd": 2},
+          {"invert_cdf": 0, "composite_fwd": 2, "fused_mlp_fwd": 2,
+           "composite_bwd": 0, "fused_mlp_bwd": 0})
+FAST = ({"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
+         "composite_bwd": 1, "fused_mlp_bwd": 1},
+        {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
+         "composite_bwd": 0, "fused_mlp_bwd": 0})
+_TRAIN = ["--lr_policy", "exp", "--lr", "5e-4", "--lr_final", "5e-6"]
+# each run: the flags of the model and data (train and test), the
+# training flags, and the test split and its flags
+DS_RUNS = {
+    # scripts/train_blender_downX.sh, through train_blender's warm-up
+    "bx2": dict(
+        model=["--dataset_mode", "blender_downX", "--img_wh", "200", "200",
+               "--model", "nerf_downX", "--N_coarse", "64",
+               "--N_importance", "64", "--downscale", "2",
+               "--sigma_activation", "relu"],
+        train=["--batch_size", "512", "--val_epoch_split", "test",
+               "--n_epochs", "2", "--vis_freq", "1000", "--val_freq",
+               "1000", "--val_epoch_freq", "20", "--vis_epoch_freq", "20",
+               "--save_epoch_freq", "1", *_TRAIN, "--scan_steps", "20"],
+        warmup=True, falls=True, counts=PARITY, rays=512 * 4,
+        split="test", panel="{i}-fine-ori.png"),
+    # tools/run_blender_ds4.sh, its --fast_preset blender run
+    "bx4": dict(
+        model=["--dataset_mode", "blender_downX", "--img_wh", "400", "400",
+               "--downscale", "4", "--model", "nerf_downX", "--N_coarse",
+               "64", "--sigma_activation", "relu", "--precision", "mixed",
+               "--fast_preset", "blender"],
+        train=["--batch_size", "128", "--val_epoch_split", "val",
+               "--n_epochs", "2", *_TRAIN, "--scan_steps", "100",
+               "--val_freq", "0", "--val_epoch_freq", "20",
+               "--vis_epoch_freq", "0", "--save_epoch_freq", "1"],
+        warmup=True, falls=True, counts=FAST, rays=128 * 16,
+        split="test", panel="{i}-fine-ori.png"),
+    # scripts/train_blender.sh
+    "vb": dict(
+        model=["--dataset_mode", "blender", "--img_wh", "200", "200",
+               "--init_type", "kaiming", "--model", "nerf", "--N_coarse",
+               "64", "--N_importance", "64", "--sigma_activation", "relu"],
+        train=["--batch_size", "2048", "--n_epochs", "2",
+               "--val_epoch_split", "test", "--vis_freq", "1000",
+               "--val_freq", "1000", "--val_epoch_freq", "20",
+               "--vis_epoch_freq", "20", "--save_epoch_freq", "1", *_TRAIN,
+               "--scan_steps", "20"],
+        warmup=True, falls=False, counts=PARITY, rays=2048,
+        split="test", panel="{i}-fine.png"),
+    # scripts/train_llff.sh, then scripts/test_llff.sh at 504x378
+    "vl": dict(
+        model=["--dataset_mode", "llff", "--img_wh", "252", "189",
+               "--model", "nerf", "--N_coarse", "64", "--N_importance", "64",
+               "--sigma_activation", "relu"],
+        train=["--batch_size", "2048", "--n_epochs", "1", "--vis_freq",
+               "1000", "--val_freq", "1000", "--vis_epoch_freq", "30",
+               "--val_epoch_freq", "30", "--save_epoch_freq", "10", *_TRAIN,
+               "--scan_steps", "20"],
+        warmup=False, falls=False, counts=PARITY, rays=2048,
+        split="test_train", panel="{i}-fine.png",
+        test=["--img_wh", "504", "378"]),
+}
+
+
+def _chunks(wh):
+    return -(-(wh[0] * wh[1]) // 4096)
+
+
+def _expect(counts, per, steps, images):
+    """Fail unless ``counts`` are ``steps`` training steps and the renders
+    ``images`` = [(w, h), ...] of a run's per-step and per-chunk counts."""
+    step, chunk = per
+    want = {k: steps * step[k] + sum(_chunks(wh) for wh in images)
+            * chunk[k] for k in step}
+    if counts != want:
+        fail(f"launch counts {counts}, expected {want} ({steps} steps, "
+             f"renders {images})")
+
+
+class _BufferLog:
+    """Records the buffer size of every batch drawn
+    (``NeRFSystem.sample_batch``) while it is entered."""
+
+    def __enter__(self):
+        from nerfsr_torch.models.nerf_system import NeRFSystem
+        self.sizes, self._cls = [], NeRFSystem
+        self._real = real = NeRFSystem.sample_batch
+        sizes = self.sizes
+
+        def sample_batch(system, buffer, generator=None):
+            sizes.append(len(buffer["rgbs"]))
+            return real(system, buffer, generator)
+        NeRFSystem.sample_batch = sample_batch
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.sample_batch = self._real
+
+
+def _val_metrics(work, name, step):
+    metrics = {}
+    with open(os.path.join(work, "runs", name, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["tag"].startswith("val/") and rec["step"] == step:
+                metrics[rec["tag"][4:]] = rec["value"]
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"{name}: validation metrics at step {step}: {metrics}")
+    return metrics
+
+
+@torch.no_grad()
+def _fixed_batch_mse(opt, state, dev):
+    """(coarse_mse, fine_mse) (coarse NaN without a coarse level) of the
+    seed's initial weights and of
+    ``state``'s on one fixed batch of the train split (every k-th item,
+    2048 HR rays, no jitter, no noise): the losses the run brought
+    down."""
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.models import create_model
+    eval_opt = copy.copy(opt)
+    eval_opt.randomized, eval_opt.noise_std = False, 0.0
+    system = create_model(eval_opt, device=dev)
+    buf = create_dataset(eval_opt, "train").ray_buffer()
+    n = len(buf["rgbs"])
+    rows = 2048 // (buf["origins"].shape[1] if buf["origins"].ndim == 3
+                    else 1)
+    idx = np.arange(rows) * (n // rows)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(dev)
+             for k, v in buf.items()}
+    before = system.create_state(seed=opt.seed).params
+    return [tuple(float(losses.get(k, float("nan")))    # fast: no coarse
+                  for k in ("coarse_mse", "fine_mse"))
+            for losses in (system._loss_fn(p, batch)[1]
+                           for p in (before, state.params))]
+
+
+def _check_scene(scene, poses, dev):
+    """The written Blender scene reads back: every train frame's pose is
+    the pose it was rendered from (as float32), the first PNG is the
+    render's RGBA (within a rounding: the render is done again), and
+    each loaded HR truth is the frame's PNG
+    Lanczos-resized to 200x200 and blended over white."""
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.data.downx_common import (blend_white, group_subpixels,
+                                                lanczos_resize)
+    from nerfsr_torch.data.synthetic import (CAMERA_ANGLE_X,
+                                             render_blob_view, rgba_pixels)
+    from nerfsr_torch.utils import png
+    opt = default_options("train", model="nerf_downX",
+                          dataset_mode="blender_downX", dataset_root=scene,
+                          img_wh=(200, 200), downscale=2)
+    ds = create_dataset(opt, "test_train")
+    focal = 0.5 * BLENDER_HW[0] / np.tan(0.5 * CAMERA_ANGLE_X)
+    for i in range(len(ds)):
+        if not np.array_equal(ds.eval_raygen_spec(i)["c2w"],
+                              poses[i][:3].astype(np.float32)):
+            fail(f"frame {i} reads back to another pose")
+        px = png.read(os.path.join(scene, ds.frames[i]["file_path"]
+                                   + ".png")).pixels
+        if i == 0 and np.abs(px.astype(int) - rgba_pixels(
+                *render_blob_view(poses[i], BLENDER_HW, focal,
+                                  device=dev))).max() > 1:
+            fail("the written PNG is not the render's RGBA")
+        want = blend_white(lanczos_resize(px, (200, 200)).astype(
+            np.float32) / 255.0)
+        if not np.array_equal(ds.image_rays(i)["rgbs_ori"],
+                              group_subpixels(want, 2)):
+            fail(f"frame {i}'s loaded HR truth is not its PNG over white")
+    return len(ds)
+
+
+def datasets_phase(dev, card, work, llff_scene):
+    """The four runs of DS_RUNS through the engine (train, test), each
+    with exact launch counts, test panels equal to ``render_eval_many``'s,
+    validation metrics, timings; bx2 also a resume across the end of the
+    warm-up, and a check of which buffer each step drew from."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.data.synthetic import blender_poses, write_blender_scene
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.utils import png
+
+    t0 = time.perf_counter()
+    scene = os.path.join(work, "blender")
+    write_blender_scene(scene, hw=BLENDER_HW, device=dev, **BLENDER_SPLITS)
+    n_views = _check_scene(scene, blender_poses(sum(BLENDER_SPLITS.values())),
+                           dev)
+    print(f"[datasets] blender scene: {sum(BLENDER_SPLITS.values())} views "
+          f"{BLENDER_HW[0]}x{BLENDER_HW[1]} RGBA written and read back "
+          f"({n_views} train poses and truths checked) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, run in DS_RUNS.items():
+        t_run = time.perf_counter()
+        root = scene if name != "vl" else llff_scene
+        base = ["--name", name, "--dataset_root", root, "--checkpoints_dir",
+                os.path.join(work, "ck")]
+        opt = parse_options("train", base + run["model"] + run["train"]
+                            + DS_CUTS + ["--summary_dir",
+                                         os.path.join(work, "runs")])
+        warm = dict(warmup_mode="train_crop", warmup_iters=DS_WARMUP) \
+            if run["warmup"] else {}
         timings = {}
         reset_counts()
-        third = engine.train(opt3, timings=timings)
+        with _BufferLog() as log:
+            state = engine.train(opt, timings=timings, **warm)
         torch.cuda.synchronize()
-        step_counts, image_counts = _launches_per(dict(COUNTS),
-                                                  ENGINE_STEPS, 2)
-        if third.step != 3 * ENGINE_STEPS:
-            fail(f"the resumed run ended at step {third.step}")
-        ms_step = timings["epoch_s"][3] / ENGINE_STEPS * 1e3
-        first_ms = [first_t["epoch_s"][e] / ENGINE_STEPS * 1e3
-                    for e in (1, 2)]
-        print(f"[engine] resumed epoch: {ms_step:.2f} ms/step over "
-              f"{ENGINE_STEPS} steps (engine, host clock to the chunk's "
-              f"loss read; the first run's epochs {first_ms[0]:.2f} and "
-              f"{first_ms[1]:.2f}), train_steps in the training phase "
-              f"{train_ms_step:.2f} ms/step, on {card}")
-        print(f"[engine] launches a step under the engine {step_counts}; "
-              f"an image {image_counts}")
+        steps = opt.n_epochs * DS_STEPS
+        n_val = len(create_dataset(opt, "val"))
+        _expect(dict(COUNTS), run["counts"], steps, [opt.img_wh] * 2 * n_val)
+        if state.step != steps or len(log.sizes) != steps:
+            fail(f"{name}: {state.step} steps, {len(log.sizes)} batches")
+        if run["warmup"]:
+            n_crop = len(create_dataset(opt, "train_crop").ray_buffer()[
+                "rgbs"])
+            n_full = len(create_dataset(opt, "train").ray_buffer()["rgbs"])
+            want = [n_crop] * DS_WARMUP + [n_full] * (steps - DS_WARMUP)
+            if n_crop >= n_full or log.sizes != want:
+                fail(f"{name}: the steps drew from buffers of "
+                     f"{sorted(set(log.sizes))} rays, not {DS_WARMUP} from "
+                     f"the crop's {n_crop} and then the train split's "
+                     f"{n_full}")
+        for p in state.params.parameters():
+            moments = state.optimizer.state[p]
+            for t in (p, moments["exp_avg"], moments["exp_avg_sq"]):
+                if not torch.isfinite(t).all():
+                    fail(f"{name}: non-finite parameters or moments")
+        (cmse0, mse0), (cmse1, mse1) = _fixed_batch_mse(opt, state, dev)
+        if run["falls"] and not mse1 < FALL_RATIO * mse0:
+            fail(f"{name}: fine_mse {mse0:.5f} -> {mse1:.5f} on a fixed "
+                 f"batch, not below {FALL_RATIO} of its start")
+        epoch_ms = [timings["epoch_s"][e] / DS_STEPS * 1e3
+                    for e in sorted(timings["epoch_s"])]
+        res = {"ms_per_step": epoch_ms, "hr_rays_per_s":
+               [run["rays"] / ms * 1e3 for ms in epoch_ms],
+               "fine_mse_fixed_batch": [mse0, mse1],
+               "coarse_mse_fixed_batch": [cmse0, cmse1],
+               "val": _val_metrics(work, name, steps)}
 
-        # the checkpoint codec round trip
-        latest = os.path.join(work, "checkpoints", "engine",
-                              "latest_state.msgpack")
-        with open(latest, "rb") as f:
-            blob = f.read()
-        if msgpack.packb(msgpack.unpackb(blob)) != blob:
-            fail("latest_state.msgpack re-encodes to other bytes")
-        print(f"[engine] latest_state.msgpack ({len(blob)} bytes) "
-              "re-encodes to the same bytes")
+        if name == "bx2":       # resume from epoch 1 across the warm-up
+            resumed = parse_options(
+                "train", base + run["model"] + run["train"] + DS_CUTS + [
+                    "--summary_dir", os.path.join(work, "runs_resume"),
+                    "--continue_train", "--load_epoch", "1"])
+            reset_counts()
+            again = engine.train(resumed, **warm)
+            torch.cuda.synchronize()
+            _expect(dict(COUNTS), run["counts"], DS_STEPS,
+                    [opt.img_wh] * 2 * n_val)
+            got, want = _state_tensors(again), _state_tensors(state)
+            if again.step != state.step or got.keys() != want.keys() or \
+                    not all(torch.equal(got[k], want[k]) for k in want):
+                fail("bx2: the run resumed from epoch 1 differs from the "
+                     "unbroken run")
+            res["resume_tensors_equal"] = len(want)
+            del again
 
-        metrics = {}
-        with open(os.path.join(work, "runs", "engine", "metrics.jsonl")) as f:
-            for line in f:
-                rec = json.loads(line)
-                if rec["tag"].startswith("val/") and \
-                        rec["step"] == 3 * ENGINE_STEPS:
-                    metrics[rec["tag"][4:]] = rec["value"]
-        if not metrics or not all(np.isfinite(v) for v in metrics.values()):
-            fail(f"validation metrics at epoch 3: {metrics}")
-        print(f"[engine] validation at epoch 3: {metrics} on {card}")
-
-        # test: render test_train from epoch 3
-        topt = parse_options("test", engine_argv(
-            scene, work, "test", "--test_split", "test_train",
-            "--load_epoch", "3"))
+        targv = ["--name", name, "--dataset_root", root,
+                 "--checkpoints_dir", os.path.join(work, "ck"),
+                 "--results_dir", os.path.join(work, "results"),
+                 "--test_split", run["split"], "--load_epoch",
+                 str(opt.n_epochs)] + run["model"] + run.get("test", [])
+        topt = parse_options("test", targv)
         test_t = {}
         reset_counts()
         out_dir = engine.test(topt, timings=test_t)
-        _launches_per(dict(COUNTS), 0, ENGINE_VIEWS)
-        ms_image = test_t["seconds"] / test_t["views"] * 1e3
-        ms_write = test_t["write_s"] / test_t["views"] * 1e3
-        print(f"[engine] test: {test_t['views']} views rendered and written "
-              f"in {test_t['seconds']:.2f} s, {ms_image:.1f} ms/image with "
-              f"the writes, of which {ms_write:.1f} ms/image on the host "
-              f"between renders (rays and truth of the view, strips, PNG, "
-              f"npz, the GIFs' share), on {card}")
-        names = set(os.listdir(out_dir))
-        need = {f.format(i=i) for i in range(ENGINE_VIEWS)
-                for f in ENGINE_FILES} | {"fine.gif", "fine-ori.gif"}
-        if need - names:
-            fail(f"test artifacts missing: {sorted(need - names)}")
+        dataset = create_dataset(topt, run["split"])
+        _expect(dict(COUNTS), run["counts"], 0,
+                [topt.img_wh] * len(dataset))
+        w, h = topt.img_wh
         system = create_model(topt, device=dev)
-        dataset = create_dataset(topt, "test_train")
-        w, h = HR_WH
+        key = "fine_rgb_ori" if "ori" in run["panel"] else "fine_rgb"
         for i, r in enumerate(system.render_eval_many(
-                third.params, dataset, range(ENGINE_VIEWS),
+                state.params, dataset, range(len(dataset)),
                 quantize_rgb=True)):
             panel = png.read_rgb(os.path.join(
-                out_dir, f"{i}-fine-ori.png"))[:, :w]
-            if not np.array_equal(panel, r["fine_rgb_ori"].reshape(h, w, 3)):
-                fail(f"{i}-fine-ori.png's render panel differs from "
-                     "render_eval_many(quantize_rgb=True)")
-            depth = np.load(os.path.join(out_dir,
-                                         f"{i}-fine-depth-ori.npz"))["matrix"]
-            if not np.array_equal(depth, r["fine_depth_ori"].reshape(h, w)):
-                fail(f"{i}-fine-depth-ori.npz differs from the render")
-        print(f"[engine] {len(need)} test artifacts present; the "
-              f"{ENGINE_VIEWS} HR render panels and depth maps equal "
-              "render_eval_many's")
-        os.makedirs(OUT_DIR, exist_ok=True)
-        for name in ("0-fine-ori.png", "0-fine.png"):
-            with open(os.path.join(out_dir, name), "rb") as src, \
-                    open(os.path.join(OUT_DIR, f"engine_{name}"), "wb") as dst:
-                dst.write(src.read())
-        out.update(ms_per_step=ms_step, first_run_ms_per_step=first_ms,
-                   train_steps_ms_per_step=train_ms_step,
-                   test_ms_per_image=ms_image,
-                   test_host_ms_per_image=ms_write, val_metrics=metrics,
-                   launches_per_step=step_counts,
-                   launches_per_image=image_counts,
-                   checkpoint_bytes=len(blob), card=card)
+                out_dir, run["panel"].format(i=i)))[:, :w]
+            if not np.array_equal(panel, r[key].reshape(h, w, 3)):
+                fail(f"{name}: {run['panel'].format(i=i)}'s render panel "
+                     "differs from render_eval_many(quantize_rgb=True)")
+        step, chunk = run["counts"]
+        res.update(launches_per_step=step, launches_per_image={
+                       k: v * _chunks(topt.img_wh) for k, v in chunk.items()},
+                   test_views=test_t["views"], test_wh=[w, h],
+                   test_ms_per_image=test_t["seconds"] / test_t["views"]
+                   * 1e3,
+                   test_render_ms_per_image=(test_t["seconds"]
+                                             - test_t["write_s"])
+                   / test_t["views"] * 1e3,
+                   run_s=time.perf_counter() - t_run)
+        print(f"[datasets] {name}: {steps} steps, {np.mean(epoch_ms):.2f} "
+              f"ms/step (epochs {', '.join(f'{m:.2f}' for m in epoch_ms)}), "
+              f"{np.mean(res['hr_rays_per_s']):.0f} HR rays/s; fine_mse on "
+              f"a fixed batch {mse0:.5f} -> {mse1:.5f} (coarse_mse "
+              f"{cmse0:.5f} -> {cmse1:.5f}); validation "
+              f"{res['val']}; test {res['test_views']} views {w}x{h}: "
+              f"{res['test_ms_per_image']:.1f} ms/image with the writes, "
+              f"{res['test_render_ms_per_image']:.1f} without; launches "
+              f"exact; run {res['run_s']:.1f} s; on {card}")
+        out[name] = res
+        del state
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1039,9 +1509,15 @@ def main():
     c = check_fused_mlp(dev, gen)
     d = check_composite_bwd(dev, gen)
     e = check_fused_mlp_bwd(dev, gen)
+    new_shapes = check_new_shapes(dev, gen)
     serve_counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
     counts, train = train_phase(dev, card)
-    engine_out = engine_phase(dev, card, train["ms_per_step"])
+    with tempfile.TemporaryDirectory(prefix="nerfsr_smoke_") as work:
+        engine_out = engine_phase(dev, card, train["ms_per_step"], work)
+        t0 = time.perf_counter()
+        datasets_out = datasets_phase(dev, card, work,
+                                      os.path.join(work, "scene"))
+        datasets_out["phase_s"] = time.perf_counter() - t0
 
     # launches: the timed training window, which runs all five kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1072,7 +1548,7 @@ def main():
     ]
     for k in kernels:
         k["library_ms"] = None
-    print(json.dumps({"detail": {"invert_cdf_shapes": a["shapes"],
+    detail = json.dumps({"detail": {"invert_cdf_shapes": a["shapes"],
                                  "launch_floor_ms": floor,
                                  "registers_a_b_d": regs,
                                  "composite_bwd_shapes": d["shapes"],
@@ -1088,7 +1564,12 @@ def main():
                                            "launches": serve_counts},
                                  "train": train,
                                  "engine": engine_out,
-                                 "card": card}}))
+                                 "new_shapes": new_shapes,
+                                 "datasets": datasets_out,
+                                 "card": card}})
+    with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
+        f.write(detail + "\n")
+    print(detail)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,16 +8,17 @@ flags, the training flags (optimizer, schedule, loss weights,
 ``--randomized``, ``--ds_method``, ``--include_var``, ``--scan_steps``),
 and the engine's (experiment and checkpoint directories, resume,
 ``--init_weights``, ``--fix_layers``, the save/val/vis/log cadences, the
-dataset options of ``llff_downX``, ``--test_split``). ``--device``
+dataset options of ``llff``/``llff_downX`` and ``blender_downX``
+(``--rand_dir``), ``--train_crop`` with ``--precrop_frac``,
+``--test_split``). ``--device``
 (default ``cuda``) is the port's own: ``cpu`` runs the plain PyTorch
 versions on the CPU, as ``JAX_PLATFORMS=cpu`` does for the JAX package.
 The JAX package's TPU-only flags (``--use_pallas*``, ``--pallas_mlp_bwd``,
 ``--pallas_interpret``, ``--compilation_cache_dir``) are accepted and
 ignored: on CUDA the kernels run wherever their JAX counterparts could.
 Flags of paths the port does not cover yet (``--with_ref``,
-``--with_netD``, ``--reg_patch``, ``--patch_size``, ``--train_crop``,
-``--mesh_devices``) are accepted so that the engine can refuse them by
-name.
+``--with_netD``, ``--reg_patch``, ``--patch_size``, ``--mesh_devices``)
+are accepted so that the engine can refuse them by name.
 """
 
 from __future__ import annotations
@@ -97,6 +98,9 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
         p.add_argument("--init_weights", type=str, default=None)
         p.add_argument("--init_weights_keys", type=str, default=".+")
         p.add_argument("--fix_layers", type=str, default=None)
+        p.add_argument("--precrop_frac", type=float, default=0.5,
+                       help="train_crop: the centre window's half-size "
+                            "as a fraction of the image's")
         p.add_argument("--keep_last", action="store_true",
                        help="count the final partial batch in the epoch")
         p.add_argument("--train_split", type=str, default="train")
@@ -196,6 +200,10 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--unified_dir", action="store_true")
     p.add_argument("--use_subset", action="store_true")
     p.add_argument("--subset_num", type=int, default=20)
+
+    # ---- blender_downX dataset options ----
+    p.add_argument("--rand_dir", action="store_true",
+                   help="a random offset within each pixel for its ray")
 
     # ---- accepted and ignored (TPU-only in the JAX package) ----
     p.add_argument("--use_pallas", action="store_true")

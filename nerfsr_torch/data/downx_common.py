@@ -11,7 +11,13 @@ Image.LANCZOS)`` for uint8 images (``libImaging/Resample.c``): a
 separable filter of support 3 x scale, coefficients normalized in double
 and rounded to 22-bit fixed point, the horizontal pass first and then
 the vertical, each output clipped to uint8 (so the vertical pass reads
-the clipped horizontal result). It gives PIL's bytes.
+the clipped horizontal result). Images with alpha (LA, RGBA) go through
+PIL's premultiplied modes (``libImaging/Convert.c``) around the filter.
+It gives PIL's bytes.
+
+``load_image`` reads an image file the way the datasets' ``load_image``
+does: Lanczos to the working size, gray repeated, alpha blended over
+white after the resize (or kept).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from nerfsr_torch.utils import png
 
 PRECISION_BITS = 32 - 8 - 2       # PIL's fixed-point precision
 _LANCZOS_SUPPORT = 3.0
@@ -109,11 +117,32 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int,
     return np.moveaxis(out, 0, axis)
 
 
+def premultiply(img: np.ndarray) -> np.ndarray:
+    """PIL's RGBA -> RGBa (and LA -> La) of a uint8 image whose last
+    channel is alpha: each colour channel c becomes c * a / 255, rounded
+    as ``MULDIV255`` (t = c a + 128; (t / 256 + t) / 256, integer)."""
+    x = img.astype(np.int64)
+    t = x[..., :-1] * x[..., -1:] + 128
+    return np.concatenate([((t >> 8) + t) >> 8, x[..., -1:]],
+                          -1).astype(np.uint8)
+
+
+def unpremultiply(img: np.ndarray) -> np.ndarray:
+    """PIL's RGBa -> RGBA (and La -> LA): c * 255 / a in integers,
+    truncated and clipped to 255; a colour with alpha 0 or 255 is kept."""
+    x = img.astype(np.int64)
+    a = x[..., -1:]
+    c = np.minimum(x[..., :-1] * 255 // np.maximum(a, 1), 255)
+    c = np.where((a == 0) | (a == 255), x[..., :-1], c)
+    return np.concatenate([c, a], -1).astype(np.uint8)
+
+
 def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
     """PIL's ``Image.resize(size, Image.LANCZOS)`` of a uint8 (H, W) or
     (H, W, C) image; ``size`` is (w, h) as PIL takes it. Every channel is
-    filtered alike, as PIL does for L and RGB (PIL premultiplies the
-    alpha of LA and RGBA first, so pass those only without alpha)."""
+    filtered alike, as PIL does for L and RGB; an LA or RGBA image (2 or
+    4 channels, alpha last) is premultiplied first and unpremultiplied
+    after, as PIL resizes it (through La / RGBa)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"lanczos_resize takes uint8 pixels, got "
@@ -121,11 +150,46 @@ def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
     gray = img.ndim == 2
     x = img[..., None] if gray else img
     w, h = int(size[0]), int(size[1])
+    if x.shape[:2] == (h, w):
+        return img.copy()
+    alpha = x.shape[-1] in (2, 4)
+    if alpha:
+        x = premultiply(x)
     if x.shape[1] != w:              # horizontal pass first, as PIL
         x = _resample_axis(x, w, axis=1)
     if x.shape[0] != h:
         x = _resample_axis(x, h, axis=0)
+    if alpha:
+        x = unpremultiply(x)
     return x[..., 0] if gray else x
+
+
+def read_pixels(path) -> np.ndarray:
+    """An image file's uint8 pixels (H, W[, C]), a palette looked up
+    (with its alpha)."""
+    img = png.read(path)
+    px = img.pixels
+    if img.mode == "P":
+        px = np.concatenate([img.palette, img.palette_alpha[:, None]],
+                            1)[px]
+    return px
+
+
+def load_image(path, wh, keep_alpha: bool = False) -> np.ndarray:
+    """An image as float in [0, 1] at ``wh`` (``load_image`` of the JAX
+    package): Lanczos when the size differs (premultiplied, as PIL, when
+    it has alpha), gray repeated, and alpha blended over white after the
+    resize, or kept as a fourth channel with ``keep_alpha``."""
+    px = read_pixels(path)
+    if tuple(px.shape[1::-1]) != tuple(wh):
+        px = lanczos_resize(px, wh)
+    arr = px.astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, -1)
+    elif arr.shape[-1] == 2:
+        arr = np.concatenate([np.repeat(arr[..., :1], 3, -1),
+                              arr[..., 1:]], -1)
+    return arr if keep_alpha else blend_white(arr)
 
 
 def downscale(img: np.ndarray, ds: int, method: str) -> np.ndarray:

@@ -12,6 +12,16 @@ into a c2w, takes per-image depth bounds from the 0.1 and 99.9
 percentiles of its visible points, sorts by image name, flips COLMAP's
 "right down front" axes to NeRF's "right up back", centres the poses on
 their average pose and rescales the world so the nearest bound is 4/3.
+
+``LLFFDataset`` (``--dataset_mode llff``) is the port of the JAX
+package's vanilla dataset: flat rays at ``img_wh``, NDC-warped for
+forward-facing scenes (near/far 0/1) or in world bounds with
+``--spheric_poses``, images Lanczos-resized to ``img_wh``; modes
+``train``, ``val``, ``test`` (spiral or spheric path), ``test_train`` and
+``test_viewdir`` (test pose 10 seen with each path pose's view
+directions); ``--include_var``. The JAX package builds the training rays
+with its host C++ raygen where that is built; the port builds them in
+numpy (the same rays within 1e-6).
 """
 
 from __future__ import annotations
@@ -20,8 +30,9 @@ import os
 
 import numpy as np
 
+from nerfsr_torch.data import AUX, register_dataset
 from nerfsr_torch.data.colmap import read_model
-from nerfsr_torch.data.downx_common import group_subpixels
+from nerfsr_torch.data.downx_common import group_subpixels, load_image
 
 
 def _normalize(v):
@@ -137,17 +148,36 @@ def ndc_rays_np(h, w, focal, near, rays_o, rays_d):
             np.stack([d0, d1, d2], -1).astype(np.float32))
 
 
+def pose_rays(directions, c2w, img_wh, focal, near_far, spheric=False):
+    """Rays of one pose as (H, W, .) fields: origins and directions
+    (NDC-warped unless ``spheric``), near and far (constant)."""
+    w, h = img_wh
+    ro, rd = rays_from_pose(directions, c2w)
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    near, far = near_far
+    if not spheric:
+        ro, rd = ndc_rays_np(h, w, focal, 1.0, ro, rd)
+    return {"origins": ro.reshape(h, w, 3),
+            "directions": rd.reshape(h, w, 3),
+            "near": np.full((h, w, 1), near, np.float32),
+            "far": np.full((h, w, 1), far, np.float32)}
+
+
 def llff_eval_raygen_spec(ds_obj, idx):
     """Pose and static geometry of view ``idx`` for device-side eval
     raygen: the val view, a training pose (``test_train``) or a test-path
     pose; NDC geometry for forward-facing scenes, world bounds for
-    spheric ones."""
+    spheric ones. ``test_viewdir`` renders from test pose 10 with view
+    directions of pose ``idx``."""
     if ds_obj.mode == "val":
         c2w = ds_obj.poses[ds_obj.val_idx]
     elif ds_obj.mode == "test_train":
         c2w = ds_obj.poses[idx]
     else:
         c2w = ds_obj._poses_test[idx]
+    vd_c2w = c2w
+    if ds_obj.mode == "test_viewdir":
+        c2w = ds_obj._poses_test[10]
     near, far = ds_obj._near_far()
     w, h = ds_obj.img_wh
     if ds_obj.spheric:
@@ -155,7 +185,7 @@ def llff_eval_raygen_spec(ds_obj, idx):
     else:
         geom = ("ndc", h, w, float(ds_obj.focal), float(near),
                 float(far))
-    return {"c2w": c2w, "vd_c2w": c2w, "geom": geom}
+    return {"c2w": c2w, "vd_c2w": vd_c2w, "geom": geom}
 
 
 def load_colmap_scene(root_dir, img_wh):
@@ -215,3 +245,127 @@ def load_colmap_scene(root_dir, img_wh):
     poses[..., 3] /= scale
     return poses.astype(np.float32), bounds.astype(np.float32), focal, \
         image_paths
+
+
+@register_dataset("llff")
+class LLFFDataset:
+    """Modes: train, val, test, test_train, test_viewdir."""
+
+    MODES = ("train", "val", "test", "test_train", "test_viewdir")
+
+    def __init__(self, opt, mode):
+        if mode not in self.MODES:
+            raise ValueError(f"llff has no mode {mode!r}; modes: "
+                             f"{self.MODES}")
+        self.opt = opt
+        self.mode = mode
+        self.img_wh = tuple(opt.img_wh)
+        self.spheric = opt.spheric_poses
+        w, h = self.img_wh
+
+        self.poses, self.bounds, self.focal, self.image_paths = \
+            load_colmap_scene(opt.dataset_root, self.img_wh)
+        self.directions = _ray_dirs_np(h, w, self.focal,
+                                       opt.use_pixel_centers)
+        dists = np.linalg.norm(self.poses[..., 3], axis=1)
+        self.val_idx = int(np.argmin(dists))
+
+        self._poses_test = None
+        if mode in ("test", "test_viewdir"):
+            if not self.spheric:
+                radii = np.percentile(
+                    np.abs(self.poses[..., 3]), 90, axis=0)
+                self._poses_test = spiral_path(radii, focus_depth=3.5)
+            else:
+                self._poses_test = spheric_path(1.1 * self.bounds.min())
+
+    def _near_far(self):
+        if not self.spheric:
+            return 0.0, 1.0
+        near = float(self.bounds.min())
+        return near, float(min(8 * near, self.bounds.max()))
+
+    @property
+    def depth_bounds(self):
+        return self._near_far()
+
+    def _pose_rays(self, c2w):
+        """Rays of one pose (NDC-warped unless spheric), flat (H*W, .):
+        origins, directions, viewdirs (the directions), near, far."""
+        rays = {k: v.reshape(-1, v.shape[-1]) for k, v in pose_rays(
+            self.directions, c2w, self.img_wh, self.focal,
+            self._near_far(), self.spheric).items()}
+        rays["viewdirs"] = rays["directions"]
+        return rays
+
+    def __len__(self):
+        if self.mode == "train":
+            n = len(self.image_paths)
+            return (n if self.opt.include_var else n - 1) * \
+                self.img_wh[0] * self.img_wh[1]
+        if self.mode == "val":
+            return max(1, self.opt.val_num)
+        if self.mode == "test_train":
+            return len(self.poses)
+        return len(self._poses_test)
+
+    def ray_buffer(self):
+        """All training rays (the val view left out unless
+        ``--include_var``), flat: origins, directions, near, far (N, .),
+        rgbs (N, 3). The JAX package's ``viewdirs`` field equals
+        ``directions`` and is left out."""
+        if self.mode != "train":
+            raise ValueError(f"ray_buffer is the train split's, not "
+                             f"{self.mode}'s")
+        keys = ("origins", "directions", "near", "far", "rgbs")
+        parts = {k: [] for k in keys}
+        for i, path in enumerate(self.image_paths):
+            if i == self.val_idx and not self.opt.include_var:
+                continue
+            rays = self._pose_rays(self.poses[i])
+            rays["rgbs"] = load_image(path, self.img_wh).reshape(
+                -1, 3).astype(np.float32)
+            for k in keys:
+                parts[k].append(rays[k])
+        return {k: np.concatenate(v) for k, v in parts.items()}
+
+    def ref_buffer(self, downscale=None):
+        raise NotImplementedError(f"--with_ref's ref_buffer is {AUX}")
+
+    def image_buffer(self):
+        raise NotImplementedError(f"patch mode's image_buffer is {AUX}")
+
+    def eval_raygen_spec(self, idx):
+        """Pose + static geometry for device-side eval raygen."""
+        return llff_eval_raygen_spec(self, idx)
+
+    def eval_dirs(self):
+        """The direction grid in raster order (cached)."""
+        return cached_eval_dirs(self)
+
+    def image_rays(self, idx):
+        """Host rays of view ``idx`` with its truth (None on a path);
+        ``test_viewdir`` renders test pose 10 with pose ``idx``'s view
+        directions."""
+        if self.mode == "val":
+            pose_idx = self.val_idx
+            c2w = self.poses[pose_idx]
+        elif self.mode == "test_train":
+            pose_idx = idx
+            c2w = self.poses[idx]
+        else:
+            pose_idx = None
+            c2w = self._poses_test[idx]
+        if self.mode == "test_viewdir":
+            sample = self._pose_rays(self._poses_test[10])
+            sample["viewdirs"] = self._pose_rays(c2w)["directions"]
+        else:
+            sample = self._pose_rays(c2w)
+        sample["c2w"] = c2w
+        if pose_idx is not None:
+            sample["rgbs"] = load_image(self.image_paths[pose_idx],
+                                        self.img_wh).reshape(
+                -1, 3).astype(np.float32)
+        else:
+            sample["rgbs"] = None
+        return sample

@@ -20,37 +20,22 @@ import os
 
 import numpy as np
 
-from nerfsr_torch.data import register_dataset
-from nerfsr_torch.data.downx_common import (blend_white, downscale,
-                                            group_subpixels,
-                                            lanczos_resize)
+from nerfsr_torch.data import AUX, register_dataset
+from nerfsr_torch.data.downx_common import (downscale, group_subpixels,
+                                            lanczos_resize, load_image)
 from nerfsr_torch.data.llff import (_ray_dirs_np, cached_eval_dirs,
                                     llff_eval_raygen_spec,
-                                    load_colmap_scene, ndc_rays_np,
-                                    rays_from_pose, spheric_path,
-                                    spiral_path)
+                                    load_colmap_scene, pose_rays,
+                                    spheric_path, spiral_path)
 from nerfsr_torch.utils import png
-
-_AUX = ("not ported yet (ROADMAP.md queue 1: auxiliary training paths)")
 
 
 def pose_rays_grouped(directions, c2w, img_wh, focal, ds, near_far,
                       spheric=False):
     """HR rays of one pose (NDC-warped unless ``spheric``), grouped:
     origins, directions, near, far as (N_lr, ds^2, .)."""
-    w, h = img_wh
-    ro, rd = rays_from_pose(directions, c2w)
-    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
-    near, far = near_far
-    if not spheric:
-        ro, rd = ndc_rays_np(h, w, focal, 1.0, ro, rd)
-    fields = {
-        "origins": ro.reshape(h, w, 3),
-        "directions": rd.reshape(h, w, 3),
-        "near": np.full((h, w, 1), near, np.float32),
-        "far": np.full((h, w, 1), far, np.float32),
-    }
-    return {k: group_subpixels(v, ds) for k, v in fields.items()}
+    return {k: group_subpixels(v, ds) for k, v in pose_rays(
+        directions, c2w, img_wh, focal, near_far, spheric).items()}
 
 
 def load_pair(hr_u8, img_wh, ds, ds_method):
@@ -62,29 +47,6 @@ def load_pair(hr_u8, img_wh, ds, ds_method):
     return hr_u8.astype(np.float32) / 255.0, lr
 
 
-def load_image(path, wh):
-    """An image as float RGB in [0, 1] at ``wh`` (``load_image`` of the
-    JAX package): gray repeated, alpha blended over white."""
-    img = png.read(path)
-    px = img.pixels
-    if img.mode == "P":
-        px = np.concatenate([img.palette, img.palette_alpha[:, None]],
-                            1)[px]
-    if tuple(px.shape[1::-1]) != tuple(wh):
-        if px.ndim == 3 and px.shape[-1] in (2, 4):
-            raise NotImplementedError(
-                f"{path}: resizing an image with alpha is not ported "
-                "(PIL premultiplies it); store it at --img_wh")
-        px = lanczos_resize(px, wh)
-    arr = px.astype(np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = np.repeat(arr[..., None], 3, -1)
-    elif arr.shape[-1] == 2:
-        arr = np.concatenate([np.repeat(arr[..., :1], 3, -1),
-                              arr[..., 1:]], -1)
-    return blend_white(arr)
-
-
 @register_dataset("llff_downX")
 class LLFFDownXDataset:
     """Modes: train, val, test, test_train."""
@@ -93,7 +55,7 @@ class LLFFDownXDataset:
 
     def __init__(self, opt, mode):
         if mode in ("reg_patch", "gan"):
-            raise NotImplementedError(f"llff_downX mode {mode} is {_AUX}")
+            raise NotImplementedError(f"llff_downX mode {mode} is {AUX}")
         if mode not in self.MODES:
             raise ValueError(f"llff_downX has no mode {mode!r}; modes: "
                              f"{self.MODES}")
@@ -208,7 +170,7 @@ class LLFFDownXDataset:
         return {k: np.concatenate(v) for k, v in parts.items()}
 
     def ref_buffer(self):
-        raise NotImplementedError(f"--with_ref's ref_buffer is {_AUX}")
+        raise NotImplementedError(f"--with_ref's ref_buffer is {AUX}")
 
     def eval_raygen_spec(self, idx):
         """Pose + static geometry for device-side eval raygen."""

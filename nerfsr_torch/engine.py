@@ -2,9 +2,11 @@
 
 Port of ``nerfsr_tpu/engine.py`` (``setup``, ``train``, ``validate``,
 ``test``, ``_rays_per_batch``, ``_vis_dir``) on its plain-step route:
-the training buffer is uploaded to the card once, and each epoch runs in
-chunks of ``min(--scan_steps, steps left in the epoch)`` steps of
-``system.train_steps``, whose losses are read back once per chunk and
+the training buffer is uploaded to the card once (and a warm-up split's,
+such as the Blender ``train_crop``, for the first ``warmup_iters``
+steps), and each epoch runs in chunks of ``system.train_steps`` that end
+every ``--scan_steps`` steps of the epoch, at its end and at the end of
+the warm-up; their losses are read back once per chunk and
 written every ``--log_every`` (else ``--print_freq``) steps with
 ``rays_per_sec``. Before each chunk the generator on the card is seeded
 from ``(--seed, step)``, so a resumed run draws what an unbroken run
@@ -18,8 +20,8 @@ strip kind.
 
 Paths the port does not cover yet raise ``NotImplementedError`` naming
 their ``ROADMAP.md`` item: patch mode (``--patch_size`` > 1),
-``--with_ref``, ``--with_netD``, ``--reg_patch``, the ``train_crop``
-warm-up and ``--mesh_devices`` > 1.
+``--with_ref``, ``--with_netD``, ``--reg_patch`` and ``--mesh_devices``
+> 1.
 """
 
 from __future__ import annotations
@@ -40,16 +42,13 @@ from nerfsr_torch.utils.visualizer import (MetricsWriter, Visualizee,
 _ROADMAP = "is not ported yet (ROADMAP.md queue 1 item {})"
 
 
-def _refuse_unported(opt, warmup_mode=None):
+def _refuse_unported(opt):
     aux = "4, auxiliary training paths"
     refusals = [
         (opt.patch_size > 1, "patch mode (--patch_size > 1)", aux),
         (opt.with_ref and not opt.no_ref_loss, "--with_ref", aux),
         (opt.with_netD, "--with_netD", aux),
         (opt.reg_patch, "--reg_patch", aux),
-        (warmup_mode is not None or opt.train_crop,
-         f"the {warmup_mode or 'train_crop'} warm-up",
-         "1, the Blender datasets"),
         (opt.mesh_devices > 1, "--mesh_devices > 1", "3, distributed"),
     ]
     for hit, what, item in refusals:
@@ -57,10 +56,10 @@ def _refuse_unported(opt, warmup_mode=None):
             raise NotImplementedError(f"{what} {_ROADMAP.format(item)}")
 
 
-def setup(opt, warmup_mode=None):
+def setup(opt):
     """Refuse what is not ported, seed, and build the system on
     ``--device``."""
-    _refuse_unported(opt, warmup_mode)
+    _refuse_unported(opt)
     ckpt.check_backend(opt)
     np.random.seed(opt.seed)
     torch.manual_seed(opt.seed)
@@ -83,11 +82,28 @@ def _fmt(scal):
     return " ".join(f"{k}={v:.4g}" for k, v in scal.items())
 
 
-def train(opt, warmup_mode: Optional[str] = None, timings=None):
-    """The training loop. ``timings``, when a dict, receives each epoch's
-    host seconds over its steps (ending in the chunk's loss read, which
-    waits for the card) under ``"epoch_s"`` and ``steps_per_epoch``."""
-    system = setup(opt, warmup_mode)
+def _chunk_steps(opt, step, it, steps_per_epoch, warmup_iters):
+    """Steps of the chunk that starts at global ``step``, ``it`` steps
+    into its epoch: it ends at the next multiple of ``--scan_steps`` in
+    the epoch, at the epoch's end, and at ``warmup_iters`` while the
+    warm-up lasts. A function of the step alone, so a resumed run cuts
+    (and seeds) the chunks an unbroken run cuts."""
+    scan = max(1, opt.scan_steps)
+    k = min(scan - it % scan, steps_per_epoch - it)
+    if step < warmup_iters:
+        k = min(k, warmup_iters - step)
+    return k
+
+
+def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
+          timings=None):
+    """The training loop. ``warmup_mode`` (e.g. ``train_crop``, the
+    Blender centre-crop warm-up) draws the first ``warmup_iters`` global
+    steps from that split's buffer, uploaded once, instead of the train
+    split's. ``timings``, when a dict, receives each epoch's host seconds
+    over its steps (ending in the chunk's loss read, which waits for the
+    card) under ``"epoch_s"`` and ``steps_per_epoch``."""
+    system = setup(opt)
     writer = MetricsWriter(opt.summary_dir, opt.name)
 
     train_ds = create_dataset(opt, opt.train_split)
@@ -105,8 +121,13 @@ def train(opt, warmup_mode: Optional[str] = None, timings=None):
             max(1, int(opt.max_dataset_size) // opt.batch_size))
     print(f"[train] {n_rays} rays, {steps_per_epoch} steps/epoch, "
           f"{opt.n_epochs} epochs, device {system.device}")
-    buffer = {k: torch.from_numpy(np.ascontiguousarray(v)).to(system.device)
-              for k, v in buffer_np.items()}
+    buffer = _upload(buffer_np, system.device)
+    warm_buffer = None
+    if warmup_mode is not None:
+        warm_buffer = _upload(create_dataset(opt, warmup_mode).ray_buffer(),
+                              system.device)
+        print(f"[train] warm-up: the first {warmup_iters} steps draw from "
+              f"{warmup_mode} ({len(warm_buffer['rgbs'])} rays)")
 
     val_ds = None
     try:
@@ -133,9 +154,16 @@ def train(opt, warmup_mode: Optional[str] = None, timings=None):
         t_epoch = time.perf_counter()
         it = 0
         while it < steps_per_epoch:
-            k = min(max(1, opt.scan_steps), steps_per_epoch - it)
+            k = _chunk_steps(opt, state.step, it, steps_per_epoch,
+                             warmup_iters if warm_buffer is not None else 0)
+            src = buffer
+            if warm_buffer is not None:
+                if state.step < warmup_iters:
+                    src = warm_buffer
+                else:
+                    warm_buffer = None      # done: free its memory
             _seed_chunk(gen, opt.seed, state.step)
-            state, losses = system.train_steps(state, buffer, k, gen)
+            state, losses = system.train_steps(state, src, k, gen)
             it += k
             step = state.step
             scal = _read(losses)
@@ -178,6 +206,12 @@ def train(opt, warmup_mode: Optional[str] = None, timings=None):
 
     writer.close()
     return state
+
+
+def _upload(buffer_np, device):
+    """A numpy ray buffer to ``device``, one copy per field."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in buffer_np.items()}
 
 
 def _validate_iter(opt, system, state, val_ds, writer, epoch, k):

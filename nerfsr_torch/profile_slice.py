@@ -2,9 +2,11 @@
 
     python -m nerfsr_torch.profile_slice [--views 2] [--top 15]
     python -m nerfsr_torch.profile_slice --train [--steps 10] [--top 25]
+    python -m nerfsr_torch.profile_slice --train --preset parity
 
 Serving (default): renders 504x378 NeRF-SR x2 views (``--fast_preset
-llff``, mixed precision, full-width MLP, random weights from a seed)
+llff``, or ``parity`` with ``--preset``; mixed precision, full-width
+MLP, random weights from a seed)
 through ``render_eval_many`` after one warm-up view. ``--train``: trains
 a seed-0 student on a teacher scene the port renders itself (2 views,
 ``--batch_size 512`` LR pixels, 2048 HR rays a step) for ``--steps``
@@ -26,10 +28,10 @@ HR_WH = (504, 378)
 FOCAL = 407.0
 
 
-def _options(phase, **extra):
+def _options(phase, preset="llff", **extra):
     from nerfsr_torch.config import default_options
     return default_options(phase, model="nerf_downX",
-                           dataset_mode="llff_downX", fast_preset="llff",
+                           dataset_mode="llff_downX", fast_preset=preset,
                            img_wh=HR_WH, downscale=2, precision="mixed",
                            **extra)
 
@@ -39,7 +41,7 @@ def _serving(args):
     from nerfsr_torch.data.views import LLFFDownXViews
     from nerfsr_torch.models import create_model
 
-    system = create_model(_options("test"), device="cuda")
+    system = create_model(_options("test", args.preset), device="cuda")
     params = system.init_params(seed=0)
     views = LLFFDownXViews.spiral(FOCAL, HR_WH, 2, args.views + 1)
     list(system.render_eval_many(params, views, [0], quantize_rgb=True))
@@ -56,9 +58,9 @@ def _training(args):
     from nerfsr_torch.data.views import LLFFDownXTrainViews
     from nerfsr_torch.models import create_model
 
-    system = create_model(_options("train", batch_size=512, n_epochs=30,
-                                   include_var=True, ds_method="avg"),
-                          device="cuda")
+    system = create_model(_options("train", args.preset, batch_size=512,
+                                   n_epochs=30, include_var=True,
+                                   ds_method="avg"), device="cuda")
     teacher = system.init_params(seed=1)
     with torch.no_grad():
         for net in teacher.values():
@@ -82,6 +84,9 @@ def main(argv=None):
     ap.add_argument("--views", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--preset", default="llff", choices=["llff", "parity"],
+                    help="--fast_preset of the slice: llff, or parity "
+                         "(coarse 64 + fine 64 samples)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")

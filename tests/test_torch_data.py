@@ -29,7 +29,7 @@ from nerfsr_tpu.data.llff_downx import LLFFDownXDataset as JDataset
 from nerfsr_tpu.models.criterions import ssim as j_ssim
 
 from nerfsr_torch.config import default_options
-from nerfsr_torch.data import create_dataset, synthetic
+from nerfsr_torch.data import DATASET_REGISTRY, create_dataset, synthetic
 from nerfsr_torch.data.colmap import read_model
 from nerfsr_torch.data.downx_common import lanczos_resize
 from nerfsr_torch.data.llff import center_poses, load_colmap_scene, \
@@ -422,6 +422,13 @@ def test_dataset_refuses_what_is_not_ported(scene):
             create_dataset(opt, mode)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLFFDownXDataset(opt, "train").ref_buffer()
-    opt.dataset_mode = "blender"
+    # every dataset mode of the JAX package's registry but the refine
+    # stage's is ported; what stays is refused by name
+    for mode in ("llff", "blender", "blender_downX"):
+        assert mode in DATASET_REGISTRY
+    opt.dataset_mode = "llff"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_dataset(opt, "train").ref_buffer()
+    opt.dataset_mode = "llff_refine"
+    with pytest.raises(KeyError, match="not found"):
         create_dataset(opt, "train")

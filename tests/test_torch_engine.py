@@ -42,7 +42,7 @@ PSNR_DB, SSIM_ABS = 1e-3, 1e-4
 PNG_EQUAL_SHARE, DEPTH_ABS = 0.999, 1e-4
 GRAD_REL = 2e-2          # f32 gradients per leaf (test_torch_train.py)
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "imageio",
-             "cv2", "nerfsr_tpu"}
+             "cv2", "nerfsr_tpu", "tools"}
 
 
 @pytest.fixture(scope="module")
@@ -277,7 +277,6 @@ def test_kernel_a_bin_cap_does_not_bind_on_the_cpu():
     (dict(with_ref=True), "with_ref.*item 4"),
     (dict(with_netD=True), "with_netD.*item 4"),
     (dict(reg_patch=True), "reg_patch.*item 4"),
-    (dict(train_crop=True), "train_crop warm-up.*item 1"),
     (dict(mesh_devices=2), "mesh_devices.*item 3"),
     (dict(ckpt_backend="orbax"), "orbax")])
 def test_engine_refuses_unported_paths(tmp_path, flags, match):
@@ -285,11 +284,29 @@ def test_engine_refuses_unported_paths(tmp_path, flags, match):
                                          device="cpu", **flags))
     with pytest.raises(NotImplementedError, match=match):
         engine.train(opt)
-    if flags == dict(patch_size=2):
-        with pytest.raises(NotImplementedError, match="warm-up"):
-            engine.train(default_options("train", **_kw(
-                str(tmp_path), tmp_path, device="cpu")),
-                warmup_mode="train_crop")
+
+
+def test_train_crop_runs_the_warmup(scene, tmp_path):
+    """``--train_crop`` (``python -m nerfsr_torch.train``) and a
+    ``warmup_mode`` given to ``engine.train`` both take the first steps
+    from the Blender ``train_crop`` split; a split without that mode
+    says so."""
+    from nerfsr_torch import train as train_entry
+    from nerfsr_torch.data.synthetic import write_blender_scene
+    blender = str(tmp_path / "blender")
+    write_blender_scene(blender, hw=(32, 32), n_train=2, n_val=1, n_test=1)
+    argv = ["--name", "crop", "--model", "nerf", "--dataset_mode", "blender",
+            "--dataset_root", blender, "--img_wh", "16", "16", "--N_coarse",
+            "8", "--N_importance", "8", "--precision", "f32", "--D", "2",
+            "--W", "16", "--device", "cpu", "--batch_size", "16",
+            "--n_epochs", "1", "--steps_per_epoch", "3", "--val_freq", "0",
+            "--checkpoints_dir", str(tmp_path / "ck"),
+            "--summary_dir", str(tmp_path / "runs"), "--train_crop"]
+    train_entry.main(argv)
+    assert (tmp_path / "ck" / "crop" / "1_state.msgpack").exists()
+    opt = default_options("train", **_kw(scene, tmp_path, device="cpu"))
+    with pytest.raises(ValueError, match="no mode 'train_crop'"):
+        engine.train(opt, warmup_mode="train_crop")
 
 
 def test_entry_points_run_end_to_end(scene, tmp_path):

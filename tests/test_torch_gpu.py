@@ -102,11 +102,12 @@ def test_invert_cdf_guards(dev):
 
 @pytest.mark.parametrize("act", ["relu", "softplus"])
 @pytest.mark.parametrize("white", [False, True])
-@pytest.mark.parametrize("s", [1, 16, 33, 64, 128])
+@pytest.mark.parametrize("s", [1, 16, 33, 48, 64, 128])
 def test_composite_kernel(dev, s, act, white):
     """Kernel B against its plain version at ragged N: a lane a sample
     (S <= 32, S = 1 included) and runs of consecutive samples a lane
-    (S > 32, ragged S = 33 included); two calls give the same bits."""
+    (S > 32, ragged S = 33 included, S = 48 of the Blender fast step);
+    two calls give the same bits."""
     gen = torch.Generator().manual_seed(s)
     rgb = torch.rand((RAGGED_N, s, 3), generator=gen).to(dev)
     sigma = (torch.randn((RAGGED_N, s), generator=gen) * 2).to(dev)
@@ -164,11 +165,12 @@ def test_fused_mlp_kernel(dev, dtype, tol):
 
 @pytest.mark.parametrize("act", ["relu", "softplus"])
 @pytest.mark.parametrize("white", [False, True])
-@pytest.mark.parametrize("s", [1, 16, 33, 64, 128])
+@pytest.mark.parametrize("s", [1, 16, 33, 48, 64, 128])
 def test_composite_bwd_kernel(dev, s, act, white):
     """Kernel D against its plain version at ragged N with every cotangent
     nonzero: a lane a sample (S <= 32, S = 1 included) and runs of
-    consecutive samples a lane (S > 32, ragged S = 33 included); two calls
+    consecutive samples a lane (S > 32, ragged S = 33 included, S = 48 of
+    the Blender fast step); two calls
     give the same bits; with gc = (1, 1, 1) and the other cotangents zero,
     grgb is B's weights to the bit (B and D share one T/alpha helper); and
     through the autograd Function, B forward and D backward, one launch
@@ -372,3 +374,54 @@ def test_kernel_a_bin_cap_refused_at_construction(dev):
     with pytest.raises(ValueError, match="--n_prop2 200 .*at most 128"):
         create_model(opt(n_prop2=200), device=dev)
     create_model(opt(n_prop=129, n_prop2=129), device=dev)   # 128 bins
+
+
+def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):
+    """Two vanilla NeRF steps on the parity schedule (64 + 64 samples,
+    white background, world rays) through the engine from a 64x64 Blender
+    scene written on the card, the first drawn from the train_crop
+    warm-up: each step 2 B, 2 C, 2 D, 2 E and no A, and each of the two
+    networks (coarse, fine) packed once a step for C and once for E."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data.synthetic import write_blender_scene
+
+    packs = []
+
+    def counting(kind, real):
+        def pack(params_flat):
+            base = params_flat[0]._base
+            net = id(params_flat[0] if base is None else base)
+            packs.append((kind, net,
+                          tuple(t._version for t in params_flat)))
+            return real(params_flat)
+        return pack
+
+    for kind in ("pack_tc", "pack_tc_bwd"):
+        monkeypatch.setattr(kmlp, kind, counting(kind, getattr(kmlp, kind)))
+    scene = tmp_path / "blender"
+    write_blender_scene(str(scene), hw=(64, 64), n_train=2, n_val=1,
+                        n_test=1, device=dev)
+    opt = parse_options("train", [
+        "--name", "parity", "--model", "nerf", "--dataset_mode", "blender",
+        "--dataset_root", str(scene), "--img_wh", "64", "64",
+        "--N_coarse", "64", "--N_importance", "64", "--batch_size", "256",
+        "--n_epochs", "1", "--steps_per_epoch", "2", "--val_freq", "0",
+        "--val_epoch_freq", "0", "--vis_epoch_freq", "0",
+        "--checkpoints_dir", str(tmp_path / "ck"),
+        "--summary_dir", str(tmp_path / "runs")])
+    reset_counts()
+    state = engine.train(opt, warmup_mode="train_crop", warmup_iters=1)
+    torch.cuda.synchronize()
+    assert state.step == 2
+    assert COUNTS == {"invert_cdf": 0, "composite_fwd": 4,
+                      "fused_mlp_fwd": 4, "composite_bwd": 4,
+                      "fused_mlp_bwd": 4}, COUNTS
+    assert all(torch.isfinite(p).all() for p in state.params.parameters())
+    # every pack is of another (kind, network, parameter state): a
+    # network is packed once per kind in a step, and the optimizer's
+    # update between the steps makes the second step pack again
+    assert len(set(packs)) == len(packs) == 8, packs
+    for kind in ("pack_tc", "pack_tc_bwd"):
+        nets = [net for k, net, _ in packs if k == kind]
+        assert sorted(nets.count(n) for n in set(nets)) == [2, 2], packs
