@@ -69,7 +69,21 @@
    with and without the writes; bx2 also checks that its first 50 steps
    drew only from the crop buffer and that a resume from epoch 1, across
    the warm-up's end, equals the unbroken run bit for bit;
-8. prints a JSON line of details (also written to
+8. refine: the refine stage on the engine phase's scene and its
+   ``test_train`` renders (``scripts/train_llff_refine.sh`` at full width,
+   cut as ``REFINE_TRAIN`` says): ``python -m nerfsr_torch.warp`` (files,
+   the share of pixels that land in the reference view, one view's
+   coordinates against the CPU's), ``train_refine`` for 3 epochs and for
+   2 plus a ``--continue_train`` to 3 (the two equal bit for bit), a
+   fixed batch's l1 before and after, one step on the card against the
+   CPU's (each gradient leaf held to an f64 step beside the CPU's),
+   ``maxpoolingmodel`` steps with and without the references, and
+   ``test_refine --test_split test_train`` (each stitched panel equal to
+   a direct ``refine_image``); it prints ms/step and patches/s of the
+   UNet and of ``maxpoolingmodel``, warp ms/view and test_refine
+   ms/image with and without the writes. The path launches none of the
+   five kernels (its convolutions are cuDNN's), and it checks that;
+9. prints a JSON line of details (also written to
    ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
    summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -1479,6 +1493,307 @@ def datasets_phase(dev, card, work, llff_scene):
     return out
 
 
+# refine phase: scripts/train_llff_refine.sh at full width (UnetGenerator
+# ngf 64, 6 downs, 27 input channels, batch norm; 64 px patches, 32 a
+# batch, --aug_num 200 views at 504x378, --refine_with_l1, exp LR 5e-4 ->
+# 5e-6 over --n_epochs 3) on the engine phase's scene and test_train
+# renders, with these cuts: --steps_per_epoch 100 (the script's epoch is
+# --data_num 500000 / 32 = 15,625 steps), --print_freq 50, --val_freq 50
+# and --vis_freq 100 (the script: 100, 1000, 1000)
+REFINE_STEPS = 100
+REFINE_TRAIN = ["--batch_size", "32", "--n_epochs_decay", "0",
+                "--lr_policy", "exp", "--lr", "5e-4", "--lr_final", "5e-6",
+                "--save_epoch_freq", "1", "--val_epoch_freq", "1",
+                "--refine_with_l1", "--steps_per_epoch", str(REFINE_STEPS),
+                "--print_freq", "50", "--val_freq", "50", "--vis_freq", "100"]
+REFINE_TIMED = 20          # steps in each directly timed window
+# the fixed batch's l1 after 300 steps over the fresh network's
+REFINE_FALL = 0.7
+# one UNet step on the card (cuDNN, TF32 off) against the same step on
+# the CPU (oneDNN), each held to the step in f64 on the CPU: the loss
+# (relative) and the new batch statistics (abs) against the CPU's f32
+# step; each gradient leaf's distance to the f64 step (||d|| / ||f64||)
+# may be at most REFINE_F64_RATIO times the CPU's f32 step's, plus
+# REFINE_LEAF_FLOOR (f32 sums in another order)
+REFINE_STEP_BARS = (1e-5, 1e-4)
+REFINE_F64_RATIO, REFINE_LEAF_FLOOR = 2.0, 1e-5
+# warp locs, card against CPU: the share of pixels whose truncated
+# coordinate may differ (f32 values within a rounding of an integer)
+WARP_FLIP_SHARE = 1e-3
+
+
+def refine_argv(scene, syn, work, name, phase, *extra):
+    argv = ["--name", name, "--model", "refine",
+            "--dataset_mode", "llff_refine", "--dataset_root", scene,
+            "--img_wh", str(HR_WH[0]), str(HR_WH[1]),
+            "--syn_dataroot", syn,
+            "--checkpoints_dir", os.path.join(work, "refine_ck")]
+    if phase == "train":
+        argv += REFINE_TRAIN + ["--summary_dir",
+                                os.path.join(work, "refine_runs")]
+    else:
+        argv += ["--results_dir", os.path.join(work, "refine_results")]
+    return argv + list(extra)
+
+
+def _refine_tensors(state):
+    """Every parameter, running statistic and Adam tensor of a refine
+    state, by name."""
+    out = dict(state.net.state_dict())
+    for name, p in state.net.named_parameters():
+        for k, v in state.optimizer.state[p].items():
+            out[f"{name}/{k}"] = v
+    return out
+
+
+def _timed_steps(system, state, buffers, dev, steps=REFINE_TIMED):
+    """ms/step of ``steps`` train_steps after 3 warm-up steps (host clock
+    to a synchronize)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    system.train_steps(state, buffers, 3, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = system.train_steps(state, buffers, steps, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    if not all(torch.isfinite(v).all() for v in losses.values()):
+        fail(f"non-finite losses {losses}")
+    return ms
+
+
+def _warp_phase(scene, syn, dev, card):
+    from nerfsr_torch import warp as warp_entry
+    from nerfsr_torch.data.llff import load_colmap_scene
+    from nerfsr_torch.ops.warp import ref_world_to_cam, warp_view
+
+    argv = ["--dataset_root", scene, "--result_dir", syn, "--img_wh",
+            str(HR_WH[0]), str(HR_WH[1])]
+    t0 = time.perf_counter()
+    written = warp_entry.main(argv)
+    ms_view = (time.perf_counter() - t0) / max(1, len(written)) * 1e3
+    if written != list(range(ENGINE_VIEWS)):
+        fail(f"warp wrote views {written}")
+    w, h = HR_WH
+    poses, _, focal, _ = load_colmap_scene(scene, HR_WH)
+    ref_w2c = ref_world_to_cam(poses[0])
+    shares, flips = [], 0
+    for i in written:
+        locs = np.load(os.path.join(syn, f"{i}_locs.npz"))["arr_0"]
+        if locs.shape != (h, w, 3) or locs.dtype != np.float32 or \
+                not (locs[..., 2] == -1).all():
+            fail(f"{i}_locs.npz: {locs.shape} {locs.dtype}")
+        inside = ((locs[..., 0] >= 0) & (locs[..., 0] < w)
+                  & (locs[..., 1] >= 0) & (locs[..., 1] < h))
+        shares.append(float(inside.mean()))
+        if i == ENGINE_VIEWS - 1:    # the card against the CPU
+            depth = np.load(os.path.join(
+                syn, f"{i}-fine-depth-ori.npz"))["matrix"]
+            ref = np.zeros((h, w, 3), np.float32)
+            cpu, _ = warp_view(depth, poses[i], ref_w2c, ref, focal, HR_WH,
+                               device="cpu")
+            flips = int((cpu[..., :2] != locs[..., :2]).any(-1).sum())
+            if flips > WARP_FLIP_SHARE * w * h:
+                fail(f"warp view {i}: {flips} pixels differ between the "
+                     "card and the CPU")
+    if min(shares) < 0.5:
+        fail(f"warp: shares of pixels inside the reference view {shares}")
+    print(f"[refine] warp: {len(written)} views {w}x{h}, {ms_view:.1f} "
+          f"ms/view (scene load, depth read, warp on the card, npz and PNG "
+          f"writes); inside the reference view {min(shares):.3f}-"
+          f"{max(shares):.3f}; view {ENGINE_VIEWS - 1} card vs CPU "
+          f"{flips} pixels differ; on {card}")
+    return {"ms_per_view": ms_view, "inside_share": shares,
+            "card_vs_cpu_pixels": flips}
+
+
+def _step_vs_cpu(opt, dev, buffers):
+    """One UNet step on the card, the same step on the CPU and in f64 on
+    the CPU, from the same weights and batch: the card's loss and
+    statistics against the CPU's, and each gradient leaf's distance to
+    the f64 step beside the CPU's."""
+    from nerfsr_torch.models import create_model
+    batch = create_model(opt, device=dev).sample_patch_batch(
+        buffers, torch.Generator(device=dev).manual_seed(7))
+    runs = {}
+    for name, device, dtype in (("card", dev, torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("f64", torch.device("cpu"), torch.float64)):
+        system = create_model(opt, device=device)
+        state = system.create_state(seed=opt.seed, steps_per_epoch=1)
+        state.net.to(dtype)
+        _, losses = system.train_step(state, {
+            k: v.to(device, dtype) for k, v in batch.items()})
+        runs[name] = (float(losses["tot"]),
+                      {n: p.grad.cpu().double()
+                       for n, p in state.net.named_parameters()},
+                      [t.cpu().double() for t in state.net.buffers()])
+    (loss_d, grads_d, stats_d), (loss_c, grads_c, stats_c), \
+        (_, grads_64, _) = runs["card"], runs["cpu"], runs["f64"]
+    loss_rel = abs(loss_d - loss_c) / abs(loss_c)
+    stats = max(float((a - b).abs().max()) for a, b in zip(stats_d, stats_c))
+
+    def dist(grads, name):
+        ref = grads_64[name]
+        return float((grads[name] - ref).norm() / ref.norm().clamp_min(1e-30))
+
+    leaves = {n: (dist(grads_d, n), dist(grads_c, n)) for n in grads_64}
+    worst = max(leaves, key=lambda n: leaves[n][0] - REFINE_F64_RATIO
+                * leaves[n][1])
+    card_leaf, cpu_leaf = leaves[worst]
+    loss_bar, stats_bar = REFINE_STEP_BARS
+    if not (loss_rel <= loss_bar and stats <= stats_bar
+            and card_leaf <= REFINE_F64_RATIO * cpu_leaf
+            + REFINE_LEAF_FLOOR):
+        fail(f"refine step, card vs CPU: loss {loss_rel:.2e} (bar "
+             f"{loss_bar}), batch statistics {stats:.2e} (bar {stats_bar}); "
+             f"gradient leaf {worst} {card_leaf:.2e} from the f64 step, the "
+             f"CPU's f32 step {cpu_leaf:.2e} (bar {REFINE_F64_RATIO}x + "
+             f"{REFINE_LEAF_FLOOR})")
+    return {"loss_rel": loss_rel, "stats_abs": stats,
+            "worst_leaf": worst, "worst_leaf_card_vs_f64": card_leaf,
+            "worst_leaf_cpu_vs_f64": cpu_leaf,
+            "max_card_vs_f64": max(v[0] for v in leaves.values()),
+            "max_cpu_vs_f64": max(v[1] for v in leaves.values()),
+            "max_card_vs_cpu": max(
+                float((grads_d[n] - grads_c[n]).norm()
+                      / grads_c[n].norm().clamp_min(1e-30))
+                for n in grads_c)}
+
+
+def refine_phase(dev, card, work):
+    """The refine stage on the engine phase's scene and test_train
+    renders: warp, train_refine (2 epochs, a resume to 3, an unbroken 3),
+    a falling l1, one step against the CPU, maxpoolingmodel steps, and
+    test_refine against a direct refine_image."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.utils import checkpoint as ckpt
+    from nerfsr_torch.utils import png
+    from nerfsr_torch.utils.visualizer import _to_uint8
+
+    t_phase = time.perf_counter()
+    scene = os.path.join(work, "scene")
+    syn = os.path.join(work, "results", "engine", "test_train_3")
+    reset_counts()
+    out = {"warp": _warp_phase(scene, syn, dev, card)}
+
+    def topt(name, *extra):
+        return parse_options("train", refine_argv(scene, syn, work, name,
+                                                  "train", *extra))
+
+    # the unbroken run, timed by the engine
+    timings = {}
+    t0 = time.perf_counter()
+    whole = engine.train_refine(topt("u", "--n_epochs", "3"),
+                                timings=timings)
+    run_s = time.perf_counter() - t0
+    if whole.step != 3 * REFINE_STEPS:
+        fail(f"the unbroken refine run ended at step {whole.step}")
+    epoch_ms = [timings["epoch_s"][e] / REFINE_STEPS * 1e3
+                for e in (1, 2, 3)]
+    # 2 epochs, then a resume to 3
+    engine.train_refine(topt("r", "--n_epochs", "2"))
+    resumed = engine.train_refine(topt("r", "--n_epochs", "3",
+                                       "--continue_train"))
+    got, want = _refine_tensors(resumed), _refine_tensors(whole)
+    if resumed.step != whole.step or got.keys() != want.keys() or \
+            not all(torch.equal(got[k], want[k]) for k in want):
+        fail("refine: the run resumed at epoch 2 differs from the "
+             "unbroken run")
+    print(f"[refine] resume: 2 epochs, then --continue_train to 3: "
+          f"{len(want)} parameter, statistic and Adam tensors equal the "
+          "unbroken run's bit for bit")
+
+    # a fixed batch's l1, fresh network against the trained one
+    opt = topt("u", "--n_epochs", "3")
+    system = create_model(opt, device=dev)
+    buffers = system.upload_buffers(
+        create_dataset(opt, "train").device_buffers())
+    batch = system.sample_patch_batch(
+        buffers, torch.Generator(device=dev).manual_seed(3))
+    fresh = system.create_state(seed=opt.seed, steps_per_epoch=1)
+    l1 = [float(torch.mean(torch.abs(system.predict(
+        s, batch["sr_patch"], batch["ref_patches"]) - batch["gt_patch"])))
+        for s in (fresh, whole)]
+    l1_input = float(torch.mean(torch.abs(batch["sr_patch"]
+                                          - batch["gt_patch"])))
+    if not l1[1] < REFINE_FALL * l1[0]:
+        fail(f"refine: l1 on a fixed batch {l1[0]:.4f} -> {l1[1]:.4f}")
+    step_err = _step_vs_cpu(opt, dev, buffers)
+
+    # ms/step: the UNet in a timed window, then maxpoolingmodel
+    unet_ms = _timed_steps(system, fresh, buffers, dev)
+    nets = {"unet": unet_ms}
+    for name, extra in (("maxpool", []), ("maxpool_no_ref",
+                                          ["--not_use_ref"])):
+        mopt = topt("m", "--refine_network", "maxpoolingmodel", *extra)
+        msys = create_model(mopt, device=dev)
+        mstate = msys.create_state(seed=mopt.seed, steps_per_epoch=1)
+        nets[name] = _timed_steps(msys, mstate, buffers, dev, steps=10)
+        del msys, mstate
+        torch.cuda.empty_cache()
+    bs = opt.batch_size
+    for name, ms in nets.items():
+        print(f"[refine] {name}: {ms:.2f} ms/step, {bs / ms * 1e3:.0f} "
+              f"patches/s (batch {bs}, {opt.patch_len} px, train_steps, host "
+              f"clock to a synchronize) on {card}")
+    epochs = ", ".join(f"{m:.2f}" for m in epoch_ms)
+    print(f"[refine] train_refine epochs {epochs} ms/step ({REFINE_STEPS} "
+          f"steps with their val_iter; the epoch's save and val pass "
+          f"outside); the run {run_s:.1f} s with the augmentation; l1 on a "
+          f"fixed batch "
+          f"{l1[0]:.4f} -> {l1[1]:.4f} (the input's {l1_input:.4f}); "
+          f"one step card vs CPU: loss {step_err['loss_rel']:.2e}, "
+          f"statistics {step_err['stats_abs']:.2e}, gradient leaves "
+          f"{step_err['max_card_vs_cpu']:.2e} (worst); from the f64 step "
+          f"the card {step_err['max_card_vs_f64']:.2e}, the CPU "
+          f"{step_err['max_cpu_vs_f64']:.2e} (worst leaves); on {card}")
+
+    # test_refine, against a direct refine_image
+    tst = parse_options("test", refine_argv(
+        scene, syn, work, "u", "test", "--test_split", "test_train",
+        "--load_epoch", "3"))
+    test_t = {}
+    out_dir = engine.test_refine(tst, timings=test_t)
+    tsys = create_model(tst, device=dev)
+    state = tsys.create_state(seed=0, steps_per_epoch=1)
+    ckpt.load_checkpoint(tst, state, epoch=3, params_only=True)
+    dataset = create_dataset(tst, "test_train")
+    w, h = HR_WH
+    for i in range(dataset.n_images()):
+        refined, _, _ = tsys.refine_image(state, dataset.tiles_for_image(i))
+        panel = png.read_rgb(os.path.join(out_dir,
+                                          f"{i}-sr-refine.png"))[:, w:2 * w]
+        if not np.array_equal(panel, _to_uint8(refined, (-1, 1))):
+            fail(f"{i}-sr-refine.png's refined panel differs from "
+                 "refine_image")
+    ms_image = test_t["seconds"] / test_t["images"] * 1e3
+    ms_render = (test_t["seconds"] - test_t["write_s"]) / test_t[
+        "images"] * 1e3
+    if any(COUNTS.values()):
+        fail(f"the refine path launched port kernels: {dict(COUNTS)}")
+    print(f"[refine] test_refine: {test_t['images']} images {w}x{h}, "
+          f"{ms_image:.1f} ms/image with the writes, {ms_render:.1f} "
+          f"without; stitched panels equal refine_image's; on {card}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(out_dir, "0-sr-refine.png"), "rb") as src, \
+            open(os.path.join(OUT_DIR, "refine_0-sr-refine.png"),
+                 "wb") as dst:
+        dst.write(src.read())
+    out.update(train_epoch_ms_per_step=epoch_ms, run_s=run_s,
+               ms_per_step={k: v for k, v in nets.items()},
+               patches_per_s={k: bs / v * 1e3 for k, v in nets.items()},
+               l1_fixed_batch=l1, l1_input=l1_input,
+               step_vs_cpu=step_err, resume_tensors_equal=len(want),
+               test_ms_per_image=ms_image,
+               test_render_ms_per_image=ms_render,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1518,6 +1833,7 @@ def main():
         datasets_out = datasets_phase(dev, card, work,
                                       os.path.join(work, "scene"))
         datasets_out["phase_s"] = time.perf_counter() - t0
+        refine_out = refine_phase(dev, card, work)
 
     # launches: the timed training window, which runs all five kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1566,6 +1882,7 @@ def main():
                                  "engine": engine_out,
                                  "new_shapes": new_shapes,
                                  "datasets": datasets_out,
+                                 "refine": refine_out,
                                  "card": card}})
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         f.write(detail + "\n")

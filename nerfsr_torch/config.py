@@ -18,7 +18,11 @@ The JAX package's TPU-only flags (``--use_pallas*``, ``--pallas_mlp_bwd``,
 ignored: on CUDA the kernels run wherever their JAX counterparts could.
 Flags of paths the port does not cover yet (``--with_ref``,
 ``--with_netD``, ``--reg_patch``, ``--patch_size``, ``--mesh_devices``)
-are accepted so that the engine can refuse them by name.
+are accepted so that the engine can refuse them by name. The refine
+stage's flags (the refine model, ``llff_refine`` dataset and network
+options) keep the JAX package's names and defaults too;
+``--refine_as_gan`` and ``--refine_with_vgg`` are accepted so that the
+refine system can refuse them by name.
 """
 
 from __future__ import annotations
@@ -204,6 +208,43 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     # ---- blender_downX dataset options ----
     p.add_argument("--rand_dir", action="store_true",
                    help="a random offset within each pixel for its ray")
+
+    # ---- refine model options ----
+    p.add_argument("--refine_network", type=str, default="unetgenerator")
+    p.add_argument("--refine_with_mse", action="store_true")
+    p.add_argument("--refine_with_l1", action="store_true")
+    p.add_argument("--refine_with_vgg", action="store_true")
+    p.add_argument("--refine_with_grad", action="store_true")
+    p.add_argument("--lambda_refine_vgg", type=float, default=1.0)
+    p.add_argument("--lambda_refine_l1", type=float, default=1.0)
+    p.add_argument("--lambda_refine_mse", type=float, default=10.0)
+    p.add_argument("--lambda_refine_grad", type=float, default=1.0)
+    p.add_argument("--refine_as_gan", action="store_true")
+    p.add_argument("--vgg_weights", type=str, default=None)
+    p.add_argument("--patch_len", type=int, default=32)
+
+    # ---- llff_refine dataset options ----
+    p.add_argument("--syn_dataroot", type=str, default=None)
+    p.add_argument("--ref_idx", type=int, default=0)
+    p.add_argument("--aug_num", type=int, default=200)
+    p.add_argument("--distort_scale", type=float, default=0.3)
+    p.add_argument("--num_ref_patches", type=int, default=8)
+    p.add_argument("--with_gt_patch", action="store_true")
+    p.add_argument("--ref_offset", type=int, default=64)
+    p.add_argument("--data_num", type=int, default=500000)
+    p.add_argument("--test_img_split", type=int, default=4)
+
+    # ---- refine network options ----
+    p.add_argument("--learn_residual", action="store_true")
+    p.add_argument("--input_nc", type=int, default=27,
+                   help="UNet input channels; must equal "
+                        "3*(1+num_ref_patches)")
+    p.add_argument("--output_nc", type=int, default=3)
+    p.add_argument("--norm", type=str, default="batch",
+                   help="batch, instance, or anything else for none")
+    p.add_argument("--ngf", type=int, default=64)
+    p.add_argument("--num_downs", type=int, default=6)
+    p.add_argument("--not_use_ref", action="store_true")
 
     # ---- accepted and ignored (TPU-only in the JAX package) ----
     p.add_argument("--use_pallas", action="store_true")

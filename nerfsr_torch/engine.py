@@ -18,10 +18,23 @@ views). ``test`` renders ``--test_split`` from a checkpoint into
 ``{i}-fine-depth[-ori].npz`` depth maps with their PNGs, and a GIF per
 strip kind.
 
+The refine stage: ``train_refine`` uploads the ``llff_refine``
+dataset's augmented image stacks to the card once and runs chunks of
+``RefineSystem.train_steps`` (patches cut on the card) that end at the
+``--log_every`` (else ``--print_freq``) and ``--val_freq`` cadences and
+at the epoch's end, each seeded from ``(--seed, step)`` like the NeRF
+chunks, so a ``--continue_train`` resume is the unbroken run bit for
+bit; it validates one patch every ``--val_freq`` steps (writing its
+strip every ``--vis_freq``), saves every ``--save_epoch_freq`` epochs and
+validates every image every ``--val_epoch_freq``. ``test_refine`` tiles,
+refines and stitches each image of ``--test_split`` from a checkpoint
+into ``{results_dir}/{name}/{split}_{epoch}/{i}-sr-refine.png`` ([SR |
+refined | truth]) and prints the mean SSIM/PSNR of input and output.
+
 Paths the port does not cover yet raise ``NotImplementedError`` naming
 their ``ROADMAP.md`` item: patch mode (``--patch_size`` > 1),
-``--with_ref``, ``--with_netD``, ``--reg_patch`` and ``--mesh_devices``
-> 1.
+``--with_ref``, ``--with_netD``, ``--reg_patch``, ``--mesh_devices``
+> 1, ``--refine_as_gan`` and ``--refine_with_vgg``.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import numpy as np
 import torch
 
 from nerfsr_torch.data import create_dataset
-from nerfsr_torch.models import create_model
+from nerfsr_torch.models import create_model, refine_system
 from nerfsr_torch.utils import checkpoint as ckpt
 from nerfsr_torch.utils.visualizer import (MetricsWriter, Visualizee,
                                            save_visuals)
@@ -50,7 +63,8 @@ def _refuse_unported(opt):
         (opt.with_netD, "--with_netD", aux),
         (opt.reg_patch, "--reg_patch", aux),
         (opt.mesh_devices > 1, "--mesh_devices > 1", "3, distributed"),
-    ]
+    ] + [(getattr(opt, flag), what, item)
+         for flag, what, item in refine_system.UNPORTED]
     for hit, what, item in refusals:
         if hit:
             raise NotImplementedError(f"{what} {_ROADMAP.format(item)}")
@@ -353,4 +367,143 @@ def test(opt, timings=None):
         timings.update(seconds=end - t0, write_s=write_s + end - t_write,
                        views=len(dataset))
     print(f"[test] wrote {n_written + len(gifs)} artifacts to {out_dir}")
+    return out_dir
+
+
+# ---------------------------------------------------------------------------
+# the refine stage
+# ---------------------------------------------------------------------------
+
+def _refine_strip(batch, pred):
+    """[SR | refined | truth] of a val patch triple, in (-1, 1)."""
+    return np.concatenate([batch["sr_patch"][0], pred[0],
+                           batch["gt_patch"][0]], axis=1)
+
+
+def train_refine(opt, timings=None):
+    """The refine stage's training loop; ``timings``, when a dict,
+    receives each epoch's host seconds under ``"epoch_s"`` (ending in the
+    last chunk's loss read, which waits for the card) and
+    ``steps_per_epoch``."""
+    system = setup(opt)
+    if system.device.type == "cuda":
+        # deterministic cuDNN algorithms: a resumed run is the unbroken
+        # run bit for bit
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    writer = MetricsWriter(opt.summary_dir, opt.name)
+    dataset = create_dataset(opt, "train")
+    steps_per_epoch = opt.steps_per_epoch or max(
+        1, len(dataset) // opt.batch_size)
+    state = system.create_state(seed=opt.seed,
+                                steps_per_epoch=steps_per_epoch)
+    val_ds = None
+    try:
+        val_ds = create_dataset(opt, "val")
+    except (ValueError, KeyError, OSError) as e:
+        print(f"[refine] no val split: {e}")
+    start_epoch = ckpt.resume_if_requested(opt, state)
+    if start_epoch:
+        print(f"[refine] resumed from epoch {start_epoch} at step "
+              f"{state.step}")
+    buffers = system.upload_buffers(dataset.device_buffers())
+    print(f"[refine] {len(dataset.sr_imgs)} augmented views "
+          f"{opt.img_wh[0]}x{opt.img_wh[1]} on {system.device}, "
+          f"{steps_per_epoch} steps/epoch, {opt.n_epochs} epochs")
+    gen = torch.Generator(device=system.device)
+    log_every = opt.log_every or opt.print_freq
+    val_freq = opt.val_freq
+    val_counter = 0
+    if timings is not None:
+        timings.update(epoch_s={}, steps_per_epoch=steps_per_epoch)
+
+    for epoch in range(start_epoch + 1, opt.n_epochs + 1):
+        t_epoch = time.perf_counter()
+        left = steps_per_epoch
+        while left > 0:
+            # the chunk ends at the next log or val step, or the epoch's end
+            k = min([left] + [f - state.step % f for f in
+                              (log_every, val_freq) if f > 0])
+            _seed_chunk(gen, opt.seed, state.step)
+            state, losses = system.train_steps(state, buffers, k, gen)
+            left -= k
+            scal = _read(losses)
+            step = state.step
+            if log_every > 0 and step % log_every == 0:
+                writer.add_scalars(scal, step, prefix="train/")
+                print(f"[e{epoch} s{step}] {_fmt(scal)}")
+            if val_ds is not None and val_freq > 0 and step % val_freq == 0:
+                batch = val_ds.sample_val_item(val_counter)
+                val_counter += 1
+                pred, m = system.validate_item(state, batch)
+                writer.add_scalars(m, step, prefix="val_iter/")
+                print(f"[val_iter s{step}] {_fmt(m)}")
+                if opt.vis_freq > 0 and step % opt.vis_freq == 0:
+                    save_visuals([Visualizee(
+                        "image", _refine_strip(batch, pred),
+                        name=f"s{step}-sr-refine-gt", range=(-1, 1))],
+                        _vis_dir(opt, epoch, "iter"))
+        seconds = time.perf_counter() - t_epoch
+        if timings is not None:
+            timings["epoch_s"][epoch] = seconds
+        print(f"[refine] epoch {epoch} done in {seconds:.1f}s "
+              f"({seconds / steps_per_epoch * 1e3:.2f} ms/step)")
+        if ((opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0)
+                or epoch == opt.n_epochs):
+            print(f"[refine] saved {ckpt.save_checkpoint(opt, state, epoch)}")
+        if val_ds is not None and opt.val_epoch_freq and \
+                (epoch % opt.val_epoch_freq == 0 or epoch == opt.n_epochs):
+            metrics, visuals = [], []
+            for i in range(max(1, val_ds.n_images())):
+                batch = val_ds.sample_val_item(i)
+                pred, m = system.validate_item(state, batch)
+                metrics.append(m)
+                visuals.append(Visualizee(
+                    "image", _refine_strip(batch, pred),
+                    name=f"{i}-sr-refine-gt", range=(-1, 1)))
+            agg = {k: float(np.mean([m[k] for m in metrics]))
+                   for k in metrics[0]}
+            writer.add_scalars(agg, state.step, prefix="val/")
+            save_visuals(visuals, _vis_dir(opt, epoch, "val"))
+            print(f"[refine val e{epoch}] {_fmt(agg)}")
+    writer.close()
+    return state
+
+
+def test_refine(opt, timings=None):
+    """Refine and stitch every image of ``--test_split`` from checkpoint
+    ``--load_epoch``; each ``{i}-sr-refine.png`` strip is written as its
+    image is done. Returns the directory. ``timings``, when a dict,
+    receives the host seconds of the loop, the part of them spent
+    building and writing the strips, and the image count."""
+    system = setup(opt)
+    dataset = create_dataset(opt, opt.test_split)
+    state = system.create_state(seed=0, steps_per_epoch=1)
+    ckpt.load_checkpoint(opt, state, epoch=opt.load_epoch,
+                         params_only=True)
+    out_dir = os.path.join(opt.results_dir, opt.name,
+                           f"{opt.test_split}_{opt.load_epoch}")
+    t0 = time.perf_counter()
+    metrics, write_s = [], 0.0
+    n = dataset.n_images()
+    for i in range(n):
+        refined, sr_img, gt_img = system.refine_image(
+            state, dataset.tiles_for_image(i))
+        t_write = time.perf_counter()
+        parts = [sr_img, refined] + ([gt_img] if gt_img is not None else [])
+        save_visuals([Visualizee("image", np.concatenate(parts, axis=1),
+                                 name=f"{i}-sr-refine", range=(-1, 1))],
+                     out_dir)
+        write_s += time.perf_counter() - t_write
+        if gt_img is not None:
+            metrics.append(system.eval_image_metrics(refined, sr_img,
+                                                     gt_img))
+    if timings is not None:
+        timings.update(seconds=time.perf_counter() - t0, write_s=write_s,
+                       images=n)
+    if metrics:
+        agg = {k: float(np.mean([m[k] for m in metrics]))
+               for k in metrics[0]}
+        print(f"[test_refine] {_fmt(agg)}")
+    print(f"[test_refine] wrote {n} artifacts to {out_dir}")
     return out_dir

@@ -16,7 +16,8 @@ def create_model(opt, device=None):
     """Build the system ``opt.model`` names, on ``device`` (default cuda;
     raises without a card unless ``device="cpu"``)."""
     # importing the modules registers them
-    from nerfsr_torch.models import nerf_downx_system, nerf_system  # noqa
+    from nerfsr_torch.models import (nerf_downx_system,  # noqa: F401
+                                     nerf_system, refine_system)
     if opt.model not in _MODELS:
         raise KeyError(f"model {opt.model!r} is not ported yet; ported: "
                        f"{sorted(_MODELS)}")

@@ -2,7 +2,8 @@
 
 Port of ``nerfsr_tpu/models/criterions.py``: ``psnr``, ``_outer_mass`` and
 ``interlevel_loss`` (the proposal histogram bound of ``--fast_sampling``),
-and ``ssim``.
+``ssim``, and the refine stage's ``l1``, ``image_gradients`` and
+``gradient_loss`` (NHWC images).
 The JAX package counts histogram edges by an all-pairs comparison; on
 sorted edges that count is ``torch.searchsorted`` (``right=True`` for
 ``<=``, ``right=False`` for ``<``), which gives the same indices at ties.
@@ -19,6 +20,30 @@ def psnr(pred, target, valid_mask=None):
     if valid_mask is not None:
         err = err[valid_mask]
     return -10.0 * torch.log10(torch.mean(err))
+
+
+def l1(pred, target):
+    """Mean absolute error."""
+    return torch.mean(torch.abs(pred - target))
+
+
+def image_gradients(img):
+    """Forward differences of (N, H, W, C) images, zero-padded at the far
+    edge: (dy, dx), each of the image's shape."""
+    dy = img[:, 1:] - img[:, :-1]
+    dx = img[:, :, 1:] - img[:, :, :-1]
+    dy = torch.cat([dy, torch.zeros_like(img[:, :1])], 1)
+    dx = torch.cat([dx, torch.zeros_like(img[:, :, :1])], 2)
+    return dy, dx
+
+
+def gradient_loss(pred, target):
+    """Mean L1 between the images' gradients, x and y terms summed and
+    halved."""
+    pdy, pdx = image_gradients(pred)
+    tdy, tdx = image_gradients(target)
+    return (torch.mean(torch.abs(pdx - tdx))
+            + torch.mean(torch.abs(pdy - tdy))) / 2
 
 
 def _outer_mass(t_q, t_env, w_env):

@@ -3,6 +3,8 @@
     python -m nerfsr_torch.profile_slice [--views 2] [--top 15]
     python -m nerfsr_torch.profile_slice --train [--steps 10] [--top 25]
     python -m nerfsr_torch.profile_slice --train --preset parity
+    python -m nerfsr_torch.profile_slice --refine [--refine_network
+        maxpoolingmodel]
 
 Serving (default): renders 504x378 NeRF-SR x2 views (``--fast_preset
 llff``, or ``parity`` with ``--preset``; mixed precision, full-width
@@ -10,7 +12,13 @@ MLP, random weights from a seed)
 through ``render_eval_many`` after one warm-up view. ``--train``: trains
 a seed-0 student on a teacher scene the port renders itself (2 views,
 ``--batch_size 512`` LR pixels, 2048 HR rays a step) for ``--steps``
-steps after 3 warm-up steps. Both run under ``torch.profiler`` and print
+steps after 3 warm-up steps. ``--refine``: the refine stage's step
+(``scripts/train_llff_refine.sh``: 32 patches of 64 px, the UNet at ngf 64
+or ``--refine_network``, l1) on 20 random 504x378 views, with cuDNN's
+deterministic algorithms as ``train_refine`` runs it, in f32 as
+``chip_smoke.py`` runs it (``--allow_tf32``: TF32 convolutions,
+PyTorch's default for cuDNN). Each runs under
+``torch.profiler`` and prints
 the device time by kernel name, the device time per image or step, the
 wall time per image or step and the device's busy share (device time /
 wall time). Needs a CUDA card.
@@ -77,10 +85,44 @@ def _training(args):
     return run, args.steps, "step"
 
 
+def _refine(args):
+    """(run, units, unit name): ``--steps`` refine steps."""
+    import numpy as np
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.models import create_model
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = args.allow_tf32
+    opt = default_options("train", model="refine",
+                          dataset_mode="llff_refine", img_wh=HR_WH,
+                          batch_size=32, refine_with_l1=True,
+                          refine_network=args.refine_network)
+    system = create_model(opt, device="cuda")
+    rng = np.random.RandomState(0)
+    w, h = HR_WH
+    views = rng.rand(20, h, w, 3).astype(np.float32) * 2 - 1
+    buffers = system.upload_buffers({
+        "sr_imgs": views, "gt_imgs": views, "gt_img": views[0],
+        "bboxes": np.tile(np.array([0, 0, w, h], np.int32), (20, 1))})
+    state = system.create_state(seed=0, steps_per_epoch=1000)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    system.train_steps(state, buffers, 3, gen)
+
+    def run():
+        system.train_steps(state, buffers, args.steps, gen)
+    return run, args.steps, "step"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile training steps instead of serving")
+    ap.add_argument("--refine", action="store_true",
+                    help="profile the refine stage's training steps")
+    ap.add_argument("--refine_network", default="unetgenerator",
+                    choices=["unetgenerator", "maxpoolingmodel"])
+    ap.add_argument("--allow_tf32", action="store_true",
+                    help="--refine: TF32 convolutions")
     ap.add_argument("--views", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
@@ -96,7 +138,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    run, units, unit = (_training if args.train else _serving)(args)
+    run, units, unit = (_refine if args.refine else
+                        _training if args.train else _serving)(args)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,

@@ -17,6 +17,10 @@ and ``nu`` are ``{}``. Kernels are transposed into ``Linear.weight`` as
 ``nerfsr_torch/weights.py`` does; ``mu``/``nu`` go into torch Adam's
 ``exp_avg``/``exp_avg_sq`` with the same transform, Adam's ``count``
 becomes each parameter's ``step``, and ``TrainState.step`` the step.
+The refine stage's ``RefineState`` is ``{"step", "params",
+"batch_stats", "opt_state": {"0": adam, "1": schedule}}``, its
+variables and moments in flax's layout (``weights.variable_leaves``:
+convolutions HWIO, transposed ones (kh, kw, in, out) flipped).
 
 Files are ``{checkpoints_dir}/{name}/{epoch}_state.msgpack`` plus
 ``latest_state.msgpack``, each written to a temporary file, fsynced and
@@ -35,9 +39,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerfsr_torch.models.refine_system import RefineState
 from nerfsr_torch.utils import msgpack
-from nerfsr_torch.weights import (from_jax_layout, param_leaves,
-                                  to_jax_layout)
+from nerfsr_torch.weights import (flatten_tree, from_flax_layout,
+                                  from_jax_layout, load_variables,
+                                  param_leaves, to_flax_layout,
+                                  to_jax_layout, tree_get, tree_set,
+                                  variable_leaves)
 
 
 def _ckpt_dir(opt, name=None):
@@ -70,37 +78,11 @@ def frozen_paths(opt, params: nn.ModuleDict) -> set:
 # state dict <-> TrainState
 # ---------------------------------------------------------------------------
 
-def _set(tree: dict, path: str, value):
-    keys = path.split("/")
-    for k in keys[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[keys[-1]] = value
-
-
-def _get(tree, path: str, what: str):
-    for k in path.split("/"):
-        if not isinstance(tree, dict) or k not in tree:
-            raise KeyError(f"{what}: no entry {path!r} in the checkpoint")
-        tree = tree[k]
-    return tree
-
-
 def _sorted_tree(tree):
     """Nested dicts with sorted keys (the order JAX's tree maps leave)."""
     if isinstance(tree, dict):
         return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
     return tree
-
-
-def _flatten(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}" if prefix else k
-        if isinstance(v, dict) and v:
-            out.update(_flatten(v, path))
-        else:
-            out[path] = v
-    return out
 
 
 def _chain_keys(opt) -> Tuple[list, str, str]:
@@ -109,22 +91,76 @@ def _chain_keys(opt) -> Tuple[list, str, str]:
     return keys, keys[-2], keys[-1]
 
 
+def _refine_state_dict(state) -> Dict[str, Any]:
+    """The JAX ``RefineState`` state dict of a ``RefineState``."""
+    count = np.asarray(state.step, np.int32)
+    tree = {"params": {}, "batch_stats": {}}
+    mu, nu = {}, {}
+    for coll, path, t, layout in variable_leaves(state.net):
+        tree_set(tree[coll], path, to_flax_layout(t, layout))
+        if coll != "params":
+            continue
+        moments = state.optimizer.state.get(t, {})
+        for moms, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            tree_set(moms, path, to_flax_layout(moments[key], layout)
+                     if key in moments else np.zeros_like(
+                         to_flax_layout(t, layout)))
+    return {"step": count, "params": _sorted_tree(tree["params"]),
+            "batch_stats": _sorted_tree(tree["batch_stats"]),
+            "opt_state": {"0": {"count": count, "mu": _sorted_tree(mu),
+                                "nu": _sorted_tree(nu)},
+                          "1": {"count": count}}}
+
+
+@torch.no_grad()
+def _load_refine_state_dict(state, sd: Dict[str, Any], params_only: bool):
+    """Load a JAX ``RefineState`` state dict into a ``RefineState``: the
+    network's variables and the step, and (unless ``params_only``) the
+    Adam moments and counts."""
+    if "batch_stats" not in sd:
+        raise ValueError("not a RefineState checkpoint (no batch_stats)")
+    load_variables(state.net, {"params": sd["params"],
+                               "batch_stats": sd["batch_stats"]})
+    state.step = int(sd["step"])
+    if params_only:
+        return state
+    chain = sd["opt_state"]
+    if sorted(chain) != ["0", "1"]:
+        raise ValueError(f"optimizer chain entries {sorted(chain)}, "
+                         "expected ['0', '1'] (adam, schedule)")
+    adam = chain["0"]
+    counts = {state.step, int(adam["count"]), int(chain["1"]["count"])}
+    if len(counts) != 1:
+        raise ValueError(f"step and optimizer counts disagree: {counts}")
+    for coll, path, t, layout in variable_leaves(state.net):
+        if coll == "params":
+            mu, nu = (tree_get(adam[k], path, k) for k in ("mu", "nu"))
+            state.optimizer.state[t] = {
+                "step": torch.tensor(float(state.step), dtype=torch.float32),
+                "exp_avg": from_flax_layout(mu, t, layout, path),
+                "exp_avg_sq": from_flax_layout(nu, t, layout, path)}
+    return state
+
+
 def state_dict(opt, state) -> Dict[str, Any]:
-    """The JAX ``TrainState`` state dict of ``state`` (host arrays)."""
+    """The JAX ``TrainState`` state dict of ``state`` (host arrays); of a
+    ``RefineState``, the JAX ``RefineState``'s."""
+    if isinstance(state, RefineState):
+        return _refine_state_dict(state)
     frozen = frozen_paths(opt, state.params)
     count = np.asarray(state.step, np.int32)
     params, mu, nu = {}, {}, {}
     for path, p, is_kernel in param_leaves(state.params):
-        _set(params, path, to_jax_layout(p, is_kernel))
+        tree_set(params, path, to_jax_layout(p, is_kernel))
         if path in frozen:
-            _set(mu, path, {})
-            _set(nu, path, {})
+            tree_set(mu, path, {})
+            tree_set(nu, path, {})
             continue
         moments = state.optimizer.state.get(p, {})
         for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-            _set(tree, path, to_jax_layout(moments[key], is_kernel)
-                 if key in moments else np.zeros_like(
-                     to_jax_layout(p, is_kernel)))
+            tree_set(tree, path, to_jax_layout(moments[key], is_kernel)
+                     if key in moments else np.zeros_like(
+                         to_jax_layout(p, is_kernel)))
     keys, adam, sched = _chain_keys(opt)
     chain = {k: {} for k in keys}
     chain[adam] = {"count": count, "mu": _sorted_tree(mu),
@@ -141,16 +177,20 @@ def load_state_dict(opt, state, sd: Dict[str, Any],
                     params_only: bool = False):
     """Load a JAX ``TrainState`` state dict into ``state`` in place:
     parameters, Adam moments and step counts, and ``state.step``
-    (``params_only``: the parameters and the step)."""
+    (``params_only``: the parameters and the step). A ``RefineState``
+    takes a ``RefineState`` dict; ``params_only`` loads its batch
+    statistics too."""
+    if isinstance(state, RefineState):
+        return _load_refine_state_dict(state, sd, params_only)
     params_sd = sd["params"]
     port = {path for path, _, _ in param_leaves(state.params)}
-    saved = set(_flatten(params_sd))
+    saved = set(flatten_tree(params_sd))
     if port != saved:
         raise KeyError(f"parameter leaves differ: only in the port "
                        f"{sorted(port - saved)}, only in the checkpoint "
                        f"{sorted(saved - port)}")
     for path, p, is_kernel in param_leaves(state.params):
-        p.copy_(from_jax_layout(_get(params_sd, path, "params"), p,
+        p.copy_(from_jax_layout(tree_get(params_sd, path, "params"), p,
                                 is_kernel, path))
     state.step = int(sd["step"])
     if params_only:
@@ -181,10 +221,10 @@ def load_state_dict(opt, state, sd: Dict[str, Any],
             raise ValueError(f"{path}: not in the optimizer")
         state.optimizer.state[p] = {
             "step": torch.tensor(float(step), dtype=torch.float32),
-            "exp_avg": from_jax_layout(_get(adam["mu"], path, "mu"), p,
-                                       is_kernel, path),
-            "exp_avg_sq": from_jax_layout(_get(adam["nu"], path, "nu"), p,
-                                          is_kernel, path)}
+            "exp_avg": from_jax_layout(tree_get(adam["mu"], path, "mu"),
+                                       p, is_kernel, path),
+            "exp_avg_sq": from_jax_layout(tree_get(adam["nu"], path, "nu"),
+                                          p, is_kernel, path)}
     return state
 
 
@@ -225,9 +265,10 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
             "the port reads msgpack checkpoints only")
     with open(path, "rb") as f:
         sd = msgpack.unpackb(f.read())
-    if not isinstance(sd, dict) or set(sd) != {"step", "params",
-                                               "opt_state"}:
-        raise ValueError(f"{path} is not a TrainState checkpoint")
+    if not isinstance(sd, dict) or set(sd) - {"batch_stats"} != {
+            "step", "params", "opt_state"}:
+        raise ValueError(f"{path} is not a TrainState or RefineState "
+                         "checkpoint")
     return sd
 
 
@@ -299,7 +340,7 @@ def init_weights_from(opt, state):
     if not opt.init_weights:
         return state
     name, _, epoch = opt.init_weights.partition(":")
-    other = _flatten(read_checkpoint(
+    other = flatten_tree(read_checkpoint(
         _path(opt, epoch or "latest", name))["params"])
     pattern = re.compile(opt.init_weights_keys)
     for path, p, is_kernel in param_leaves(state.params):

@@ -12,6 +12,13 @@ port's ``VanillaMLP`` and ``ProposalMLP`` use as attribute names.
 names each parameter by its JAX tree path (``fine/params/rgb/kernel``),
 which checkpoints and the ``--fix_layers``/``--init_weights_keys``
 regexes read.
+
+The refine networks (``models/networks.py``) cross with their flax
+variables, ``{"params", "batch_stats"}``: ``variable_leaves`` names each
+tensor by its flax path, ``export_variables`` and ``load_variables`` map
+the whole tree (convolutions HWIO <-> OIHW; transposed convolutions
+(kh, kw, in, out) <-> (in, out, kh, kw) with both spatial axes flipped;
+batch norm's ``scale``, ``bias``, ``mean`` and ``var`` as they are).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Any, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from nerfsr_torch.models.networks import BatchNorm
 
 
 def param_leaves(params: nn.ModuleDict
@@ -98,3 +107,114 @@ def export_params(params: nn.ModuleDict):
         for name, lin in module.named_children()
         if isinstance(lin, nn.Linear)}}
         for key, module in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# the refine networks: flax variables {"params", "batch_stats"}
+# ---------------------------------------------------------------------------
+
+def variable_leaves(net: nn.Module
+                    ) -> Iterator[Tuple[str, str, torch.Tensor, str]]:
+    """(collection, flax path, tensor, layout) for every variable of a
+    refine network (``models/networks.py``), the path being the module's
+    (``down_norm_1/BatchNorm_0/scale``). Layouts: ``conv`` (OIHW here,
+    HWIO in flax), ``conv_transpose`` ((in, out, kh, kw) here, (kh, kw,
+    in, out) in flax with both spatial axes flipped) and ``vector``."""
+    for name, m in net.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            layout = "conv_transpose" if isinstance(
+                m, nn.ConvTranspose2d) else "conv"
+            yield "params", f"{path}/kernel", m.weight, layout
+            if m.bias is not None:
+                yield "params", f"{path}/bias", m.bias, "vector"
+        elif isinstance(m, BatchNorm):
+            yield "params", f"{path}/scale", m.scale, "vector"
+            yield "params", f"{path}/bias", m.bias, "vector"
+            yield "batch_stats", f"{path}/mean", m.mean, "vector"
+            yield "batch_stats", f"{path}/var", m.var, "vector"
+
+
+def to_flax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
+    """A refine network's tensor as its flax array (an f32, C-contiguous
+    copy: it does not follow later updates of the tensor)."""
+    t = t.detach().float().cpu()
+    if layout == "conv":
+        t = t.permute(2, 3, 1, 0)
+    elif layout == "conv_transpose":
+        t = t.flip(2, 3).permute(2, 3, 0, 1)
+    return np.array(t.numpy(), order="C", copy=True)
+
+
+def from_flax_layout(arr, like: torch.Tensor, layout: str, what: str
+                     ) -> torch.Tensor:
+    """Inverse of ``to_flax_layout`` onto ``like``'s shape, dtype and
+    device; the shape must match."""
+    t = torch.from_numpy(np.array(arr, np.float32))
+    if layout == "conv":
+        t = t.permute(3, 2, 0, 1)
+    elif layout == "conv_transpose":
+        t = t.permute(2, 3, 0, 1).flip(2, 3)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)} (port layout), "
+                         f"expected {tuple(like.shape)}")
+    return t.contiguous().to(device=like.device, dtype=like.dtype)
+
+
+def tree_set(tree: dict, path: str, value):
+    """Set the leaf at ``a/b/c`` of nested dicts, making the dicts."""
+    keys = path.split("/")
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = value
+
+
+def tree_get(tree, path: str, what: str):
+    """The leaf at ``a/b/c`` of nested dicts; ``KeyError`` naming
+    ``what`` when it is missing."""
+    for k in path.split("/"):
+        if not isinstance(tree, Mapping) or k not in tree:
+            raise KeyError(f"{what}: no entry {path!r}")
+        tree = tree[k]
+    return tree
+
+
+def flatten_tree(tree, prefix=""):
+    """{``a/b/c``: leaf} of nested dicts (an empty dict is a leaf)."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping) and v:
+            out.update(flatten_tree(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+@torch.no_grad()
+def export_variables(net: nn.Module) -> dict:
+    """A refine network's flax variables, ``{"params": ...,
+    "batch_stats": ...}`` as nested dicts of numpy arrays
+    (``batch_stats`` is ``{}`` without batch norm)."""
+    out = {"params": {}, "batch_stats": {}}
+    for coll, path, t, layout in variable_leaves(net):
+        tree_set(out[coll], path, to_flax_layout(t, layout))
+    return out
+
+
+@torch.no_grad()
+def load_variables(net: nn.Module, variables: Mapping[str, Any]):
+    """Load flax variables (``params`` and, with batch norm,
+    ``batch_stats``) into a refine network; every variable must be
+    covered and every entry used."""
+    for coll in ("params", "batch_stats"):
+        port = {path for c, path, _, _ in variable_leaves(net) if c == coll}
+        saved = set(flatten_tree(variables.get(coll, {})))
+        if port != saved:
+            raise KeyError(f"{coll} differ: only in the port "
+                           f"{sorted(port - saved)}, only in the variables "
+                           f"{sorted(saved - port)}")
+    for coll, path, t, layout in variable_leaves(net):
+        t.copy_(from_flax_layout(tree_get(variables[coll], path, coll), t,
+                                 layout, path))
+    return net

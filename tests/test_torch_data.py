@@ -422,13 +422,13 @@ def test_dataset_refuses_what_is_not_ported(scene):
             create_dataset(opt, mode)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLFFDownXDataset(opt, "train").ref_buffer()
-    # every dataset mode of the JAX package's registry but the refine
-    # stage's is ported; what stays is refused by name
-    for mode in ("llff", "blender", "blender_downX"):
+    # every dataset mode of the JAX package's registry is ported; what
+    # stays of them is refused by name, and an unknown mode is not found
+    for mode in ("llff", "blender", "blender_downX", "llff_refine"):
         assert mode in DATASET_REGISTRY
     opt.dataset_mode = "llff"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_dataset(opt, "train").ref_buffer()
-    opt.dataset_mode = "llff_refine"
+    opt.dataset_mode = "no_such_mode"
     with pytest.raises(KeyError, match="not found"):
         create_dataset(opt, "train")
