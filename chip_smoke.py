@@ -35,10 +35,18 @@
 5. training: renders 4 training views of a teacher scene (random
    weights, seed 1, sigma biases +3), derives the LR truth by ``avg``,
    uploads the grouped buffer, and trains a seed-0 student with Adam
-   (``--batch_size 512`` LR pixels, 2048 HR rays a step): exact per-step
-   launch counts, ms/step and HR rays/s over a timed window, finite
-   parameters and moments, a falling ``fine_mse``, and one step's loss
-   and gradients through the kernels against the plain path;
+   (``--batch_size 512`` LR pixels, 2048 HR rays a step) on the main
+   path, ``train_steps_scan``'s graphed chunk (one CUDA-graph replay a
+   step, as ``--scan_steps 20`` runs it): exact per-step launch counts,
+   ms/step and HR rays/s over a timed window of replays of one graph,
+   finite parameters and moments, a falling ``fine_mse``, and one
+   step's loss and gradients through the kernels against the plain path;
+   then the graphs phase: for llff and parity (mixed), a 20-step graphed
+   chunk against the eager ``train_steps`` from the same seed (every
+   parameter, moment and step count bit for bit, exact launch counts on
+   both routes), each route's ms/step, the capture's time and memory; and
+   the serving render, each view one replay, against the chunk loop bit
+   for bit, with both routes' ms/image;
 6. engine: renders the teacher (seed 1) at 504x378 on 8 centred spiral
    poses, writes them as a COLMAP scene (``nerfsr_torch/data/
    synthetic.py``) into a temporary directory, and drives
@@ -50,8 +58,10 @@
    the port's codec (same bytes), and renders ``--test_split
    test_train`` from epoch 3: every artifact file is there and each HR
    panel of ``{i}-fine-ori.png`` equals ``render_eval_many(...,
-   quantize_rgb=True)``. It checks the exact launch counts of each run
-   (2 A, 1 B, 1 C, 1 D, 1 E a step; 94 A, 47 B, 47 C an image), and
+   quantize_rgb=True)``. It checks that every chunk of both training runs
+   went through ``train_steps_scan`` (graph replays), the exact launch
+   counts of each run (2 A, 1 B, 1 C, 1 D, 1 E a step; 94 A, 47 B, 47 C
+   an image, replays included), and
    prints the engine's ms/step beside ``train_steps``', ms per test image
    with the writes, and the validation PSNR/SSIM;
 7. datasets: writes an 800x800 RGBA Blender scene of the blob field
@@ -64,7 +74,10 @@
    COLMAP scene at 252x189, tested at 504x378). Each run: exact launch
    counts, finite parameters and moments, ms/step, HR rays/s, the
    validation metrics, ``fine_mse`` on a fixed batch before and after
-   (it must fall on bx2 and bx4), and the test panels equal to
+   (it must fall on bx2 and bx4), that the warm-up's chunks ran eagerly
+   and every other chunk as graph replays, a 20-step graphed chunk equal
+   to the eager one from the same seed with both routes' ms/step, and
+   the test panels equal to
    ``render_eval_many(..., quantize_rgb=True)`` with the test ms/image
    with and without the writes; bx2 also checks that its first 50 steps
    drew only from the crop buffer and that a resume from epoch 1, across
@@ -74,13 +87,16 @@
    cut as ``REFINE_TRAIN`` says): ``python -m nerfsr_torch.warp`` (files,
    the share of pixels that land in the reference view, one view's
    coordinates against the CPU's), ``train_refine`` for 3 epochs and for
-   2 plus a ``--continue_train`` to 3 (the two equal bit for bit), a
-   fixed batch's l1 before and after, one step on the card against the
-   CPU's (each gradient leaf held to an f64 step beside the CPU's),
-   ``maxpoolingmodel`` steps with and without the references, and
+   2 plus a ``--continue_train`` to 3 (the two equal bit for bit; each
+   chunk graph replays, as the JAX refine engine scans), a fixed batch's
+   l1 before and after, one step on the card against the CPU's (each
+   gradient leaf held to an f64 step beside the CPU's), a graphed chunk
+   against the eager one from the same seed (bit for bit) for the UNet
+   and ``maxpoolingmodel`` with and without the references, and
    ``test_refine --test_split test_train`` (each stitched panel equal to
-   a direct ``refine_image``); it prints ms/step and patches/s of the
-   UNet and of ``maxpoolingmodel``, warp ms/view and test_refine
+   a direct ``refine_image``); it prints ms/step (graphed and eager) and
+   patches/s of the UNet and of ``maxpoolingmodel``, warp ms/view and
+   test_refine
    ms/image with and without the writes. The path launches none of the
    five kernels (its convolutions are cuDNN's), and it checks that;
 9. prints a JSON line of details (also written to
@@ -790,11 +806,11 @@ def slice_phase(dev, card):
     return counts, ms_per_image, n_hr / (wall / N_VIEWS), errs
 
 
-def train_options(precision, **extra):
+def train_options(precision, preset="llff", **extra):
     from nerfsr_torch.config import default_options
     return default_options(
         "train", model="nerf_downX", dataset_mode="llff_downX",
-        fast_preset="llff", img_wh=HR_WH, downscale=DOWNSCALE,
+        fast_preset=preset, img_wh=HR_WH, downscale=DOWNSCALE,
         precision=precision, batch_size=BATCH, n_epochs=30,
         n_epochs_decay=10, lr=5e-4, lr_final=5e-6, lr_policy="exp",
         include_var=True, ds_method="avg", **extra)
@@ -867,6 +883,12 @@ def step_vs_plain(dev, buffer):
 
 
 def train_phase(dev, card):
+    """The training slice on its main path, the graphed chunk
+    (``train_steps_scan``, as ``--scan_steps 20`` runs it): exact launch
+    counts a step, ms/step over a timed window of replays, a falling
+    ``fine_mse``, finite parameters and moments, one step against the
+    plain path. Returns the window's counts, the details and the
+    teacher buffer."""
     from nerfsr_torch.kernels import COUNTS, LAUNCHES_PER_CALL, reset_counts
     from nerfsr_torch.models import create_model
 
@@ -882,12 +904,13 @@ def train_phase(dev, card):
         fail("the training path must take the fused MLP kernels")
     state = system.create_state(seed=0, steps_per_epoch=n_lr // BATCH)
     gen = torch.Generator(device=dev).manual_seed(0)
-    state, _ = system.train_steps(state, buffer, WARMUP_STEPS, gen)
+    # the first chunk: one eager step, the capture, then replays
+    state, _ = system.train_steps_scan(state, buffer, WARMUP_STEPS, gen)
     torch.cuda.synchronize()
 
-    # one step: exact launch counts of every kernel
+    # one step, one replay: exact launch counts of every kernel
     reset_counts()
-    state, _ = system.train_steps(state, buffer, 1, gen)
+    state, _ = system.train_steps_scan(state, buffer, 1, gen)
     torch.cuda.synchronize()
     per_step = dict(COUNTS)
     want = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
@@ -895,30 +918,37 @@ def train_phase(dev, card):
     if per_step != want:
         fail(f"per-step launch counts {per_step}, expected {want}")
 
-    # the timed window: TIMED_STEPS steps, one synchronize
+    # the timed window: TIMED_STEPS replays, one synchronize
+    graph = _train_graph(system)
+    replays = graph.replays
     reset_counts()
     t0 = time.perf_counter()
-    state, _ = system.train_steps(state, buffer, TIMED_STEPS, gen)
+    state, _ = system.train_steps_scan(state, buffer, TIMED_STEPS, gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(COUNTS)
     if counts != {k: v * TIMED_STEPS for k, v in want.items()}:
         fail(f"launch counts over {TIMED_STEPS} steps: {counts}")
+    if graph.replays - replays != TIMED_STEPS or \
+            _train_graph(system) is not graph:
+        fail("the timed window's steps were not replays of one graph")
     ms_step = wall / TIMED_STEPS * 1e3
     rays_s = BATCH * DOWNSCALE ** 2 * TIMED_STEPS / wall
     sub = {k: v * LAUNCHES_PER_CALL[k] for k, v in counts.items()}
     print(f"[train] {TIMED_STEPS} steps of {BATCH} LR pixels "
-          f"({BATCH * DOWNSCALE ** 2} HR rays): {ms_step:.2f} ms/step, "
-          f"{rays_s:.0f} HR rays/s on {card}; calls {counts}, kernel "
-          f"launches {sub} (E: tile, weight-gradient, reduce)")
+          f"({BATCH * DOWNSCALE ** 2} HR rays), graph replays: "
+          f"{ms_step:.2f} ms/step, {rays_s:.0f} HR rays/s on {card}; calls "
+          f"{counts}, kernel launches {sub} (E: tile, weight-gradient, "
+          f"reduce)")
 
-    # the loss falls from a fresh student
+    # the loss falls from a fresh student (one-step chunks: every step's
+    # loss, copied out of the graph's outputs before the next replay)
     state = system.create_state(seed=0, steps_per_epoch=n_lr // BATCH)
     gen = torch.Generator(device=dev).manual_seed(1)
     mses = []
     for _ in range(FALL_STEPS):
-        state, losses = system.train_step_from_buffer(state, buffer, gen)
-        mses.append(losses["fine_mse"])
+        state, losses = system.train_steps_scan(state, buffer, 1, gen)
+        mses.append(losses["fine_mse"].clone())
     mses = torch.stack(mses).cpu().numpy()
     first, last = float(mses[:20].mean()), float(mses[-20:].mean())
     print(f"[train] fine_mse over {FALL_STEPS} steps: first 20 mean "
@@ -938,7 +968,156 @@ def train_phase(dev, card):
     return counts, {"ms_per_step": ms_step, "hr_rays_per_s": rays_s,
                     "fine_mse_first20": first, "fine_mse_last20": last,
                     "step_vs_plain": step_err, "launches_per_step":
-                    per_step, "kernel_launches_window": sub}
+                    per_step, "kernel_launches_window": sub}, buffer
+
+
+def _train_graph(system):
+    """The captured training step of ``system``'s chunks."""
+    graphs = [e for k, e in system.graphs.entries().items()
+              if k[0] == "train"]
+    if len(graphs) != 1:
+        fail(f"{len(graphs)} captured training steps, expected 1")
+    return graphs[0]
+
+
+# graphs phase: each chunk and eval image as CUDA-graph replays against
+# the eager route from the same seed, and the two routes' times
+GRAPH_STEPS = 20            # a chunk, as --scan_steps 20 cuts it
+
+
+def _states_equal(a, b):
+    """The number of tensors of two training or refine states
+    (parameters, batch statistics, Adam moments and steps); fails unless
+    each is equal bit for bit."""
+    from nerfsr_torch.models.refine_system import RefineState
+    fn = _refine_tensors if isinstance(a, RefineState) else _state_tensors
+    ta, tb = fn(a), fn(b)
+    differ = [k for k in ta if k not in tb or not torch.equal(ta[k], tb[k])]
+    if differ or ta.keys() != tb.keys():
+        fail(f"the graphed chunk differs from the eager one in "
+             f"{len(differ)} tensors, first {differ[:3]}")
+    return len(ta)
+
+
+def chunk_vs_eager(dev, make_system, buffers, steps=GRAPH_STEPS,
+                   counts=None):
+    """``steps`` steps of the eager ``train_steps`` and of the graphed
+    ``train_steps_scan`` from the same seed on fresh states: every state
+    tensor bit for bit, the launch counts of both (``counts``: a step's),
+    then each route's ms/step over another chunk (host clock to a
+    synchronize), and the graph's capture time and memory."""
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    runs, out = {}, {}
+    for route in ("eager", "graphed"):
+        system = make_system()
+        state = system.create_state(seed=0, steps_per_epoch=10 * steps)
+        run = system.train_steps if route == "eager" \
+            else system.train_steps_scan
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_counts()
+        state, _ = run(state, buffers, steps, gen)
+        torch.cuda.synchronize()
+        if counts is not None and dict(COUNTS) != {
+                k: v * steps for k, v in counts.items()}:
+            fail(f"{route} chunk: launch counts {dict(COUNTS)}, a step "
+                 f"{counts}")
+        runs[route] = state
+        gen.manual_seed(1)
+        t0 = time.perf_counter()
+        state, _ = run(state, buffers, steps, gen)
+        torch.cuda.synchronize()
+        out[f"{route}_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+        if route == "graphed":
+            graph = _train_graph(system)
+            out.update(capture_s=graph.capture_s,
+                       graph_pool_mib=graph.pool_bytes / 2 ** 20,
+                       replays=graph.replays)
+            if graph.replays != 2 * steps - 1:
+                fail(f"{graph.replays} replays, expected {2 * steps - 1}")
+        del system, state
+        torch.cuda.empty_cache()
+    out["tensors_equal"] = _states_equal(runs["eager"], runs["graphed"])
+    return out
+
+
+def eval_vs_eager(dev, card):
+    """NeRF-SR x2 serving: each view one graph replay against the chunk
+    loop (the same system's eager route) on the same weights, bit for
+    bit, and both routes' ms/image."""
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.data.views import LLFFDownXViews
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+
+    opt = default_options("test", model="nerf_downX",
+                          dataset_mode="llff_downX", fast_preset="llff",
+                          img_wh=HR_WH, downscale=DOWNSCALE,
+                          precision="mixed")
+    views = LLFFDownXViews.spiral(FOCAL, HR_WH, DOWNSCALE, N_VIEWS + 1)
+    chunks = -(-(HR_WH[0] * HR_WH[1]) // 4096)
+    out, renders = {}, {}
+    for route in ("eager", "graphed"):
+        system = create_model(opt, device=dev)
+        if route == "eager":
+            system.graphs = None
+        params = system.init_params(seed=0)
+        list(system.render_eval_many(params, views, [0]))   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        renders[route] = list(system.render_eval_many(
+            params, views, range(1, N_VIEWS + 1)))
+        torch.cuda.synchronize()
+        out[f"{route}_ms_per_image"] = (time.perf_counter() - t0) \
+            / N_VIEWS * 1e3
+        want = {"invert_cdf": 2 * chunks * N_VIEWS,
+                "composite_fwd": chunks * N_VIEWS,
+                "fused_mlp_fwd": chunks * N_VIEWS,
+                "composite_bwd": 0, "fused_mlp_bwd": 0}
+        if dict(COUNTS) != want:
+            fail(f"eval {route}: launch counts {dict(COUNTS)}, expected "
+                 f"{want}")
+        if route == "graphed":
+            graphs = system.graphs.entries()
+            if len(graphs) != 1:
+                fail(f"{len(graphs)} eval graphs, expected 1")
+            graph = next(iter(graphs.values()))
+            if graph.replays != N_VIEWS:
+                fail(f"{graph.replays} eval replays, expected {N_VIEWS}")
+            out.update(capture_s=graph.capture_s,
+                       graph_pool_mib=graph.pool_bytes / 2 ** 20)
+    for a, b in zip(renders["eager"], renders["graphed"]):
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                fail(f"eval {k}: the graph replay differs from the chunk "
+                     "loop")
+    print(f"[graphs] eval: {N_VIEWS} views {HR_WH[0]}x{HR_WH[1]}, one "
+          f"replay of {chunks} chunks each, equal to the chunk loop bit for "
+          f"bit; {out['graphed_ms_per_image']:.1f} ms/image graphed, "
+          f"{out['eager_ms_per_image']:.1f} eager; capture "
+          f"{out['capture_s']:.2f} s, graph pool "
+          f"{out['graph_pool_mib']:.0f} MiB; on {card}")
+    return out
+
+
+def graphs_phase(dev, card, buffer):
+    """llff mixed and parity: a 20-step graphed chunk against the eager
+    chunk, bit for bit, with both routes' ms/step; the eval image."""
+    from nerfsr_torch.models import create_model
+    out = {}
+    for preset, counts in (("llff", FAST[0]), ("parity", PARITY[0])):
+        res = chunk_vs_eager(
+            dev, lambda: create_model(train_options("mixed", preset),
+                                      device=dev), buffer, counts=counts)
+        print(f"[graphs] {preset} mixed: a {GRAPH_STEPS}-step graphed chunk "
+              f"equals the eager chunk in {res['tensors_equal']} tensors "
+              f"bit for bit; {res['graphed_ms_per_step']:.2f} ms/step "
+              f"graphed, {res['eager_ms_per_step']:.2f} eager; capture "
+              f"{res['capture_s']:.2f} s, graph pool "
+              f"{res['graph_pool_mib']:.0f} MiB; on {card}")
+        out[preset] = res
+    out["eval"] = eval_vs_eager(dev, card)
+    return out
 
 
 # engine phase (scripts/train_llff_downX_fast.sh at full width; cut to a
@@ -1058,8 +1237,11 @@ def engine_phase(dev, card, train_ms_step, work):
                                              "--n_epochs", "2"))
     first_t = {}
     reset_counts()
-    first = engine.train(opt, timings=first_t)
+    with _ChunkLog() as log:
+        first = engine.train(opt, timings=first_t)
     torch.cuda.synchronize()
+    if set(log.routes()) != {"train_steps_scan"}:
+        fail(f"the engine's chunks under --scan_steps 20: {log.chunks}")
     # 80 steps, and validation at epoch 2 renders the val view twice
     # (device metrics, then the read-back strips)
     _launches_per(dict(COUNTS), 2 * ENGINE_STEPS, 2)
@@ -1089,8 +1271,11 @@ def engine_phase(dev, card, train_ms_step, work):
     # the resumed run: epoch 3, timed by the engine
     timings = {}
     reset_counts()
-    third = engine.train(opt3, timings=timings)
+    with _ChunkLog() as log:
+        third = engine.train(opt3, timings=timings)
     torch.cuda.synchronize()
+    if set(log.routes()) != {"train_steps_scan"}:
+        fail(f"the resumed run's chunks: {log.chunks}")
     step_counts, image_counts = _launches_per(dict(COUNTS),
                                               ENGINE_STEPS, 2)
     if third.step != 3 * ENGINE_STEPS:
@@ -1263,24 +1448,39 @@ def _expect(counts, per, steps, images):
              f"renders {images})")
 
 
-class _BufferLog:
-    """Records the buffer size of every batch drawn
-    (``NeRFSystem.sample_batch``) while it is entered."""
+class _ChunkLog:
+    """While entered, records every training chunk the NeRF engine runs:
+    its route (``train_steps``, eager; ``train_steps_scan``, graph
+    replays on the card), first step, steps and buffer size."""
+
+    ROUTES = ("train_steps", "train_steps_scan")
 
     def __enter__(self):
         from nerfsr_torch.models.nerf_system import NeRFSystem
-        self.sizes, self._cls = [], NeRFSystem
-        self._real = real = NeRFSystem.sample_batch
-        sizes = self.sizes
+        self.chunks, self._cls = [], NeRFSystem
+        self._real = {name: getattr(NeRFSystem, name) for name in self.ROUTES}
+        chunks = self.chunks
 
-        def sample_batch(system, buffer, generator=None):
-            sizes.append(len(buffer["rgbs"]))
-            return real(system, buffer, generator)
-        NeRFSystem.sample_batch = sample_batch
+        def recorder(name, real):
+            def run(system, state, buffer, n_steps, generator=None):
+                chunks.append((name, state.step, n_steps,
+                               len(buffer["rgbs"])))
+                return real(system, state, buffer, n_steps, generator)
+            return run
+        for name, real in self._real.items():
+            setattr(NeRFSystem, name, recorder(name, real))
         return self
 
     def __exit__(self, *exc):
-        self._cls.sample_batch = self._real
+        for name, real in self._real.items():
+            setattr(self._cls, name, real)
+
+    def sizes(self):
+        """The buffer size of every step, in order."""
+        return [n for _, _, k, n in self.chunks for _ in range(k)]
+
+    def routes(self):
+        return [r for r, _, _, _ in self.chunks]
 
 
 def _val_metrics(work, name, step):
@@ -1392,22 +1592,29 @@ def datasets_phase(dev, card, work, llff_scene):
             if run["warmup"] else {}
         timings = {}
         reset_counts()
-        with _BufferLog() as log:
+        with _ChunkLog() as log:
             state = engine.train(opt, timings=timings, **warm)
         torch.cuda.synchronize()
         steps = opt.n_epochs * DS_STEPS
         n_val = len(create_dataset(opt, "val"))
         _expect(dict(COUNTS), run["counts"], steps, [opt.img_wh] * 2 * n_val)
-        if state.step != steps or len(log.sizes) != steps:
-            fail(f"{name}: {state.step} steps, {len(log.sizes)} batches")
+        sizes = log.sizes()
+        if state.step != steps or len(sizes) != steps:
+            fail(f"{name}: {state.step} steps, {len(sizes)} batches")
+        n_full = len(create_dataset(opt, "train").ray_buffer()["rgbs"])
+        # the warm-up's chunks eager, every other one graph replays
+        want_routes = ["train_steps_scan" if n == n_full else "train_steps"
+                       for _, _, _, n in log.chunks]
+        if log.routes() != want_routes or "train_steps_scan" not in \
+                want_routes:
+            fail(f"{name}: chunk routes {log.chunks}")
         if run["warmup"]:
             n_crop = len(create_dataset(opt, "train_crop").ray_buffer()[
                 "rgbs"])
-            n_full = len(create_dataset(opt, "train").ray_buffer()["rgbs"])
             want = [n_crop] * DS_WARMUP + [n_full] * (steps - DS_WARMUP)
-            if n_crop >= n_full or log.sizes != want:
+            if n_crop >= n_full or sizes != want:
                 fail(f"{name}: the steps drew from buffers of "
-                     f"{sorted(set(log.sizes))} rays, not {DS_WARMUP} from "
+                     f"{sorted(set(sizes))} rays, not {DS_WARMUP} from "
                      f"the crop's {n_crop} and then the train split's "
                      f"{n_full}")
         for p in state.params.parameters():
@@ -1421,7 +1628,12 @@ def datasets_phase(dev, card, work, llff_scene):
                  f"batch, not below {FALL_RATIO} of its start")
         epoch_ms = [timings["epoch_s"][e] / DS_STEPS * 1e3
                     for e in sorted(timings["epoch_s"])]
-        res = {"ms_per_step": epoch_ms, "hr_rays_per_s":
+        chunk_ms = chunk_vs_eager(
+            dev, lambda: create_model(opt, device=dev),
+            {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in create_dataset(opt, "train").ray_buffer().items()},
+            counts=run["counts"][0])
+        res = {"chunk": chunk_ms, "ms_per_step": epoch_ms, "hr_rays_per_s":
                [run["rays"] / ms * 1e3 for ms in epoch_ms],
                "fine_mse_fixed_batch": [mse0, mse1],
                "coarse_mse_fixed_batch": [cmse0, cmse1],
@@ -1479,7 +1691,13 @@ def datasets_phase(dev, card, work, llff_scene):
                    / test_t["views"] * 1e3,
                    run_s=time.perf_counter() - t_run)
         print(f"[datasets] {name}: {steps} steps, {np.mean(epoch_ms):.2f} "
-              f"ms/step (epochs {', '.join(f'{m:.2f}' for m in epoch_ms)}), "
+              f"ms/step (epochs {', '.join(f'{m:.2f}' for m in epoch_ms)}; "
+              f"the warm-up's chunks eager, the rest graph replays); a "
+              f"{GRAPH_STEPS}-step chunk equal to the eager one bit for bit, "
+              f"{chunk_ms['graphed_ms_per_step']:.2f} ms/step graphed, "
+              f"{chunk_ms['eager_ms_per_step']:.2f} eager, capture "
+              f"{chunk_ms['capture_s']:.2f} s, graph pool "
+              f"{chunk_ms['graph_pool_mib']:.0f} MiB; "
               f"{np.mean(res['hr_rays_per_s']):.0f} HR rays/s; fine_mse on "
               f"a fixed batch {mse0:.5f} -> {mse1:.5f} (coarse_mse "
               f"{cmse0:.5f} -> {cmse1:.5f}); validation "
@@ -1506,7 +1724,7 @@ REFINE_TRAIN = ["--batch_size", "32", "--n_epochs_decay", "0",
                 "--save_epoch_freq", "1", "--val_epoch_freq", "1",
                 "--refine_with_l1", "--steps_per_epoch", str(REFINE_STEPS),
                 "--print_freq", "50", "--val_freq", "50", "--vis_freq", "100"]
-REFINE_TIMED = 20          # steps in each directly timed window
+REFINE_MAXPOOL_STEPS = 5   # each maxpoolingmodel chunk (~0.26 s a step)
 # the fixed batch's l1 after 300 steps over the fresh network's
 REFINE_FALL = 0.7
 # one UNet step on the card (cuDNN, TF32 off) against the same step on
@@ -1544,21 +1762,6 @@ def _refine_tensors(state):
         for k, v in state.optimizer.state[p].items():
             out[f"{name}/{k}"] = v
     return out
-
-
-def _timed_steps(system, state, buffers, dev, steps=REFINE_TIMED):
-    """ms/step of ``steps`` train_steps after 3 warm-up steps (host clock
-    to a synchronize)."""
-    gen = torch.Generator(device=dev).manual_seed(1)
-    system.train_steps(state, buffers, 3, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, losses = system.train_steps(state, buffers, steps, gen)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / steps * 1e3
-    if not all(torch.isfinite(v).all() for v in losses.values()):
-        fail(f"non-finite losses {losses}")
-    return ms
 
 
 def _warp_phase(scene, syn, dev, card):
@@ -1724,22 +1927,28 @@ def refine_phase(dev, card, work):
         fail(f"refine: l1 on a fixed batch {l1[0]:.4f} -> {l1[1]:.4f}")
     step_err = _step_vs_cpu(opt, dev, buffers)
 
-    # ms/step: the UNet in a timed window, then maxpoolingmodel
-    unet_ms = _timed_steps(system, fresh, buffers, dev)
-    nets = {"unet": unet_ms}
+    # a graphed chunk against the eager one from the same seed, bit for
+    # bit, and both routes' ms/step: the UNet, then maxpoolingmodel
+    none = {k: 0 for k in FAST[0]}
+    chunks = {"unet": chunk_vs_eager(
+        dev, lambda: create_model(opt, device=dev), buffers, counts=none)}
     for name, extra in (("maxpool", []), ("maxpool_no_ref",
                                           ["--not_use_ref"])):
         mopt = topt("m", "--refine_network", "maxpoolingmodel", *extra)
-        msys = create_model(mopt, device=dev)
-        mstate = msys.create_state(seed=mopt.seed, steps_per_epoch=1)
-        nets[name] = _timed_steps(msys, mstate, buffers, dev, steps=10)
-        del msys, mstate
+        chunks[name] = chunk_vs_eager(
+            dev, lambda: create_model(mopt, device=dev), buffers,
+            steps=REFINE_MAXPOOL_STEPS, counts=none)
         torch.cuda.empty_cache()
+    nets = {k: v["graphed_ms_per_step"] for k, v in chunks.items()}
     bs = opt.batch_size
-    for name, ms in nets.items():
-        print(f"[refine] {name}: {ms:.2f} ms/step, {bs / ms * 1e3:.0f} "
-              f"patches/s (batch {bs}, {opt.patch_len} px, train_steps, host "
-              f"clock to a synchronize) on {card}")
+    for name, res in chunks.items():
+        ms, eager = res["graphed_ms_per_step"], res["eager_ms_per_step"]
+        print(f"[refine] {name}: a graphed chunk equals the eager one in "
+              f"{res['tensors_equal']} tensors bit for bit; {ms:.2f} "
+              f"ms/step graphed, {bs / ms * 1e3:.0f} patches/s (batch {bs}, "
+              f"{opt.patch_len} px, host clock to a synchronize), "
+              f"{eager:.2f} ms/step eager; capture {res['capture_s']:.2f} s, "
+              f"graph pool {res['graph_pool_mib']:.0f} MiB; on {card}")
     epochs = ", ".join(f"{m:.2f}" for m in epoch_ms)
     print(f"[refine] train_refine epochs {epochs} ms/step ({REFINE_STEPS} "
           f"steps with their val_iter; the epoch's save and val pass "
@@ -1784,7 +1993,7 @@ def refine_phase(dev, card, work):
                  "wb") as dst:
         dst.write(src.read())
     out.update(train_epoch_ms_per_step=epoch_ms, run_s=run_s,
-               ms_per_step={k: v for k, v in nets.items()},
+               ms_per_step={k: v for k, v in nets.items()}, chunks=chunks,
                patches_per_s={k: bs / v * 1e3 for k, v in nets.items()},
                l1_fixed_batch=l1, l1_input=l1_input,
                step_vs_cpu=step_err, resume_tensors_equal=len(want),
@@ -1826,7 +2035,10 @@ def main():
     e = check_fused_mlp_bwd(dev, gen)
     new_shapes = check_new_shapes(dev, gen)
     serve_counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
-    counts, train = train_phase(dev, card)
+    counts, train, buffer = train_phase(dev, card)
+    graphs_out = graphs_phase(dev, card, buffer)
+    del buffer
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="nerfsr_smoke_") as work:
         engine_out = engine_phase(dev, card, train["ms_per_step"], work)
         t0 = time.perf_counter()
@@ -1835,7 +2047,8 @@ def main():
         datasets_out["phase_s"] = time.perf_counter() - t0
         refine_out = refine_phase(dev, card, work)
 
-    # launches: the timed training window, which runs all five kernels
+    # launches: the timed training window (graph replays), which runs all
+    # five kernels
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     ops = "nerfsr_tpu/ops/experimental/"
     kernels = [
@@ -1879,6 +2092,7 @@ def main():
                                            "chunk_errors": slice_err,
                                            "launches": serve_counts},
                                  "train": train,
+                                 "graphs": graphs_out,
                                  "engine": engine_out,
                                  "new_shapes": new_shapes,
                                  "datasets": datasets_out,

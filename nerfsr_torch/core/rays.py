@@ -70,12 +70,17 @@ def ndc_rays(h: int, w: int, focal, near, rays_o: torch.Tensor,
 
 def make_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, near, far,
               viewdirs: Optional[torch.Tensor] = None) -> Rays:
-    """Assemble a Rays bundle, broadcasting scalar near/far."""
+    """Assemble a Rays bundle, broadcasting scalar near/far. A Python
+    scalar is filled on the rays' device (no host-to-device copy, so the
+    eval graph can capture it)."""
     shape = rays_o.shape[:-1] + (1,)
-    near = torch.as_tensor(near, dtype=rays_o.dtype,
-                           device=rays_o.device).expand(shape)
-    far = torch.as_tensor(far, dtype=rays_o.dtype,
-                          device=rays_o.device).expand(shape)
+
+    def bound(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(rays_o.device, rays_o.dtype).expand(shape)
+        return torch.full(shape, v, dtype=rays_o.dtype,
+                          device=rays_o.device)
+    near, far = bound(near), bound(far)
     if viewdirs is None:
         viewdirs = rays_d
     return Rays(rays_o, rays_d, near, far, viewdirs)

@@ -40,8 +40,31 @@ def compute_weights(sigma: torch.Tensor, z_vals: torch.Tensor,
     alpha = 1.0 - torch.exp(-deltas * sigma_activation(sigma, activation))
     trans = torch.cat(
         [torch.ones_like(alpha[..., :1]),
-         torch.cumprod(1.0 - alpha[..., :-1] + eps, dim=-1)], dim=-1)
+         _Cumprod.apply(1.0 - alpha[..., :-1] + eps)], dim=-1)
     return alpha * trans
+
+
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis of factors that are never 0
+    (1 - alpha + eps >= eps), with the backward autograd takes for such
+    factors, reversed cumulative sum of grad * out over the factors, but
+    without its host read: autograd's cumprod backward first asks
+    ``(input == 0).any().item()``, which a CUDA-graph capture of the
+    training step cannot do. Same operations, so the same bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return grad
+        w = out * grad
+        return w.flip(-1).cumsum(-1).flip(-1).div(x)
 
 
 def volumetric_rendering(rgb: torch.Tensor, sigma: torch.Tensor,

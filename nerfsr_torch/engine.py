@@ -4,13 +4,18 @@ Port of ``nerfsr_tpu/engine.py`` (``setup``, ``train``, ``validate``,
 ``test``, ``_rays_per_batch``, ``_vis_dir``) on its plain-step route:
 the training buffer is uploaded to the card once (and a warm-up split's,
 such as the Blender ``train_crop``, for the first ``warmup_iters``
-steps), and each epoch runs in chunks of ``system.train_steps`` that end
-every ``--scan_steps`` steps of the epoch, at its end and at the end of
-the warm-up; their losses are read back once per chunk and
-written every ``--log_every`` (else ``--print_freq``) steps with
-``rays_per_sec``. Before each chunk the generator on the card is seeded
-from ``(--seed, step)``, so a resumed run draws what an unbroken run
-draws, and the step counter is the saved ``TrainState.step``.
+steps), and each epoch runs in chunks that end every ``--scan_steps``
+steps of the epoch, at its end and at the end of the warm-up; their
+losses are read back once per chunk and written every ``--log_every``
+(else ``--print_freq``) steps with ``rays_per_sec``. As in the JAX
+engine, a chunk is ``system.train_steps_scan`` (on the card one
+CUDA-graph replay a step) when ``--scan_steps`` > 1 and the chunk draws
+from the training buffer, and the eager ``system.train_steps`` with
+``--scan_steps 1`` and during the warm-up. Before each chunk the
+generator on the card is seeded from ``(--seed, step)``, so a resumed
+run draws what an unbroken run draws (graphed or eager: the two draw and
+compute the same), and the step counter is the saved
+``TrainState.step``.
 ``validate`` takes PSNR/SSIM on the device where it can and decides per
 view whether its render is read back quantized (uint8 rgb: PNG-only
 views). ``test`` renders ``--test_split`` from a checkpoint into
@@ -20,7 +25,9 @@ strip kind.
 
 The refine stage: ``train_refine`` uploads the ``llff_refine``
 dataset's augmented image stacks to the card once and runs chunks of
-``RefineSystem.train_steps`` (patches cut on the card) that end at the
+``RefineSystem.train_steps_scan`` (patches cut on the card; graphed on
+the card whatever ``--scan_steps`` says, as the JAX refine engine scans
+whenever its buffers are on the device) that end at the
 ``--log_every`` (else ``--print_freq``) and ``--val_freq`` cadences and
 at the epoch's end, each seeded from ``(--seed, step)`` like the NeRF
 chunks, so a ``--continue_train`` resume is the unbroken run bit for
@@ -177,7 +184,10 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
                 else:
                     warm_buffer = None      # done: free its memory
             _seed_chunk(gen, opt.seed, state.step)
-            state, losses = system.train_steps(state, src, k, gen)
+            if opt.scan_steps > 1 and src is buffer:
+                state, losses = system.train_steps_scan(state, src, k, gen)
+            else:
+                state, losses = system.train_steps(state, src, k, gen)
             it += k
             step = state.step
             scal = _read(losses)
@@ -425,7 +435,7 @@ def train_refine(opt, timings=None):
             k = min([left] + [f - state.step % f for f in
                               (log_every, val_freq) if f > 0])
             _seed_chunk(gen, opt.seed, state.step)
-            state, losses = system.train_steps(state, buffers, k, gen)
+            state, losses = system.train_steps_scan(state, buffers, k, gen)
             left -= k
             scal = _read(losses)
             step = state.step

@@ -11,7 +11,11 @@ module on a host with no ``nvcc``.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises on anything but 0. Launch counts are plain integers in ``COUNTS``,
-raised by one where a wrapper launches its kernel and nowhere else.
+raised by one where a wrapper launches its kernel and nowhere else. Under
+CUDA-graph capture (``nerfsr_torch/graphs.py``) a wrapper records its
+launch instead of making it: ``captured_launches`` takes what a capture
+added back out of ``COUNTS``, and ``add_replays`` adds it once for every
+replay of the graph, where the launches happen.
 """
 
 from __future__ import annotations
@@ -82,6 +86,22 @@ _state = {"lib": None}
 def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def captured_launches(before: dict) -> dict:
+    """The wrapper calls recorded since the snapshot ``before`` (a copy of
+    ``COUNTS``) by a graph capture, which launched none of them: taken
+    back out of ``COUNTS`` and returned as the launches of one replay."""
+    launches = {k: COUNTS[k] - before[k] for k in COUNTS}
+    COUNTS.update(before)
+    return launches
+
+
+def add_replays(launches: dict, n: int = 1):
+    """Count ``n`` replays of a graph whose one replay launches
+    ``launches``."""
+    for k, v in launches.items():
+        COUNTS[k] += v * n
 
 
 def _nvcc() -> str:

@@ -32,7 +32,10 @@ The packed weights are cached on the parameters' identity and version
 counters (``packed``): serving packs once for all chunks of all views,
 training once per step for kernels C and E together. An in-place update
 of a parameter (an optimizer step, ``copy_`` under ``no_grad``) bumps its
-version and repacks; a write through ``.data`` is not seen.
+version and repacks; a write through ``.data`` is not seen, and neither
+is the replay of a CUDA graph, which runs no Python: ``forget_packed``
+empties the cache around every capture (so the graph records its own
+packing) and after every replay that moves parameters.
 """
 
 from __future__ import annotations
@@ -231,6 +234,11 @@ def pack_params(params_flat):
 
 _CACHE_SLOTS = 4
 _cache: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def forget_packed():
+    """Empty the packing cache (``packed``)."""
+    _cache.clear()
 
 
 def packed(params_flat, kind: str):

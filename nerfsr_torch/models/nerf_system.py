@@ -14,9 +14,20 @@ there is no mesh.
 Parameters are an ``nn.ModuleDict`` of the networks (``prop``/``fine``
 under fast sampling, else ``coarse``/``fine``) on the system's device;
 ``nerfsr_torch.weights.load_jax_params`` fills one from a JAX param tree.
-A ``TrainState`` holds the step, the parameters and the Adam optimizer;
-the step functions update it in place (no second copy of the parameters
-and moments), where the JAX package returns a new state.
+A ``TrainState`` holds the step, the parameters and the Adam optimizer
+(``utils/optim.py``: its update, learning rate and step counts on the
+device); the step functions update it in place (no second copy of the
+parameters and moments), where the JAX package returns a new state.
+
+``train_steps_scan`` is the counterpart of the JAX package's one-program
+``lax.scan`` chunk: on the card each step of the chunk is one replay of a
+captured CUDA graph (``nerfsr_torch/graphs.py``) that samples the batch,
+renders, takes the losses, backpropagates, clips, steps Adam and counts
+the device step; on the CPU the same step body runs eagerly.
+``train_steps`` is the eager loop. On the card the eval render of one
+image (``_render_dirs_chunks``, the JAX package's ``lax.map`` over the
+ray chunks) is one replay too, for ``render_pose``, ``render_eval_many``
+and ``eval_metrics_fast``.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from torch import nn
 from nerfsr_torch.core.encoding import posenc_channels
 from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
+from nerfsr_torch.graphs import GraphCache, run_steps
 from nerfsr_torch.kernels import sampling as ksampling
 from nerfsr_torch.models import register_model
 from nerfsr_torch.models.criterions import interlevel_loss
@@ -40,19 +52,26 @@ from nerfsr_torch.models.mlp import ProposalMLP, VanillaMLP
 from nerfsr_torch.models.render import (RenderConfig, render_rays,
                                         render_rays_fast)
 from nerfsr_torch.utils.checkpoint import frozen_paths
-from nerfsr_torch.utils.schedule import make_lr_schedule
+from nerfsr_torch.utils.optim import Adam
+from nerfsr_torch.utils.schedule import (lr_writer, make_lr_schedule,
+                                         write_lr)
 from nerfsr_torch.utils.visualizer import Visualizee, _to_uint8, depth2im
 from nerfsr_torch.weights import param_leaves
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The training state: the step count (host int), the networks and
-    the optimizer over their parameters (which holds the Adam moments)."""
+    """The training state: the step count (host int), the networks, the
+    optimizer over their parameters (which holds the Adam moments), and
+    the step count on the device (an int64 0-d tensor), which the steps
+    of a chunk read and advance where the host cannot. The host ``step``
+    is the engine's cadence counter; ``train_steps_scan`` writes it into
+    ``step_t`` before a chunk, and the two agree after every chunk."""
 
     step: int
     params: nn.ModuleDict
     optimizer: torch.optim.Optimizer
+    step_t: Optional[torch.Tensor] = None
 
 
 def _compute_dtype(precision: str):
@@ -107,6 +126,12 @@ class NeRFSystem:
         self.lr_fn = None          # built in create_state
         self._eval_dirs_cache = {}
         self._eval_gt_cache = {}
+        self._eval_inputs = {}     # static inputs of the eval graphs
+        self._scan_idx = None      # static injected indices of a chunk
+        # the CUDA graphs of the card's chunks (and eval images); None on
+        # the CPU, or set to None to run the card's paths eagerly
+        self.graphs = GraphCache(self.device) \
+            if self.device.type == "cuda" else None
 
     @staticmethod
     def _fused_mlp_ok(opt):
@@ -213,21 +238,25 @@ class NeRFSystem:
                 self.render_cfg, self._steps_per_epoch)
         params = self.init_params(seed).train()
         return TrainState(step=0, params=params,
-                          optimizer=self._make_tx(params))
+                          optimizer=self._make_tx(params),
+                          step_t=torch.zeros((), dtype=torch.int64,
+                                             device=self.device))
 
     def _make_tx(self, params: nn.ModuleDict) -> torch.optim.Optimizer:
         """Adam (b1 ``--beta1``, b2 0.999, eps 1e-8: optax's
-        ``scale_by_adam``) whose LR ``_apply_updates`` sets from the
-        per-epoch schedule before each step. The optional clip runs on
-        the gradients first (``_clip_grads``). ``--fix_layers`` leaves its
-        leaves out of the optimizer: no update, no moments, and no part
-        in the clip's global norm."""
+        ``scale_by_adam``) with its learning rate a tensor on the device,
+        which ``write_lr`` sets from the per-epoch schedule before each
+        step (or chunk). The optional clip runs on the gradients first
+        (``_clip_grads``). ``--fix_layers`` leaves its leaves out of the
+        optimizer: no update, no moments, and no part in the clip's
+        global norm."""
         self.lr_fn = make_lr_schedule(self.opt, self._steps_per_epoch)
         frozen = frozen_paths(self.opt, params)
         trainable = [p for path, p, _ in param_leaves(params)
                      if path not in frozen]
-        return torch.optim.Adam(trainable, lr=self.lr_fn(0),
-                                betas=(self.opt.beta1, 0.999), eps=1e-8)
+        return Adam(trainable, lr=self.lr_fn(0),
+                    betas=(self.opt.beta1, 0.999), eps=1e-8,
+                    device=self.device)
 
     def _clip_grads(self, optimizer: torch.optim.Optimizer):
         """``--grad_clip_val``: optax ``clip_by_global_norm`` (scale by
@@ -250,16 +279,17 @@ class NeRFSystem:
             for g in grads:
                 g.clamp_(-val, val)
 
-    def _apply_updates(self, state: TrainState, loss: torch.Tensor):
-        """Backward, clip, Adam at the schedule's LR for this step."""
+    def _step(self, state: TrainState, batch, generator, step):
+        """Render and losses at ``step`` (host int or device tensor),
+        backward, clip, Adam at the learning rate already written; the
+        body of ``train_step`` and of each step of ``train_steps_scan``.
+        Returns the step's losses (detached)."""
+        loss, losses = self._loss_fn(state.params, batch, generator, step)
         state.params.zero_grad(set_to_none=True)
         loss.backward()
         self._clip_grads(state.optimizer)
-        lr = self.lr_fn(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
         state.optimizer.step()
-        state.step += 1
+        return {k: v.detach() for k, v in losses.items()}
 
     def compute_losses(self, out: Dict[str, Any], batch: Dict[str, Any]):
         """MSE + PSNR losses (and the interlevel loss under fast
@@ -322,12 +352,13 @@ class NeRFSystem:
 
     def train_step(self, state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
-        """One optimization step over a ray batch; updates ``state`` in
-        place and returns it with the step's losses (detached)."""
-        loss, losses = self._loss_fn(state.params, batch, generator,
-                                     state.step)
-        self._apply_updates(state, loss)
-        return state, {k: v.detach() for k, v in losses.items()}
+        """One optimization step over a ray batch at the schedule's LR for
+        this step; updates ``state`` in place and returns it with the
+        step's losses (detached)."""
+        write_lr(state.optimizer, self.lr_fn, state.step)
+        losses = self._step(state, batch, generator, state.step)
+        state.step += 1
+        return state, losses
 
     def sample_batch(self, buffer: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None):
@@ -348,13 +379,72 @@ class NeRFSystem:
 
     def train_steps(self, state: TrainState, buffer, n_steps: int,
                     generator: Optional[torch.Generator] = None):
-        """``n_steps`` buffer-sampled steps (the Python-loop counterpart
-        of the JAX package's ``train_steps_scan``); returns the state and
-        the last step's losses."""
+        """``n_steps`` buffer-sampled steps, each launched from the host
+        (the eager counterpart of ``train_steps_scan``, whose steps draw
+        and compute the same); returns the state and the last step's
+        losses."""
         losses = {}
         for _ in range(n_steps):
             state, losses = self.train_step_from_buffer(state, buffer,
                                                         generator)
+        state.step_t.fill_(state.step)
+        return state, losses
+
+    def _scan_step(self, state: TrainState, buffer, generator, idx):
+        """One step of a chunk, as a graph captures it: the batch (drawn
+        on the device, or the injected indices), ``_step`` at the device
+        step, and the device step's increment."""
+        if idx is None:
+            batch = self.sample_batch(buffer, generator)
+        else:
+            batch = {k: v[idx] for k, v in buffer.items()}
+        losses = self._step(state, batch, generator, state.step_t)
+        state.step_t.add_(1)
+        return losses
+
+    def train_steps_scan(self, state: TrainState, buffer, n_steps: int,
+                         generator: Optional[torch.Generator] = None,
+                         idx: Optional[torch.Tensor] = None):
+        """``n_steps`` buffer-sampled steps as the JAX package's
+        ``train_steps_scan`` runs them: on the card one CUDA-graph replay
+        a step (the step captured at the first chunk of a buffer and
+        batch shape, after one eager step), with no host read or
+        host-computed value inside a step; on the CPU the same step body,
+        eagerly. ``idx`` (n_steps, batch_size) optionally injects each
+        step's buffer rows in place of the generator's draws. The device
+        step starts at ``state.step``; the learning rate is written before
+        the chunk and again only where the chunk crosses an epoch's end.
+        Returns the state and the last step's losses (on the card the
+        graph's outputs, which its next replay rewrites: read them before
+        the next chunk)."""
+        if idx is not None and tuple(idx.shape) != (n_steps,
+                                                     self.opt.batch_size):
+            raise ValueError(f"idx {tuple(idx.shape)}, expected "
+                             f"({n_steps}, {self.opt.batch_size})")
+        state.step_t.fill_(state.step)
+        write = lr_writer(state.optimizer, self.lr_fn, state.step)
+        idx_buf = None
+        if idx is not None:
+            if self._scan_idx is None or \
+                    self._scan_idx.shape[0] != idx.shape[1]:
+                self._scan_idx = torch.empty(idx.shape[1], dtype=torch.long,
+                                             device=self.device)
+            idx_buf = self._scan_idx
+
+        def before(i):
+            write(i)
+            if idx_buf is not None:
+                idx_buf.copy_(idx[i])
+
+        losses = run_steps(
+            self.graphs, ("train", idx is None),
+            lambda: (list(state.params.parameters())
+                     + state.optimizer.state_tensors() + [state.step_t]
+                     + list(buffer.values())
+                     + ([] if idx_buf is None else [idx_buf])),
+            lambda: self._scan_step(state, buffer, generator, idx_buf),
+            n_steps, generator, before)
+        state.step += n_steps
         return state, losses
 
     # ------------------------------------------------------------------
@@ -394,6 +484,33 @@ class NeRFSystem:
 
     def _render_dirs_chunks(self, params, dirs_stacked, c2w_pair, geom,
                             keep):
+        """One eval image: ``_render_dirs_body`` over every chunk. On the
+        card it is one replay of a graph captured per (chunks, chunk
+        size, geometry, outputs), the JAX package's one ``lax.map``:
+        the directions and the pose pair are copied into the graph's
+        static inputs, the geometry's scalars are the key's, and the
+        outputs are copied out of the graph's, so a view enqueued after
+        this one leaves them be. Returns {k: (n_chunks, chunk, ...)}."""
+        if self.graphs is None:
+            return self._render_dirs_body(params, dirs_stacked, c2w_pair,
+                                          geom, keep)
+        key = ("eval", tuple(dirs_stacked.shape), tuple(geom), tuple(keep))
+        static = self._eval_inputs.get(key)
+        if static is None:
+            static = self._eval_inputs[key] = (torch.empty_like(dirs_stacked),
+                                               torch.empty_like(c2w_pair))
+
+        def before(_):
+            static[0].copy_(dirs_stacked)
+            static[1].copy_(c2w_pair)
+
+        out = self.graphs.run(
+            key, lambda: list(params.parameters()) + list(static),
+            lambda: self._render_dirs_body(params, static[0], static[1],
+                                           geom, keep), before=before)
+        return {k: v.clone() for k, v in out.items()}
+
+    def _render_dirs_body(self, params, dirs_stacked, c2w_pair, geom, keep):
         """Render each (chunk, 3) direction chunk of ``dirs_stacked``:
         rays from the pose (NDC with the near plane at 1.0 for forward-
         facing scenes, viewdirs from ``c2w_pair[1]`` through the same

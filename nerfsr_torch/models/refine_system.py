@@ -11,11 +11,16 @@ each step reports the PSNR of the input and of the refined patch.
 A ``RefineState`` holds the step, the network (its parameters and batch
 norm's running statistics) and the Adam optimizer (b1 ``--beta1``, b2
 0.999, eps 1e-8, optax's ``scale_by_adam``) at the per-epoch schedule of
-``utils/schedule.py``; the step functions update it in place.
-``train_steps`` is the counterpart of ``train_steps_scan``: the image
-stacks live on the device (``upload_buffers``) and each step cuts its
-patches there by index (``sample_patch_batch``), so no step moves data
-between host and device. ``refine_image`` tiles an image, refines the
+``utils/schedule.py`` (``utils/optim.py``: the update, the learning rate
+and the step counts on the device); the step functions update it in
+place. The image stacks live on the device (``upload_buffers``) and
+each step cuts its patches there by index (``sample_patch_batch``), so
+no step moves data between host and device. ``train_steps_scan`` is the
+counterpart of the JAX package's ``train_steps_scan``: on the card each
+step is one replay of a captured CUDA graph (``nerfsr_torch/graphs.py``:
+the patch cut, the network's step with its batch statistics moving in
+place, Adam), on the CPU the same step body eagerly; ``train_steps`` is
+the eager loop. ``refine_image`` tiles an image, refines the
 tiles eight at a time (the last batch padded) and stitches them by
 ``start_locs``.
 
@@ -33,13 +38,16 @@ import torch
 from torch import nn
 
 from nerfsr_torch.device import resolve_device
+from nerfsr_torch.graphs import GraphCache, run_steps
 from nerfsr_torch.models import register_model
 from nerfsr_torch.models.criterions import gradient_loss
 from nerfsr_torch.models.criterions import l1 as l1_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.criterions import ssim as ssim_fn
 from nerfsr_torch.models.networks import MaxPoolingModel, UnetGenerator
-from nerfsr_torch.utils.schedule import make_lr_schedule
+from nerfsr_torch.utils.optim import Adam
+from nerfsr_torch.utils.schedule import (lr_writer, make_lr_schedule,
+                                         write_lr)
 
 UNPORTED = (
     ("refine_as_gan", "--refine_as_gan",
@@ -112,6 +120,10 @@ class RefineSystem:
                     f"= {expect}; adjust --num_ref_patches instead")
         self._steps_per_epoch = 1
         self.lr_fn = None          # built in create_state
+        # the CUDA graphs of the card's chunks (and eval images); None on
+        # the CPU, or set to None to run the card's paths eagerly
+        self.graphs = GraphCache(self.device) \
+            if self.device.type == "cuda" else None
 
     def build_net(self, seed: int = 0) -> nn.Module:
         """The network with fresh weights from ``seed`` (drawn on the CPU,
@@ -152,8 +164,9 @@ class RefineSystem:
             self._steps_per_epoch = max(1, steps_per_epoch)
         net = self.build_net(seed)
         self.lr_fn = make_lr_schedule(self.opt, self._steps_per_epoch)
-        optimizer = torch.optim.Adam(net.parameters(), lr=self.lr_fn(0),
-                                     betas=(self.opt.beta1, 0.999), eps=1e-8)
+        optimizer = Adam(net.parameters(), lr=self.lr_fn(0),
+                         betas=(self.opt.beta1, 0.999), eps=1e-8,
+                         device=self.device)
         return RefineState(step=0, net=net, optimizer=optimizer)
 
     # ------------------------------------------------------------------
@@ -186,17 +199,22 @@ class RefineSystem:
         forward (the running statistics move), losses, backward, Adam at
         the schedule's LR for this step. Updates ``state`` in place;
         returns it with the losses (detached)."""
+        write_lr(state.optimizer, self.lr_fn, state.step)
+        losses = self._step(state, batch)
+        state.step += 1
+        return state, losses
+
+    def _step(self, state: RefineState, batch):
+        """Forward, losses, backward and Adam at the learning rate already
+        written: the body of ``train_step`` and of each step of
+        ``train_steps_scan``. Returns the losses (detached)."""
         pred = self._apply(state.net, batch["sr_patch"],
                            batch["ref_patches"], train=True)
         loss, losses = self.compute_losses(pred, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        lr = self.lr_fn(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
         state.optimizer.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        return {k: v.detach() for k, v in losses.items()}
 
     def upload_buffers(self, buffers) -> Dict[str, torch.Tensor]:
         """The dataset's ``device_buffers()`` on the device, once."""
@@ -239,13 +257,36 @@ class RefineSystem:
 
     def train_steps(self, state: RefineState, buffers, n_steps: int,
                     generator: Optional[torch.Generator] = None):
-        """``n_steps`` steps on device-cut patch batches (the counterpart
-        of ``train_steps_scan``); returns the state and the last step's
-        losses (device tensors: the caller reads them once)."""
+        """``n_steps`` steps on device-cut patch batches, each launched
+        from the host (the eager counterpart of ``train_steps_scan``);
+        returns the state and the last step's losses (device tensors: the
+        caller reads them once)."""
         losses = {}
         for _ in range(n_steps):
             batch = self.sample_patch_batch(buffers, generator)
             state, losses = self.train_step(state, batch)
+        return state, losses
+
+    def train_steps_scan(self, state: RefineState, buffers, n_steps: int,
+                         generator: Optional[torch.Generator] = None):
+        """``n_steps`` steps as the JAX package's ``train_steps_scan`` runs
+        them: on the card one CUDA-graph replay a step (captured at the
+        first chunk of these buffers, after one eager step: the patch
+        cut, the step, Adam), on the CPU the same body eagerly. The
+        learning rate is written before the chunk and again only where the
+        chunk crosses an epoch's end. Returns the state and the last
+        step's losses (on the card the graph's outputs, which its next
+        replay rewrites: read them before the next chunk)."""
+        losses = run_steps(
+            self.graphs, ("train",),
+            lambda: (list(state.net.parameters()) + list(state.net.buffers())
+                     + state.optimizer.state_tensors()
+                     + list(buffers.values())),
+            lambda: self._step(state, self.sample_patch_batch(buffers,
+                                                              generator)),
+            n_steps, generator,
+            lr_writer(state.optimizer, self.lr_fn, state.step))
+        state.step += n_steps
         return state, losses
 
     # ------------------------------------------------------------------

@@ -98,11 +98,18 @@ def _eval_level(mlp, rays: Rays, points, z_vals, dir_emb,
 
 def _annealed_pad(cfg: RenderConfig, step):
     """Resample padding at this train step; ``step=None`` (eval) uses the
-    fully annealed value when an anneal is configured."""
+    fully annealed value when an anneal is configured. A tensor ``step``
+    (the device step of a captured chunk) gives a 0-d f32 tensor on its
+    device, computed in f64 as the host computes the float, so both round
+    to the same f32."""
     if cfg.prop_pad_anneal <= 0:
         return cfg.prop_pad
     if step is None:
         return cfg.prop_pad_final
+    if isinstance(step, torch.Tensor):
+        frac = torch.clamp(step.double() / cfg.prop_pad_anneal, 0.0, 1.0)
+        return (cfg.prop_pad + (cfg.prop_pad_final - cfg.prop_pad)
+                * frac).float()
     frac = min(max(float(step) / cfg.prop_pad_anneal, 0.0), 1.0)
     return cfg.prop_pad + (cfg.prop_pad_final - cfg.prop_pad) * frac
 

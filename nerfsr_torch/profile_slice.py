@@ -5,6 +5,7 @@
     python -m nerfsr_torch.profile_slice --train --preset parity
     python -m nerfsr_torch.profile_slice --refine [--refine_network
         maxpoolingmodel]
+    python -m nerfsr_torch.profile_slice --train --eager [--host_top 30]
 
 Serving (default): renders 504x378 NeRF-SR x2 views (``--fast_preset
 llff``, or ``parity`` with ``--preset``; mixed precision, full-width
@@ -17,8 +18,12 @@ steps after 3 warm-up steps. ``--refine``: the refine stage's step
 or ``--refine_network``, l1) on 20 random 504x378 views, with cuDNN's
 deterministic algorithms as ``train_refine`` runs it, in f32 as
 ``chip_smoke.py`` runs it (``--allow_tf32``: TF32 convolutions,
-PyTorch's default for cuDNN). Each runs under
-``torch.profiler`` and prints
+PyTorch's default for cuDNN). Each runs the graphed route, as the engine
+runs it on the card (each eval view one CUDA-graph replay,
+``train_steps_scan``'s chunk one replay a step, captured during the
+warm-up), or with ``--eager`` the eager route (``train_steps``, the eval
+chunk loop), and also prints where the host's time goes by operator
+(``--host_top``). Each runs under ``torch.profiler`` and prints
 the device time by kernel name, the device time per image or step, the
 wall time per image or step and the device's busy share (device time /
 wall time). Needs a CUDA card.
@@ -50,6 +55,8 @@ def _serving(args):
     from nerfsr_torch.models import create_model
 
     system = create_model(_options("test", args.preset), device="cuda")
+    if args.eager:
+        system.graphs = None
     params = system.init_params(seed=0)
     views = LLFFDownXViews.spiral(FOCAL, HR_WH, 2, args.views + 1)
     list(system.render_eval_many(params, views, [0], quantize_rgb=True))
@@ -78,10 +85,11 @@ def _training(args):
     state = system.create_state(seed=0, steps_per_epoch=buffer["rgbs"]
                                 .shape[0] // 512)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    system.train_steps(state, buffer, 3, gen)
+    steps = system.train_steps if args.eager else system.train_steps_scan
+    steps(state, buffer, 3, gen)
 
     def run():
-        system.train_steps(state, buffer, args.steps, gen)
+        steps(state, buffer, args.steps, gen)
     return run, args.steps, "step"
 
 
@@ -106,10 +114,11 @@ def _refine(args):
         "bboxes": np.tile(np.array([0, 0, w, h], np.int32), (20, 1))})
     state = system.create_state(seed=0, steps_per_epoch=1000)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    system.train_steps(state, buffers, 3, gen)
+    steps = system.train_steps if args.eager else system.train_steps_scan
+    steps(state, buffers, 3, gen)
 
     def run():
-        system.train_steps(state, buffers, args.steps, gen)
+        steps(state, buffers, args.steps, gen)
     return run, args.steps, "step"
 
 
@@ -126,6 +135,11 @@ def main(argv=None):
     ap.add_argument("--views", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager route (no CUDA graphs), with the "
+                         "host's time by operator")
+    ap.add_argument("--host_top", type=int, default=25,
+                    help="--eager: operators listed by host time")
     ap.add_argument("--preset", default="llff", choices=["llff", "parity"],
                     help="--fast_preset of the slice: llff, or parity "
                          "(coarse 64 + fine 64 samples)")
@@ -156,14 +170,30 @@ def main(argv=None):
               and e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.device_time_total for e in events)
+    route = "eager" if args.eager else "graphed"
     print(f"card: {card}")
-    print(f"{unit}s {units}: wall {wall / units * 1e3:.1f} ms/{unit} "
-          f"(under the profiler), device {device_us / units / 1e3:.2f} "
-          f"ms/{unit}, busy share {device_us / 1e6 / wall:.3f}")
+    print(f"{unit}s {units} ({route}): wall {wall / units * 1e3:.1f} "
+          f"ms/{unit} (under the profiler), device "
+          f"{device_us / units / 1e3:.2f} ms/{unit}, busy share "
+          f"{device_us / 1e6 / wall:.3f}")
     print(f"{'device ms/' + unit:>16} {'calls/' + unit:>12}  kernel")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:args.top]:
         print(f"{e.device_time_total / units / 1e3:16.3f} "
               f"{e.count / units:12.1f}  {e.key[:90]}")
+    if args.eager:
+        # the host's side: each operator's own time (without the
+        # operators it calls), summed over its calls
+        host = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU]
+        total = sum(e.self_cpu_time_total for e in host)
+        print(f"host: {total / units / 1e3:.2f} ms/{unit} of operator "
+              f"time (self), of the {wall / units * 1e3:.1f} ms/{unit} "
+              "wall")
+        print(f"{'host ms/' + unit:>16} {'calls/' + unit:>12}  operator")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[
+                :args.host_top]:
+            print(f"{e.self_cpu_time_total / units / 1e3:16.3f} "
+                  f"{e.count / units:12.1f}  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -14,9 +14,10 @@ either package reads the other's files::
 schedule "1" without it). Under ``--fix_layers`` the chain sits in
 ``{"inner_state": ...}`` (``optax.masked``) and a frozen leaf's ``mu``
 and ``nu`` are ``{}``. Kernels are transposed into ``Linear.weight`` as
-``nerfsr_torch/weights.py`` does; ``mu``/``nu`` go into torch Adam's
+``nerfsr_torch/weights.py`` does; ``mu``/``nu`` go into Adam's
 ``exp_avg``/``exp_avg_sq`` with the same transform, Adam's ``count``
-becomes each parameter's ``step``, and ``TrainState.step`` the step.
+becomes each parameter's ``step`` (an f64 tensor on the parameter's
+device, where the update reads it), and ``TrainState.step`` the step.
 The refine stage's ``RefineState`` is ``{"step", "params",
 "batch_stats", "opt_state": {"0": adam, "1": schedule}}``, its
 variables and moments in flax's layout (``weights.variable_leaves``:
@@ -136,7 +137,8 @@ def _load_refine_state_dict(state, sd: Dict[str, Any], params_only: bool):
         if coll == "params":
             mu, nu = (tree_get(adam[k], path, k) for k in ("mu", "nu"))
             state.optimizer.state[t] = {
-                "step": torch.tensor(float(state.step), dtype=torch.float32),
+                "step": torch.tensor(float(state.step), dtype=torch.float64,
+                                     device=t.device),
                 "exp_avg": from_flax_layout(mu, t, layout, path),
                 "exp_avg_sq": from_flax_layout(nu, t, layout, path)}
     return state
@@ -220,7 +222,8 @@ def load_state_dict(opt, state, sd: Dict[str, Any],
         if p not in trainable:
             raise ValueError(f"{path}: not in the optimizer")
         state.optimizer.state[p] = {
-            "step": torch.tensor(float(step), dtype=torch.float32),
+            "step": torch.tensor(float(step), dtype=torch.float64,
+                                 device=p.device),
             "exp_avg": from_jax_layout(tree_get(adam["mu"], path, "mu"),
                                        p, is_kernel, path),
             "exp_avg_sq": from_jax_layout(tree_get(adam["nu"], path, "nu"),

@@ -332,23 +332,30 @@ def _warm_kw(scene, tmp_path, **extra):
 
 
 def _recorded_train(monkeypatch, opt, **train_kw):
-    """Run ``engine.train``, recording each chunk's (first step, steps)
-    and each step's buffer size."""
-    chunks, sizes = [], []
-    real_steps, real_sample = NeRFSystem.train_steps, NeRFSystem.sample_batch
+    """Run ``engine.train``, recording each chunk's (first step, steps),
+    the route it took (``train_steps``: eager, ``train_steps_scan``: one
+    graph replay a step on the card) and each step's buffer size."""
+    chunks, routes, sizes = [], [], []
+    real_sample = NeRFSystem.sample_batch
 
-    def train_steps(self, state, buffer, n_steps, generator=None):
-        chunks.append((state.step, n_steps))
-        return real_steps(self, state, buffer, n_steps, generator)
+    def recorder(name):
+        real = getattr(NeRFSystem, name)
+
+        def run(self, state, buffer, n_steps, generator=None):
+            chunks.append((state.step, n_steps))
+            routes.append(name)
+            return real(self, state, buffer, n_steps, generator)
+        return run
 
     def sample_batch(self, buffer, generator=None):
         sizes.append(len(buffer["rgbs"]))
         return real_sample(self, buffer, generator)
-    monkeypatch.setattr(NeRFSystem, "train_steps", train_steps)
+    for name in ("train_steps", "train_steps_scan"):
+        monkeypatch.setattr(NeRFSystem, name, recorder(name))
     monkeypatch.setattr(NeRFSystem, "sample_batch", sample_batch)
     state = engine.train(opt, **train_kw)
     monkeypatch.undo()
-    return state, chunks, sizes
+    return state, chunks, routes, sizes
 
 
 def test_warmup_draws_from_the_crop_buffer_and_ends_a_chunk(
@@ -357,18 +364,21 @@ def test_warmup_draws_from_the_crop_buffer_and_ends_a_chunk(
     n_full = len(create_dataset(opt, "train").ray_buffer()["rgbs"])
     n_crop = len(create_dataset(opt, "train_crop").ray_buffer()["rgbs"])
     assert n_crop == 3 * 4 * 4 < n_full == 3 * 8 * 8
-    state, chunks, sizes = _recorded_train(
+    state, chunks, routes, sizes = _recorded_train(
         monkeypatch, opt, warmup_mode="train_crop", warmup_iters=8)
     assert state.step == 12
     # the warm-up ends inside epoch 2, off a --scan_steps boundary
     assert chunks == [(0, 4), (4, 2), (6, 2), (8, 2), (10, 2)]
     assert sizes == [n_crop] * 8 + [n_full] * 4
+    # the warm-up's chunks run eagerly, the rest as the JAX engine scans
+    assert routes == ["train_steps"] * 3 + ["train_steps_scan"] * 2
     # without a warm-up the chunks are the --scan_steps grid
     opt2 = default_options("train", **_warm_kw(
         blob_scene, tmp_path, name="plain"))
-    _, chunks, sizes = _recorded_train(monkeypatch, opt2)
+    _, chunks, routes, sizes = _recorded_train(monkeypatch, opt2)
     assert chunks == [(0, 4), (4, 2), (6, 4), (10, 2)]
     assert sizes == [n_full] * 12
+    assert routes == ["train_steps_scan"] * 4
 
 
 def test_resume_across_the_warmup_rebuilds_the_epoch(blob_scene, tmp_path):

@@ -165,12 +165,16 @@ def _train_lines(path, after_step):
     return out
 
 
-def test_resume_rebuilds_the_epoch_bit_for_bit(scene, tmp_path):
+@pytest.mark.parametrize("scan_steps", [1, 4])
+def test_resume_rebuilds_the_epoch_bit_for_bit(scene, tmp_path, scan_steps):
     """Two epochs saved each; epoch 2's files removed; a rerun from
     epoch 1 rebuilds epoch 2's checkpoint to the byte (parameters, Adam
     moments, step) and writes the same loss lines. Randomized rendering
-    and sigma noise on: the draws follow (seed, step)."""
-    kw = dict(batch_size=32, n_epochs=2, steps_per_epoch=6, scan_steps=4,
+    and sigma noise on: the draws follow (seed, step). With
+    ``--scan_steps 1`` every chunk is the eager ``train_steps``, with 4
+    ``train_steps_scan``."""
+    kw = dict(batch_size=32, n_epochs=2, steps_per_epoch=6,
+              scan_steps=scan_steps,
               save_epoch_freq=1, val_epoch_freq=1, val_freq=0,
               print_freq=2, device="cpu")
     opt = default_options("train", **_kw(scene, tmp_path, **kw))

@@ -381,7 +381,11 @@ def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):
     white background, world rays) through the engine from a 64x64 Blender
     scene written on the card, the first drawn from the train_crop
     warm-up: each step 2 B, 2 C, 2 D, 2 E and no A, and each of the two
-    networks (coarse, fine) packed once a step for C and once for E."""
+    networks (coarse, fine) packed once a step for C and once for E. The
+    second step is the first of a graphed chunk (``--scan_steps`` 20):
+    run eagerly, then captured, and the capture packs each network once
+    more for each kernel, which the graph's replays then repeat inside
+    it."""
     from nerfsr_torch import engine
     from nerfsr_torch.config import parse_options
     from nerfsr_torch.data.synthetic import write_blender_scene
@@ -419,9 +423,76 @@ def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):
                       "fused_mlp_bwd": 4}, COUNTS
     assert all(torch.isfinite(p).all() for p in state.params.parameters())
     # every pack is of another (kind, network, parameter state): a
-    # network is packed once per kind in a step, and the optimizer's
-    # update between the steps makes the second step pack again
-    assert len(set(packs)) == len(packs) == 8, packs
+    # network is packed once per kind in a step and in the capture, and
+    # the optimizer's update between them makes each pack again
+    assert len(set(packs)) == len(packs) == 12, packs
     for kind in ("pack_tc", "pack_tc_bwd"):
         nets = [net for k, net, _ in packs if k == kind]
-        assert sorted(nets.count(n) for n in set(nets)) == [2, 2], packs
+        assert sorted(nets.count(n) for n in set(nets)) == [3, 3], packs
+
+
+def test_graphed_chunk_and_eval_equal_the_eager_route(dev):
+    """The twin of ``chip_smoke.py``'s graphs phase at 64x48: NeRF-SR x2
+    (``--fast_preset llff``, mixed, the full-width MLP) trains a 6-step
+    chunk through ``train_steps_scan`` (one eager step, the capture, five
+    replays) and through the eager ``train_steps`` from the same seed:
+    every parameter, moment and step count equal bit for bit, each route
+    2 A, 1 B, 1 C, 1 D, 1 E a step. Then each eval view, one replay,
+    equals the chunk loop."""
+    import numpy as np
+
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.data.views import LLFFDownXTrainViews, LLFFDownXViews
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.weights import param_leaves
+
+    hw, steps = (64, 48), 6
+    opt = default_options("train", model="nerf_downX",
+                          dataset_mode="llff_downX", fast_preset="llff",
+                          img_wh=hw, downscale=2, precision="mixed",
+                          batch_size=64, include_var=True, ds_method="avg")
+    teacher_sys = create_model(opt, device=dev)
+    teacher = teacher_sys.init_params(seed=1)
+    with torch.no_grad():
+        for net in teacher.values():
+            net.sigma.bias += 3.0
+    buf = LLFFDownXTrainViews.rendered(teacher_sys, teacher, 52.0, hw, 2,
+                                       3).ray_buffer(dev)
+    per_step = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
+                "composite_bwd": 1, "fused_mlp_bwd": 1}
+    states = {}
+    for route in ("eager", "graphed"):
+        system = create_model(opt, device=dev)
+        state = system.create_state(seed=0, steps_per_epoch=4)
+        run = system.train_steps if route == "eager" \
+            else system.train_steps_scan
+        reset_counts()
+        state, _ = run(state, buf, steps,
+                       torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        assert COUNTS == {k: v * steps for k, v in per_step.items()}
+        states[route] = state
+    (graph,) = system.graphs.entries().values()
+    assert graph.replays == steps - 1
+    a, b = states["eager"], states["graphed"]
+    assert a.step == b.step == int(b.step_t) == steps
+    for (_, p, _), (_, q, _) in zip(param_leaves(a.params),
+                                    param_leaves(b.params)):
+        assert torch.equal(p, q)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(a.optimizer.state[p][key],
+                               b.optimizer.state[q][key])
+
+    views = LLFFDownXViews.spiral(52.0, hw, 2, 3)
+    renders = {}
+    for route in ("eager", "graphed"):
+        system = create_model(opt, device=dev)
+        if route == "eager":
+            system.graphs = None
+        renders[route] = list(system.render_eval_many(b.params, views,
+                                                      range(3)))
+    (graph,) = system.graphs.entries().values()
+    assert graph.replays == 2
+    for x, y in zip(renders["eager"], renders["graphed"]):
+        for k in x:
+            assert np.array_equal(x[k], y[k]), k
