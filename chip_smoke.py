@@ -99,7 +99,25 @@
    test_refine
    ms/image with and without the writes. The path launches none of the
    five kernels (its convolutions are cuDNN's), and it checks that;
-9. prints a JSON line of details (also written to
+9. aux: the auxiliary training paths at full width on the engine
+   phase's scene, each through ``engine.train`` for one epoch of 20
+   steps with the flags of ``scripts/train_llff_downX_fast.sh``
+   (``AUX_PATHS``): ``--with_netD`` (vanilla, ``--patch_len 32``,
+   ``--gan_iter 10``) with ``--reg_patch --reg_patch_freq 5``;
+   ``--gan_mode wgangp --use_grad``; ``--with_ref`` at ``--ref_freq`` 1
+   and 3; and patch mode at ``scripts/train_llff.sh``'s widths
+   (vanilla NeRF, 252x189, batch 2048, 64 + 64 samples, ``--patch_size
+   32``, both depth-Laplacian weights and the fine VGG weight on a
+   synthetic VGG19 archive it writes). Each: the engine's launch counts
+   exactly the cadence's (20 main steps, 2 GAN and 4 TV updates: 56 A,
+   28 B, 28 C, 26 D, 26 E), one update through the kernels against the
+   plain versions in f32 and mixed precision, a graphed 20-step chunk
+   equal to the eager one bit for bit (the discriminator too) with exact
+   counts on both routes, and both routes' ms/step. Before it (with the
+   kernel checks) ``check_aux_shapes`` holds A, B and D at N = 4 and
+   1,024 rays and C and E at P = 64 and 16,384 points, the reg and GAN
+   patches' shapes, against their plain versions;
+10. prints a JSON line of details (also written to
    ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
    summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -700,6 +718,90 @@ def check_new_shapes(dev, gen):
                kernel_vs_f64_rel=kernel_vs_f64)
         del flat, x0, dmb, grgb, gsig, got, ref
         torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def check_aux_shapes(dev, gen):
+    """Every kernel against its plain version, and timed, at the shapes
+    the auxiliary paths give it for the first time: the reg patch's 4 HR
+    rays and the GAN patch's 1,024 (``--fast_preset llff``): A at both
+    proposal rounds (47 bins, Q 24; 23 bins, Q 16), B and D at S = 16
+    (every cotangent nonzero: the depth's, as patch mode's Laplacian
+    sends one), C and E in bf16 at P = 64 and 16,384 (16 samples a ray);
+    P = 64 is below one of C's and E's tiles."""
+    from nerfsr_torch.core.rendering import volumetric_rendering as plain
+    from nerfsr_torch.core.sampling import _invert_cdf
+    from nerfsr_torch.kernels import mlp as kmlp
+    from nerfsr_torch.kernels.composite import (composite_bwd,
+                                                composite_bwd_plain,
+                                                volumetric_rendering)
+    from nerfsr_torch.kernels.sampling import invert_cdf
+    from nerfsr_torch.timing import (composite_bwd_bytes,
+                                     composite_bwd_inputs,
+                                     composite_fwd_bytes, composite_inputs,
+                                     invert_cdf_bytes, invert_cdf_inputs,
+                                     time_ms)
+    out = {"A": [], "B": [], "D": [], "C": [], "E": []}
+
+    def record(kernel, shape, err, fn, plain_fn, bound, **extra):
+        iters = 5 if kernel in "CE" else 20
+        row = {**shape, "max_abs_err": err, "ms": time_ms(fn, iters=iters),
+               "plain_ms": time_ms(plain_fn, iters=iters),
+               "bound_ms": bound, **extra}
+        out[kernel].append(row)
+        print(f"[aux shapes] kernel {kernel} {shape}: max abs err "
+              f"{err:.3e}; {row['ms']:.4f} ms a call, plain "
+              f"{row['plain_ms']:.4f} ms, bound {bound:.6f} ms")
+
+    bf16 = torch.bfloat16
+    for n in (4, 1024):
+        for b, q in ((47, 24), (23, 16)):
+            bins, w, u = invert_cdf_inputs(n, b, q, gen, dev)
+            err = max_err(invert_cdf(bins, w, u), _invert_cdf(bins, w, u),
+                          0.0, TOL_INVERT_CDF, f"invert_cdf N={n} B={b}")
+            record("A", {"n": n, "bins": b, "q": q}, err,
+                   lambda: invert_cdf(bins, w, u),
+                   lambda: _invert_cdf(bins, w, u),
+                   invert_cdf_bytes(n, b, q) / HBM_BYTES_PER_S * 1e3)
+        rgb, sigma, z = composite_inputs(n, 16, gen, dev)
+        err = max(max_err(g, r, *TOL_COMPOSITE, f"composite N={n}")
+                  for g, r in zip(volumetric_rendering(rgb, sigma, z, False),
+                                  plain(rgb, sigma, z, False)))
+        record("B", {"n": n, "s": 16}, err,
+               lambda: volumetric_rendering(rgb, sigma, z, False),
+               lambda: plain(rgb, sigma, z, False),
+               composite_fwd_bytes(n, 16) / HBM_BYTES_PER_S * 1e3)
+        args = composite_bwd_inputs(n, 16, gen, dev)
+        err = max(max_err(g, r, *TOL_COMPOSITE_BWD, f"composite_bwd N={n}")
+                  for g, r in zip(composite_bwd(*args, False),
+                                  composite_bwd_plain(*args, False)))
+        record("D", {"n": n, "s": 16}, err,
+               lambda: composite_bwd(*args, False),
+               lambda: composite_bwd_plain(*args, False),
+               composite_bwd_bytes(n, 16) / HBM_BYTES_PER_S * 1e3)
+        p = n * 16
+        flat, x0, dmb, grgb, gsig = _mlp_case(p, gen, dev)
+        rgb, sigma = kmlp.fused_mlp_fwd(flat, x0, dmb, bf16)
+        rgb_r, sigma_r = kmlp.fused_mlp_plain(flat, x0, dmb, bf16)
+        err = max(max_err(rgb, rgb_r, *TOL_MLP_BF16, f"fused_mlp P={p}"),
+                  max_err(sigma, sigma_r, *TOL_MLP_BF16,
+                          f"fused_mlp P={p} sigma"))
+        record("C", {"p": p, "dtype": "bf16"}, err,
+               lambda: kmlp.fused_mlp_fwd(flat, x0, dmb, bf16),
+               lambda: kmlp.fused_mlp_plain(flat, x0, dmb, bf16),
+               mlp_fwd_bound(p, "bf16")[1])
+        got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, bf16)
+        ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, bf16)
+        rel, abs_err = leaf_errors(got, ref)
+        if rel > TOL_MLP_BWD["bf16"]:
+            fail(f"fused_mlp_bwd bf16 P={p}: leaf err {rel:.3e} (bar "
+                 f"{TOL_MLP_BWD['bf16']})")
+        record("E", {"p": p, "dtype": "bf16"}, abs_err,
+               lambda: kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, bf16),
+               lambda: kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig,
+                                                bf16),
+               mlp_bwd_bound(p, "bf16")[1], max_leaf_rel_err=rel)
     return out
 
 
@@ -2003,6 +2105,326 @@ def refine_phase(dev, card, work):
     return out
 
 
+# aux phase: the auxiliary training paths at full width on the engine
+# phase's scene, with scripts/train_llff_downX_fast.sh's flags (504x378,
+# x2, --batch_size 512, --fast_preset llff, mixed, --scan_steps 20) cut to
+# one epoch of 20 steps; patch mode at scripts/train_llff.sh's (vanilla
+# NeRF, 252x189, batch 2048, 64 + 64 samples) with --patch_size 32
+AUX_STEPS = 20
+AUX_PATCH_WH = (252, 189)
+AUX_PATCH_BATCH = 2048
+_MAIN = FAST[0]
+_GAN = {"invert_cdf": 4, "composite_fwd": 2, "fused_mlp_fwd": 2,
+        "composite_bwd": 1, "fused_mlp_bwd": 1}     # two renders, one bwd
+_REF = {k: 2 * v for k, v in _MAIN.items()}        # the main and ref rays
+
+
+def _sum(*parts):
+    """{kernel: launches} of (counts, times) parts."""
+    return {k: sum(c[k] * n for c, n in parts) for k in _MAIN}
+
+
+# a gradient leaf's norm floor, as a share of the update's whole gradient
+AUX_LEAF_FLOOR = 1e-2
+# in mixed precision, what D says of a rendered patch (D_fake, G_GAN):
+# the bf16 renders of the kernels and of the plain versions differ by up
+# to SLICE_MIXED's mean, and D's logits carry it (seen 1.4e-3 and
+# 3.3e-3; in f32 the same losses agree to 5e-6)
+AUX_VERDICT_MIXED = 1e-2
+AUX_PATHS = {
+    # 20 main steps, the GAN after steps 10 and 20, the TV update after
+    # 5, 10, 15 and 20
+    "gan_reg": dict(flags=["--with_netD", "--patch_len", "32",
+                           "--gan_iter", "10", "--reg_patch",
+                           "--reg_patch_freq", "5"],
+                    counts=_sum((_MAIN, 20), (_GAN, 2), (_MAIN, 4)),
+                    updates=6),
+    "wgangp": dict(flags=["--with_netD", "--patch_len", "32", "--gan_iter",
+                          "10", "--gan_mode", "wgangp", "--use_grad"],
+                   counts=_sum((_MAIN, 20), (_GAN, 2)), updates=2),
+    "ref1": dict(flags=["--with_ref", "--ref_freq", "1"],
+                 counts=_sum((_REF, 20)), updates=0),
+    "ref3": dict(flags=["--with_ref", "--ref_freq", "3"],
+                 counts=_sum((_REF, 20)), updates=0),
+    "patch": dict(flags=["--lambda_coarse_depth_lap", "0.1",
+                         "--lambda_fine_depth_lap", "0.1",
+                         "--lambda_fine_vgg", "0.05"],
+                  counts=_sum((PARITY[0], 20)), updates=0),
+}
+
+
+def aux_argv(scene, work, name, *extra):
+    """The training flags of an aux path (``name``)."""
+    if name == "patch":
+        argv = ["--name", "aux_patch", "--model", "nerf", "--dataset_mode",
+                "llff", "--dataset_root", scene,
+                "--img_wh", *map(str, AUX_PATCH_WH),
+                "--N_coarse", "64", "--N_importance", "64",
+                "--sigma_activation", "relu",
+                "--batch_size", str(AUX_PATCH_BATCH),
+                "--patch_size", "32", "--vgg_weights",
+                os.path.join(work, "vgg_synthetic.npz"),
+                "--lr", "5e-4", "--lr_final", "5e-6", "--lr_policy", "exp",
+                "--scan_steps", "20",
+                "--checkpoints_dir", os.path.join(work, "checkpoints"),
+                "--summary_dir", os.path.join(work, "runs")]
+    else:
+        argv = engine_argv(scene, work, "train", "--name", f"aux_{name}")
+    return argv + ["--n_epochs", "1", "--steps_per_epoch", str(AUX_STEPS),
+                   "--val_freq", "0", "--val_epoch_freq", "0",
+                   "--save_epoch_freq", "1"] \
+        + AUX_PATHS[name]["flags"] + list(extra)
+
+
+def _gan_tensors(gs):
+    """The discriminator's parameters, spectral-norm statistics and Adam
+    state, by name."""
+    out = {}
+    for name, t in list(gs.net.named_parameters()) + list(
+            gs.net.named_buffers()):
+        out[f"D/{name}"] = t
+    for i, p in enumerate(gs.net.parameters()):
+        for k, v in gs.optimizer.state[p].items():
+            out[f"D/{i}/{k}"] = v
+    return out
+
+
+def _aux_buffers(name, opt, dev):
+    """The path's device buffers, built once from its training split: the
+    ray buffer (patch mode: the image buffer), the reference rays, and
+    the GAN/TV patches' raygen buffers with their geometry."""
+    from nerfsr_torch.data import create_dataset
+    ds = create_dataset(opt, "train")
+
+    def up(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in b.items()}
+    out = {"buf": up(ds.image_buffer() if name == "patch"
+                     else ds.ray_buffer()),
+           "ref": up(ds.ref_buffer()) if opt.with_ref else None,
+           "gan": None, "geom": None}
+    if opt.with_netD or opt.reg_patch:
+        bufs, out["geom"] = ds.gan_raygen_buffers()
+        out["gan"] = up(bufs)
+    return out
+
+
+class _AuxCase:
+    """One aux path's system and fresh state (and discriminator) from its
+    options, on the path's buffers; ``chunk`` runs the path's chunk of
+    ``AUX_STEPS`` main steps, ``step`` one update of its own kind."""
+
+    def __init__(self, name, opt, dev, bufs):
+        from nerfsr_torch.models import create_model
+        self.name, self.opt, self.b = name, opt, bufs
+        self.system = create_model(opt, device=dev)
+        self.state = self.system.create_state(seed=opt.seed,
+                                              steps_per_epoch=AUX_STEPS)
+        self.gs = self.system.create_gan_state(opt.seed + 1) \
+            if opt.with_netD else None
+
+    def chunk(self, gen, it0=0):
+        sys_, st, b = self.system, self.state, self.b
+        if self.name == "patch":
+            self.state, losses = sys_.train_steps_scan_patches(
+                st, b["buf"], AUX_STEPS, self.opt.patch_size, gen)
+        elif b["ref"] is not None:
+            self.state, losses = sys_.train_steps_scan_with_ref(
+                st, b["buf"], b["ref"], AUX_STEPS, self.opt.ref_freq, it0,
+                gen)
+        else:
+            self.state, self.gs, losses = sys_.train_steps_scan_gan(
+                st, self.gs, b["buf"], b["gan"], AUX_STEPS, b["geom"], it0,
+                gen, with_reg=self.opt.reg_patch)
+        return losses
+
+    def step(self, gen):
+        """One update of the path's own kind, eagerly (a with-ref or patch
+        step; the GAN update and then the TV update at fixed patches).
+        Returns the losses and the gradient leaves each update left (the
+        NeRF's, and D's), copied."""
+        sys_, st, b = self.system, self.state, self.b
+
+        def leaves(tag):
+            out = [(f"{tag}{n}", p.grad.clone())
+                   for n, p in st.params.named_parameters()]
+            if self.gs is not None and tag == "gan/":
+                out += [(f"D/{n}", p.grad.clone())
+                        for n, p in self.gs.net.named_parameters()]
+            return out
+        if self.name == "patch":
+            return sys_.train_step_patches(st, b["buf"], gen)[1], leaves("")
+        if b["ref"] is not None:
+            losses = sys_.train_step_with_ref(st, b["buf"], b["ref"],
+                                              gen)[1]
+            return losses, leaves("")
+        # the patches: view 1 at the middle LR position, view 2 at a third
+        wl, hl = HR_WH[0] // DOWNSCALE, HR_WH[1] // DOWNSCALE
+        plen_lr = self.opt.patch_len // DOWNSCALE
+        losses = sys_._run_aux("gan", st, self.gs, b["gan"], b["geom"], gen,
+                               draws=torch.tensor([1, (hl - plen_lr) // 2,
+                                                   (wl - plen_lr) // 2]))
+        grads = leaves("gan/")
+        if self.opt.reg_patch:
+            losses.update(sys_._run_aux(
+                "reg", st, None, b["gan"], b["geom"], gen,
+                draws=torch.tensor([2, hl // 3, wl // 3])))
+            grads += leaves("reg/")
+        return losses, grads
+
+    def tensors(self):
+        out = _state_tensors(self.state)
+        if self.gs is not None:
+            out.update(_gan_tensors(self.gs))
+        return out
+
+
+def _aux_vs_plain(name, opt, dev, bufs):
+    """One update of the path through the kernels and through the plain
+    versions on the card (no jitter, no noise, eager), in f32 and in the
+    path's mixed precision: each loss within the bar times max(|loss|, 1)
+    (the TV of a 2x2 HR patch is a difference of nearly equal colours,
+    small beside them) and each gradient leaf of the NeRF (and of D)
+    within the bar of its norm, floored at ``AUX_LEAF_FLOOR`` of the
+    update's whole gradient (a one-element bias sums terms that cancel);
+    the training step's bars (``STEP_BARS``; in mixed precision D's
+    verdict on the patch to ``AUX_VERDICT_MIXED``). D's Adam step takes
+    ``--gan_lr`` 1e-9 here: its first step is lr times a sign, which
+    turns where D's gradient is within rounding of zero and would move
+    what D says to G by far more than the kernels' rounding."""
+    out = {}
+    for precision in ("f32", "mixed"):
+        popt = copy.copy(opt)
+        popt.randomized, popt.noise_std = False, 0.0
+        popt.precision, popt.gan_lr = precision, 1e-9
+        res = {}
+        for route in ("kernels", "plain"):
+            case = _AuxCase(name, popt, dev, bufs)
+            case.system.graphs = None
+            case.system.render_cfg = dataclasses.replace(
+                case.system.render_cfg, plain=route == "plain")
+            gen = torch.Generator(device=dev).manual_seed(5)
+            losses, leaves = case.step(gen)
+            res[route] = ({k: float(v) for k, v in losses.items()}, leaves)
+            del case
+        (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+        loss_err = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1.0)
+                    for k in lp if "psnr" not in k}
+        total = float(torch.sqrt(sum(b.double().pow(2).sum()
+                                     for _, b in gp)))
+        rels = {}
+        for (leaf, a), (_, b) in zip(gk, gp):
+            if not torch.isfinite(a).all():
+                fail(f"aux {name} {precision}: gradient {leaf} non-finite")
+            rels[leaf] = float((a.double() - b.double()).norm()) / max(
+                float(b.double().norm()), AUX_LEAF_FLOOR * total, 1e-30)
+        worst = max(rels, key=rels.get)
+        loss_bar, grad_bar = STEP_BARS[precision]
+        bars = {k: AUX_VERDICT_MIXED if precision == "mixed"
+                and k in ("D_fake", "G_GAN") else loss_bar for k in loss_err}
+        out[precision] = {"loss_err": loss_err, "max_leaf_rel": rels[worst],
+                          "worst_leaf": worst, "median_leaf_rel":
+                          float(np.median(list(rels.values())))}
+        over = [k for k in loss_err if loss_err[k] > bars[k]]
+        if over or rels[worst] > grad_bar:
+            fail(f"aux {name} {precision}: kernels vs plain: losses "
+                 f"{ {k: loss_err[k] for k in over} } (bars "
+                 f"{ {k: bars[k] for k in over} }), gradient {worst} "
+                 f"{rels[worst]:.3e} (bar {grad_bar})")
+    return out
+
+
+def aux_phase(dev, card, work):
+    """The auxiliary training paths (``AUX_PATHS``) through the entry
+    points on the engine phase's scene: each trains one epoch (one chunk
+    of 20 main steps) through ``engine.train`` with exact launch counts
+    (the GAN and TV updates at their cadence); then one update through
+    the kernels against the plain versions; a graphed chunk equal to the
+    eager one from the same seed bit for bit (the discriminator's
+    parameters, statistics and moments too), with exact counts on both
+    routes; and each route's ms/step over a second chunk."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models.criterions import write_synthetic_vgg_npz
+
+    # the discriminator's and VGG's convolutions: deterministic cuDNN, as
+    # the engine asks for on these paths (graphed equal to eager)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    scene = os.path.join(work, "scene")
+    write_synthetic_vgg_npz(os.path.join(work, "vgg_synthetic.npz"))
+    out = {}
+    for name, path in AUX_PATHS.items():
+        t_run = time.perf_counter()
+        argv = aux_argv(scene, work, name)
+        opt = parse_options("train", argv)
+        reset_counts()
+        state = engine.train(opt)
+        torch.cuda.synchronize()
+        if dict(COUNTS) != path["counts"]:
+            fail(f"aux {name}: the engine's launch counts {dict(COUNTS)}, "
+                 f"expected {path['counts']}")
+        if state.step != AUX_STEPS + path["updates"]:
+            fail(f"aux {name}: the engine ended at step {state.step}")
+        bufs = _aux_buffers(name, opt, dev)
+        res = {"engine_launches": dict(COUNTS),
+               "vs_plain": _aux_vs_plain(name, opt, dev, bufs)}
+        runs = {}
+        for route in ("eager", "graphed"):
+            case = _AuxCase(name, opt, dev, bufs)
+            if route == "eager":
+                case.system.graphs = None
+            gen = torch.Generator(device=dev).manual_seed(0)
+            reset_counts()
+            case.chunk(gen)
+            torch.cuda.synchronize()
+            if dict(COUNTS) != path["counts"]:
+                fail(f"aux {name} {route} chunk: launch counts "
+                     f"{dict(COUNTS)}, expected {path['counts']}")
+            runs[route] = case.tensors()
+            gen.manual_seed(1)
+            t0 = time.perf_counter()
+            losses = case.chunk(gen, it0=AUX_STEPS)
+            vals = torch.stack([v.float() for v in losses.values()]).cpu()
+            res[f"{route}_ms_per_step"] = (time.perf_counter() - t0) \
+                / AUX_STEPS * 1e3
+            if not torch.isfinite(vals).all():
+                fail(f"aux {name} {route}: non-finite losses")
+            if route == "graphed":
+                graphs = case.system.graphs.entries()
+                res["graphs"] = {str(k): {
+                    "capture_s": e.capture_s,
+                    "pool_mib": e.pool_bytes / 2 ** 20,
+                    "replays": e.replays} for k, e in graphs.items()}
+            del case
+        a, b = runs["eager"], runs["graphed"]
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ or a.keys() != b.keys():
+            fail(f"aux {name}: the graphed chunk differs from the eager one "
+                 f"in {len(differ)} tensors, first {differ[:3]}")
+        res.update(tensors_equal=len(a), run_s=time.perf_counter() - t_run)
+        pools = sum(g["pool_mib"] for g in res["graphs"].values())
+        vp = res["vs_plain"]
+        print(f"[aux] {name}: engine epoch of {AUX_STEPS} main steps to step "
+              f"{state.step}, launches {res['engine_launches']} as the "
+              f"cadence says; one update kernels vs plain (f32 / mixed): "
+              f"worst loss {max(vp['f32']['loss_err'].values()):.2e} / "
+              f"{max(vp['mixed']['loss_err'].values()):.2e}, worst "
+              f"gradient leaf {vp['f32']['max_leaf_rel']:.2e} / "
+              f"{vp['mixed']['max_leaf_rel']:.2e} "
+              f"({vp['mixed']['worst_leaf']}); a {AUX_STEPS}-step chunk "
+              f"graphed equal to eager in {len(a)} tensors bit for bit; "
+              f"{res['graphed_ms_per_step']:.2f} ms/step graphed, "
+              f"{res['eager_ms_per_step']:.2f} eager; {len(res['graphs'])} "
+              f"graphs, pools {pools:.0f} MiB; run {res['run_s']:.1f} s; on "
+              f"{card}")
+        out[name] = res
+        del state, runs, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2034,6 +2456,7 @@ def main():
     d = check_composite_bwd(dev, gen)
     e = check_fused_mlp_bwd(dev, gen)
     new_shapes = check_new_shapes(dev, gen)
+    new_shapes["aux"] = check_aux_shapes(dev, gen)
     serve_counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
     counts, train, buffer = train_phase(dev, card)
     graphs_out = graphs_phase(dev, card, buffer)
@@ -2046,6 +2469,9 @@ def main():
                                       os.path.join(work, "scene"))
         datasets_out["phase_s"] = time.perf_counter() - t0
         refine_out = refine_phase(dev, card, work)
+        t0 = time.perf_counter()
+        aux_out = aux_phase(dev, card, work)
+        aux_out["phase_s"] = time.perf_counter() - t0
 
     # launches: the timed training window (graph replays), which runs all
     # five kernels
@@ -2097,6 +2523,7 @@ def main():
                                  "new_shapes": new_shapes,
                                  "datasets": datasets_out,
                                  "refine": refine_out,
+                                 "aux": aux_out,
                                  "card": card}})
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         f.write(detail + "\n")

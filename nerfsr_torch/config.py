@@ -16,13 +16,15 @@ versions on the CPU, as ``JAX_PLATFORMS=cpu`` does for the JAX package.
 The JAX package's TPU-only flags (``--use_pallas*``, ``--pallas_mlp_bwd``,
 ``--pallas_interpret``, ``--compilation_cache_dir``) are accepted and
 ignored: on CUDA the kernels run wherever their JAX counterparts could.
-Flags of paths the port does not cover yet (``--with_ref``,
-``--with_netD``, ``--reg_patch``, ``--patch_size``, ``--mesh_devices``)
-are accepted so that the engine can refuse them by name. The refine
-stage's flags (the refine model, ``llff_refine`` dataset and network
-options) keep the JAX package's names and defaults too;
-``--refine_as_gan`` and ``--refine_with_vgg`` are accepted so that the
-refine system can refuse them by name.
+The auxiliary training paths' flags (``--with_ref`` with
+``--ref_freq``/``--ref_idx``/``--all_ref``, ``--patch_size`` with the
+depth-Laplacian and VGG weights, ``--with_netD`` with the GAN's,
+``--reg_patch`` with its length, cadence and weight) keep the JAX
+package's names and defaults. ``--mesh_devices`` is accepted so that the
+engine can refuse it by name. The refine stage's flags (the refine
+model, ``llff_refine`` dataset and network options) keep the JAX
+package's names and defaults too; ``--refine_as_gan`` is accepted so
+that the refine system can refuse it by name.
 """
 
 from __future__ import annotations
@@ -192,11 +194,36 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
                         "engine; losses are read once per chunk")
     p.add_argument("--log_every", type=int, default=0,
                    help="train-loss log cadence (0 = --print_freq)")
+    p.add_argument("--train_crop", action="store_true")
+
+    # ---- the auxiliary training paths ----
+    # --with_ref: the reference view's HR rays beside each batch
     p.add_argument("--with_ref", action="store_true")
     p.add_argument("--no_ref_loss", action="store_true")
+    p.add_argument("--ref_freq", type=int, default=1)
+    p.add_argument("--all_ref", action="store_true")
+    # patch mode (--patch_size > 1): depth Laplacian and VGG
+    p.add_argument("--lambda_coarse_depth_lap", type=float, default=0.0)
+    p.add_argument("--lambda_fine_depth_lap", type=float, default=0.0)
+    p.add_argument("--lambda_coarse_vgg", type=float, default=0.0)
+    p.add_argument("--lambda_fine_vgg", type=float, default=0.0)
+    p.add_argument("--bilateral_gamma", type=float, default=0.1)
+    # --with_netD: the adversarial patch update
     p.add_argument("--with_netD", action="store_true")
+    p.add_argument("--dis_network", type=str, default="nlayerdiscriminator")
+    p.add_argument("--ndf_dis", type=int, default=64)
+    p.add_argument("--lambda_gan", type=float, default=0.005)
+    p.add_argument("--use_grad", action="store_true")
+    p.add_argument("--gan_lr", type=float, default=5e-4)
+    p.add_argument("--gan_mode", type=str, default="vanilla",
+                   choices=["vanilla", "lsgan", "wgangp"])
+    p.add_argument("--start_epoch", type=int, default=0)
+    p.add_argument("--gan_iter", type=int, default=10)
+    # --reg_patch: total variation of a rendered HR patch
     p.add_argument("--reg_patch", action="store_true")
-    p.add_argument("--train_crop", action="store_true")
+    p.add_argument("--reg_patch_len", type=int, default=1)
+    p.add_argument("--reg_patch_freq", type=int, default=5)
+    p.add_argument("--reg_lambda_tv", type=float, default=1.0)
 
     # ---- llff / llff_downX dataset options ----
     p.add_argument("--spheric_poses", action="store_true")

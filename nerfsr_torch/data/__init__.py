@@ -11,9 +11,6 @@ device-raygen specs for eval. Ported: ``llff`` (``llff.py``),
 
 DATASET_REGISTRY = {}
 
-# what the datasets refuse for the training paths still to port
-AUX = "not ported yet (ROADMAP.md queue 1 item 4, auxiliary training paths)"
-
 
 def register_dataset(name):
     def deco(cls):

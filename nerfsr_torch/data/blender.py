@@ -24,9 +24,10 @@ import os
 
 import numpy as np
 
-from nerfsr_torch.data import AUX, register_dataset
+from nerfsr_torch.data import register_dataset
 from nerfsr_torch.data.downx_common import blend_white, load_image
-from nerfsr_torch.data.llff import _ray_dirs_np, cached_eval_dirs, pose_rays
+from nerfsr_torch.data.llff import (_ray_dirs_np, cached_eval_dirs,
+                                    image_buffer, pose_rays)
 
 NEAR, FAR = 2.0, 6.0
 MODES = ("train", "train_crop", "val", "test", "test_train")
@@ -82,9 +83,6 @@ class BlenderScene:
         return {"c2w": frame_c2w(self.frames[idx]),
                 "geom": ("world", float(self.near), float(self.far))}
 
-    def image_buffer(self):
-        raise NotImplementedError(f"patch mode's image_buffer is {AUX}")
-
 
 @register_dataset("blender")
 class BlenderDataset(BlenderScene):
@@ -118,6 +116,15 @@ class BlenderDataset(BlenderScene):
                     v = v[h // 2 - dh:h // 2 + dh, w // 2 - dw:w // 2 + dw]
                 parts[k].append(v.reshape(-1, v.shape[-1]))
         return {k: np.concatenate(v) for k, v in parts.items()}
+
+    def image_buffer(self):
+        """The training rays image by image, (N_img, H, W, C) for each
+        field of ``ray_buffer``: patch mode's (``--patch_size`` > 1)
+        source of contiguous pixels."""
+        if self.mode != "train":
+            raise ValueError(f"image_buffer is the train split's, not "
+                             f"{self.mode}'s")
+        return image_buffer(self.ray_buffer(), self.img_wh)
 
     def eval_dirs(self):
         """The direction grid in raster order (cached)."""

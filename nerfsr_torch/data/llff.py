@@ -19,7 +19,9 @@ forward-facing scenes (near/far 0/1) or in world bounds with
 ``--spheric_poses``, images Lanczos-resized to ``img_wh``; modes
 ``train``, ``val``, ``test`` (spiral or spheric path), ``test_train`` and
 ``test_viewdir`` (test pose 10 seen with each path pose's view
-directions); ``--include_var``. The JAX package builds the training rays
+directions); ``--include_var``; the auxiliary paths' ``ref_buffer``
+(the ``--ref_idx`` view's HR rays and colours, ``--with_ref``) and
+``image_buffer`` (the training rays image by image, patch mode). The JAX package builds the training rays
 with its host C++ raygen where that is built; the port builds them in
 numpy (the same rays within 1e-6).
 """
@@ -30,7 +32,7 @@ import os
 
 import numpy as np
 
-from nerfsr_torch.data import AUX, register_dataset
+from nerfsr_torch.data import register_dataset
 from nerfsr_torch.data.colmap import read_model
 from nerfsr_torch.data.downx_common import group_subpixels, load_image
 
@@ -161,6 +163,14 @@ def pose_rays(directions, c2w, img_wh, focal, near_far, spheric=False):
             "directions": rd.reshape(h, w, 3),
             "near": np.full((h, w, 1), near, np.float32),
             "far": np.full((h, w, 1), far, np.float32)}
+
+
+def image_buffer(flat, img_wh):
+    """A flat training buffer of whole images, (N_img * H * W, C) a
+    field, as (N_img, H, W, C)."""
+    w, h = img_wh
+    n_img = len(flat["rgbs"]) // (h * w)
+    return {k: v.reshape(n_img, h, w, v.shape[-1]) for k, v in flat.items()}
 
 
 def llff_eval_raygen_spec(ds_obj, idx):
@@ -330,10 +340,28 @@ class LLFFDataset:
         return {k: np.concatenate(v) for k, v in parts.items()}
 
     def ref_buffer(self, downscale=None):
-        raise NotImplementedError(f"--with_ref's ref_buffer is {AUX}")
+        """Flat HR rays and colours of the reference view (``--ref_idx``)
+        at ``img_wh * downscale`` for the ``--with_ref`` loss: origins,
+        directions, viewdirs, near, far, rgbs."""
+        ds = downscale or self.opt.downscale
+        w, h = self.img_wh
+        wh_hr, focal_hr = (w * ds, h * ds), self.focal * ds
+        dirs = _ray_dirs_np(h * ds, w * ds, focal_hr,
+                            self.opt.use_pixel_centers)
+        ref_idx = self.opt.ref_idx
+        rays = {k: v.reshape(-1, v.shape[-1]) for k, v in pose_rays(
+            dirs, self.poses[ref_idx], wh_hr, focal_hr, self._near_far(),
+            self.spheric).items()}
+        rays["viewdirs"] = rays["directions"]
+        rays["rgbs"] = load_image(self.image_paths[ref_idx], wh_hr).reshape(
+            -1, 3).astype(np.float32)
+        return rays
 
     def image_buffer(self):
-        raise NotImplementedError(f"patch mode's image_buffer is {AUX}")
+        """The training rays image by image, (N_img, H, W, C) for each
+        field of ``ray_buffer``: patch mode's (``--patch_size`` > 1)
+        source of contiguous pixels."""
+        return image_buffer(self.ray_buffer(), self.img_wh)
 
     def eval_raygen_spec(self, idx):
         """Pose + static geometry for device-side eval raygen."""

@@ -5,10 +5,18 @@ pose pipeline (``data/llff.py``), HR rays at ``img_wh``, NDC-warped for
 forward-facing scenes and grouped per LR pixel, LR ground truth by
 ``--ds_method`` from the HR image (read by the port's PNG reader and
 Lanczos-resized to ``img_wh`` when its size differs), HR truth kept
-grouped as ``rgbs_ori``. Modes ``train``, ``val``, ``test`` and
-``test_train``; options ``--use_subset``/``--subset_num``,
-``--spheric_poses``, ``--unified_dir``, ``--include_var`` and
-``--sisr_path``.
+grouped as ``rgbs_ori``. Modes ``train``, ``val``, ``test``,
+``test_train``, ``reg_patch`` and ``gan`` (the last two as ``train``);
+options ``--use_subset``/``--subset_num``, ``--spheric_poses``,
+``--unified_dir``, ``--include_var`` and ``--sisr_path``.
+
+The auxiliary paths' sources: ``ref_buffer`` (``--with_ref``: the
+reference view's HR rays and colours, both in the grouped order),
+``patch_buffer`` and ``gan_patch`` (host samplers of a ``--reg_patch``
+block and of a ``--with_netD`` patch with its real pixels, for a firing
+outside a chunk) and ``gan_raygen_buffers`` (the direction grid, the
+usable views' poses and the real images, uploaded once, from which a
+chunk makes those patches on the device).
 
 ``pose_rays_grouped`` and ``load_pair`` are shared with the in-memory
 views of ``data/views.py``.
@@ -20,9 +28,10 @@ import os
 
 import numpy as np
 
-from nerfsr_torch.data import AUX, register_dataset
+from nerfsr_torch.data import register_dataset
 from nerfsr_torch.data.downx_common import (downscale, group_subpixels,
-                                            lanczos_resize, load_image)
+                                            lanczos_resize, load_image,
+                                            ungroup_subpixels)
 from nerfsr_torch.data.llff import (_ray_dirs_np, cached_eval_dirs,
                                     llff_eval_raygen_spec,
                                     load_colmap_scene, pose_rays,
@@ -49,13 +58,11 @@ def load_pair(hr_u8, img_wh, ds, ds_method):
 
 @register_dataset("llff_downX")
 class LLFFDownXDataset:
-    """Modes: train, val, test, test_train."""
+    """Modes: train, val, test, test_train, reg_patch, gan."""
 
-    MODES = ("train", "val", "test", "test_train")
+    MODES = ("train", "val", "test", "test_train", "reg_patch", "gan")
 
     def __init__(self, opt, mode):
-        if mode in ("reg_patch", "gan"):
-            raise NotImplementedError(f"llff_downX mode {mode} is {AUX}")
         if mode not in self.MODES:
             raise ValueError(f"llff_downX has no mode {mode!r}; modes: "
                              f"{self.MODES}")
@@ -121,7 +128,7 @@ class LLFFDownXDataset:
         return self._near_far()
 
     def __len__(self):
-        if self.mode == "train":
+        if self.mode in ("train", "reg_patch", "gan"):
             n = len(self.image_paths)
             n_eff = n if self.opt.include_var else n - 1
             wl, hl = self.img_wh[0] // self.ds, self.img_wh[1] // self.ds
@@ -170,7 +177,107 @@ class LLFFDownXDataset:
         return {k: np.concatenate(v) for k, v in parts.items()}
 
     def ref_buffer(self):
-        raise NotImplementedError(f"--with_ref's ref_buffer is {AUX}")
+        """Flat HR rays and colours of the reference view (``--ref_idx``)
+        at ``img_wh`` for the ``--with_ref`` loss. The rays flatten in the
+        grouped order, so the colours are grouped the same way before
+        they flatten (a raster-order image would pair most rays with
+        another pixel's colour)."""
+        rays = self._pose_rays_grouped(self.poses[self.opt.ref_idx])
+        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in rays.items()}
+        flat["viewdirs"] = flat["directions"]
+        img = load_image(self.image_paths[self.opt.ref_idx], self.img_wh)
+        flat["rgbs"] = group_subpixels(img.astype(np.float32),
+                                       self.ds).reshape(-1, 3)
+        return flat
+
+    def _grouped_rays_for_view(self, i):
+        """View ``i``'s grouped rays, built once (the host samplers below
+        cut a small block of them at each firing)."""
+        cache = self.__dict__.setdefault("_grouped_cache", {})
+        if i not in cache:
+            cache[i] = self._pose_rays_grouped(self.poses[i])
+        return cache[i]
+
+    def _usable_views(self):
+        """The training views the auxiliary samplers draw from: the val
+        view joins them under ``--include_var``."""
+        return [i for i in range(len(self.image_paths))
+                if self.opt.include_var or i != self.val_idx]
+
+    def patch_buffer(self, rng, n_patches):
+        """``n_patches`` contiguous LR blocks of ``--reg_patch_len``^2
+        grouped rays (reg_patch_len^2, ds^2, .), each from a view drawn
+        from ``rng`` (a ``numpy.random.RandomState``), its row and column
+        uniform over every position the block fits."""
+        plen = self.opt.reg_patch_len
+        wl, hl = self.img_wh[0] // self.ds, self.img_wh[1] // self.ds
+        usable = self._usable_views()
+        out = []
+        for _ in range(n_patches):
+            rays = self._grouped_rays_for_view(
+                usable[rng.randint(len(usable))])
+            row = rng.randint(hl - plen + 1)
+            col = rng.randint(wl - plen + 1)
+            idx = ((row + np.arange(plen))[:, None] * wl
+                   + (col + np.arange(plen))[None, :]).reshape(-1)
+            out.append({k: v[idx] for k, v in rays.items()})
+        return out
+
+    def gan_patch(self, rng):
+        """One ``--patch_len`` HR patch for the adversarial update: the HR
+        rays (patch_len, patch_len, .) of a view drawn from ``rng``, at an
+        LR-aligned position whose row and column exclude the last one
+        that fits (as the reference's sampler does; at least 1), and the
+        real pixels at the same place: of the reference view, or of the
+        view itself under ``--all_ref``."""
+        plen = self.opt.patch_len
+        pl_lr = plen // self.ds
+        w, h = self.img_wh
+        wl, hl = w // self.ds, h // self.ds
+        usable = self._usable_views()
+        i = usable[rng.randint(len(usable))]
+        r0 = rng.randint(max(1, hl - pl_lr))
+        c0 = rng.randint(max(1, wl - pl_lr))
+        rays = self._grouped_rays_for_view(i)
+        idx = ((r0 + np.arange(pl_lr))[:, None] * wl
+               + (c0 + np.arange(pl_lr))[None, :]).reshape(-1)
+        patch = {k: ungroup_subpixels(v[idx], (plen, plen), self.ds)
+                 for k, v in rays.items()}
+        src = self.image_paths[i] if self.opt.all_ref \
+            else self.image_paths[self.opt.ref_idx]
+        img = load_image(src, self.img_wh)
+        patch["rgbs"] = img[r0 * self.ds:r0 * self.ds + plen,
+                            c0 * self.ds:c0 * self.ds + plen]
+        return patch
+
+    def gan_raygen_buffers(self):
+        """What a chunk needs to make the adversarial and ``--reg_patch``
+        patches on the device, uploaded once: the HR camera-space
+        direction grid ``dirs_hw`` (h, w, 3), the usable views' ``poses``
+        (n, 3, 4), the real HR images ``reals`` (the reference view, or
+        every usable view under ``--all_ref``) and ``real_idx``, each
+        usable view's row of ``reals``. Returns (buffers, geom), geom as
+        ``eval_raygen_spec``'s."""
+        usable = self._usable_views()
+        poses = np.stack([self.poses[i] for i in usable]).astype(np.float32)
+        if self.opt.all_ref:
+            reals = np.stack([load_image(self.image_paths[i], self.img_wh)
+                              for i in usable])
+            real_idx = np.arange(len(usable), dtype=np.int32)
+        else:
+            reals = load_image(self.image_paths[self.opt.ref_idx],
+                               self.img_wh)[None]
+            real_idx = np.zeros(len(usable), np.int32)
+        near, far = self._near_far()
+        if self.spheric:
+            geom = ("world", float(near), float(far))
+        else:
+            w, h = self.img_wh
+            geom = ("ndc", h, w, float(self.focal), float(near), float(far))
+        return {"dirs_hw": self.directions.astype(np.float32),
+                "poses": poses,
+                "reals": reals.astype(np.float32),
+                "real_idx": real_idx}, geom
 
     def eval_raygen_spec(self, idx):
         """Pose + static geometry for device-side eval raygen."""

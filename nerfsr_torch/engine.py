@@ -38,10 +38,27 @@ refines and stitches each image of ``--test_split`` from a checkpoint
 into ``{results_dir}/{name}/{split}_{epoch}/{i}-sr-refine.png`` ([SR |
 refined | truth]) and prints the mean SSIM/PSNR of input and output.
 
+The auxiliary training paths dispatch as the JAX engine's do. Patch
+mode (``--patch_size`` > 1 on a dataset with ``image_buffer``) runs
+``train_steps_scan_patches`` chunks (``train_step_patches`` with
+``--scan_steps 1``; the warm-up's steps stay flat); ``--with_ref`` (off
+patch mode, unless ``--no_ref_loss``) runs ``train_steps_scan_with_ref``
+(the ``--ref_freq`` gate inside the chunk; with ``--scan_steps 1`` or
+in the warm-up a with-ref step where the epoch's iteration is a multiple
+of ``--ref_freq``, else a plain one). ``--with_netD`` (after epoch
+``--start_epoch``) and ``--reg_patch`` fire after the main steps whose
+count is a multiple of ``--gan_iter`` and ``--reg_patch_freq``: inside a
+plain chunk (``train_steps_scan_gan`` / ``_reg``, the patches made on the
+card), or, where the chunk cannot hold them (patch mode, with_ref, the
+warm-up, ``--scan_steps 1``), after a chunk cut to end at the firing,
+from the host samplers (``gan_step`` / ``reg_patch_step``). Each update
+is a full optimizer step, so ``TrainState.step`` counts them; the cadence
+counts the main steps from the step the run started at, as the JAX
+engine's ``global_step`` does. The discriminator is not checkpointed.
+
 Paths the port does not cover yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item: patch mode (``--patch_size`` > 1),
-``--with_ref``, ``--with_netD``, ``--reg_patch``, ``--mesh_devices``
-> 1, ``--refine_as_gan`` and ``--refine_with_vgg``.
+their ``ROADMAP.md`` item: ``--mesh_devices`` > 1 and
+``--refine_as_gan``.
 """
 
 from __future__ import annotations
@@ -63,12 +80,7 @@ _ROADMAP = "is not ported yet (ROADMAP.md queue 1 item {})"
 
 
 def _refuse_unported(opt):
-    aux = "4, auxiliary training paths"
     refusals = [
-        (opt.patch_size > 1, "patch mode (--patch_size > 1)", aux),
-        (opt.with_ref and not opt.no_ref_loss, "--with_ref", aux),
-        (opt.with_netD, "--with_netD", aux),
-        (opt.reg_patch, "--reg_patch", aux),
         (opt.mesh_devices > 1, "--mesh_devices > 1", "3, distributed"),
     ] + [(getattr(opt, flag), what, item)
          for flag, what, item in refine_system.UNPORTED]
@@ -87,6 +99,14 @@ def setup(opt):
     return create_model(opt, device=opt.device)
 
 
+def _deterministic_cudnn():
+    """Deterministic cuDNN algorithms (no atomics in the convolutions'
+    backward), so a resumed run is the unbroken run bit for bit and a
+    graphed chunk the eager one."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def _seed_chunk(gen: torch.Generator, seed: int, step: int):
     """Seed the card's generator from (seed, step): every chunk's draws
     depend on where it starts, not on what ran before it."""
@@ -103,16 +123,20 @@ def _fmt(scal):
     return " ".join(f"{k}={v:.4g}" for k, v in scal.items())
 
 
-def _chunk_steps(opt, step, it, steps_per_epoch, warmup_iters):
+def _chunk_steps(opt, step, it, steps_per_epoch, warmup_iters, aux=()):
     """Steps of the chunk that starts at global ``step``, ``it`` steps
     into its epoch: it ends at the next multiple of ``--scan_steps`` in
-    the epoch, at the epoch's end, and at ``warmup_iters`` while the
-    warm-up lasts. A function of the step alone, so a resumed run cuts
-    (and seeds) the chunks an unbroken run cuts."""
+    the epoch, at the epoch's end, at ``warmup_iters`` while the
+    warm-up lasts, and at the next multiple of each cadence in ``aux``
+    (auxiliary updates that fire after the chunk). A function of the
+    step alone, so a resumed run cuts (and seeds) the chunks an unbroken
+    run cuts."""
     scan = max(1, opt.scan_steps)
     k = min(scan - it % scan, steps_per_epoch - it)
     if step < warmup_iters:
         k = min(k, warmup_iters - step)
+    for f in aux:
+        k = min(k, f - step % f)
     return k
 
 
@@ -142,7 +166,13 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
             max(1, int(opt.max_dataset_size) // opt.batch_size))
     print(f"[train] {n_rays} rays, {steps_per_epoch} steps/epoch, "
           f"{opt.n_epochs} epochs, device {system.device}")
-    buffer = _upload(buffer_np, system.device)
+    aux = _Aux(opt, system, train_ds)
+    if aux.convolves() and system.device.type == "cuda":
+        _deterministic_cudnn()
+    buffer = _upload(train_ds.image_buffer() if aux.patch_mode
+                     else buffer_np, system.device)
+    if aux.ref_buffer is not None:
+        print(f"[train] with_ref: {len(aux.ref_buffer['rgbs'])} ref rays")
     warm_buffer = None
     if warmup_mode is not None:
         warm_buffer = _upload(create_dataset(opt, warmup_mode).ray_buffer(),
@@ -167,7 +197,9 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
 
     gen = torch.Generator(device=system.device)
     rays_per_batch = _rays_per_batch(opt, buffer_np)
-    last_log_step, last_log_time = state.step, time.time()
+    # the cadence counter: main steps, from the step the run started at
+    step = state.step
+    last_log_step, last_log_time = step, time.time()
     if timings is not None:
         timings.update(epoch_s={}, steps_per_epoch=steps_per_epoch)
 
@@ -175,21 +207,24 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
         t_epoch = time.perf_counter()
         it = 0
         while it < steps_per_epoch:
-            k = _chunk_steps(opt, state.step, it, steps_per_epoch,
-                             warmup_iters if warm_buffer is not None else 0)
             src = buffer
             if warm_buffer is not None:
-                if state.step < warmup_iters:
+                if step < warmup_iters:
                     src = warm_buffer
                 else:
                     warm_buffer = None      # done: free its memory
+            in_chunk = aux.in_chunk(src is buffer)
+            k = _chunk_steps(opt, step, it, steps_per_epoch,
+                             warmup_iters if warm_buffer is not None else 0,
+                             () if in_chunk else aux.cadences(epoch))
             _seed_chunk(gen, opt.seed, state.step)
-            if opt.scan_steps > 1 and src is buffer:
-                state, losses = system.train_steps_scan(state, src, k, gen)
-            else:
-                state, losses = system.train_steps(state, src, k, gen)
+            state, losses = aux.chunk(state, src, src is buffer, k, it, step,
+                                      epoch, gen)
             it += k
-            step = state.step
+            step += k
+            if not in_chunk:
+                state, losses = aux.after_chunk(state, losses, step, epoch,
+                                                gen)
             scal = _read(losses)
             if log_every > 0 and step % log_every < k:
                 now = time.time()
@@ -200,7 +235,8 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
                 print(f"[e{epoch} s{step}] {_fmt(scal)}")
             if (val_ds is not None and opt.val_freq > 0
                     and step % opt.val_freq < k):
-                _validate_iter(opt, system, state, val_ds, writer, epoch, k)
+                _validate_iter(opt, system, state, val_ds, writer, epoch, k,
+                               step)
         seconds = time.perf_counter() - t_epoch
         if timings is not None:
             timings["epoch_s"][epoch] = seconds
@@ -232,17 +268,119 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
     return state
 
 
+class _Aux:
+    """The training loop's dispatch between the main path and the
+    auxiliary paths (patch mode, with_ref, the GAN and reg updates), as
+    the JAX engine decides it from the flags, the dataset and the
+    system."""
+
+    def __init__(self, opt, system, train_ds):
+        self.opt, self.system, self.ds = opt, system, train_ds
+        self.patch_mode = (opt.patch_size > 1
+                           and hasattr(train_ds, "image_buffer")
+                           and hasattr(system, "train_step_patches"))
+        self.ref_buffer = None
+        if (opt.with_ref and not opt.no_ref_loss
+                and hasattr(train_ds, "ref_buffer") and not self.patch_mode):
+            self.ref_buffer = _upload(train_ds.ref_buffer(), system.device)
+        self.ref_freq = max(1, opt.ref_freq)
+        self.gan_state = None
+        if (opt.with_netD and hasattr(system, "create_gan_state")
+                and hasattr(train_ds, "gan_patch")):
+            self.gan_state = system.create_gan_state(opt.seed + 1)
+            print("[train] adversarial patch training enabled")
+        self.reg = (opt.reg_patch and hasattr(system, "reg_patch_step")
+                    and hasattr(train_ds, "patch_buffer"))
+        self.gan_dev = self.geom = None
+        if (self.gan_state is not None or self.reg) and \
+                hasattr(train_ds, "gan_raygen_buffers"):
+            bufs, self.geom = train_ds.gan_raygen_buffers()
+            self.gan_dev = system.upload_gan_buffers(bufs)
+        # the host samplers of firings outside a chunk
+        self.rng = np.random.RandomState(opt.seed + 1)
+
+    def convolves(self) -> bool:
+        """Whether the path runs convolutions (the discriminator, VGG)."""
+        opt = self.opt
+        return self.gan_state is not None or (
+            self.patch_mode and opt.patch_size >= 32
+            and (opt.lambda_coarse_vgg > 0 or opt.lambda_fine_vgg > 0))
+
+    def gan_active(self, epoch) -> bool:
+        return self.gan_state is not None and epoch > self.opt.start_epoch
+
+    def cadences(self, epoch):
+        """The cadences of the updates that fire in this epoch."""
+        out = [max(1, self.opt.gan_iter)] if self.gan_active(epoch) else []
+        if self.reg:
+            out.append(max(1, self.opt.reg_patch_freq))
+        return out
+
+    def in_chunk(self, main_buffer: bool) -> bool:
+        """Whether the updates fire inside the chunk: a graphed plain
+        chunk with the patches made on the device."""
+        return (self.opt.scan_steps > 1 and main_buffer
+                and not self.patch_mode and self.ref_buffer is None
+                and self.gan_dev is not None)
+
+    def chunk(self, state, src, main_buffer, k, it, step, epoch, gen):
+        """``k`` main steps from ``src`` (the folded updates included)."""
+        opt, system = self.opt, self.system
+        graphed = opt.scan_steps > 1 and main_buffer
+        if self.patch_mode and main_buffer:
+            if graphed:
+                return system.train_steps_scan_patches(
+                    state, src, k, opt.patch_size, gen)
+            for _ in range(k):
+                state, losses = system.train_step_patches(state, src, gen)
+            return state, losses
+        if self.patch_mode or self.ref_buffer is None:
+            if not graphed:
+                return system.train_steps(state, src, k, gen)
+            gan = self.gan_active(epoch) and self.gan_dev is not None
+            if gan or (self.reg and self.gan_dev is not None):
+                state, self.gan_state, losses = system.train_steps_scan_gan(
+                    state, self.gan_state, src, self.gan_dev, k, self.geom,
+                    step, gen, with_reg=self.reg, gan=gan)
+                return state, losses
+            return system.train_steps_scan(state, src, k, gen)
+        if graphed:
+            return system.train_steps_scan_with_ref(
+                state, src, self.ref_buffer, k, self.ref_freq, it, gen)
+        for j in range(k):
+            if (it + j) % self.ref_freq == 0:
+                state, losses = system.train_step_with_ref(
+                    state, src, self.ref_buffer, gen)
+            else:
+                state, losses = system.train_step_from_buffer(state, src,
+                                                              gen)
+        return state, losses
+
+    def after_chunk(self, state, losses, step, epoch, gen):
+        """The updates due at main step ``step`` (a chunk's end), from the
+        host samplers: the GAN's, then the TV update."""
+        opt, system = self.opt, self.system
+        if self.gan_active(epoch) and step % max(1, opt.gan_iter) == 0:
+            state, self.gan_state, gan_losses = system.gan_step(
+                state, self.gan_state, self.ds.gan_patch(self.rng), gen)
+            losses = {**losses, **gan_losses}
+        if self.reg and step % max(1, opt.reg_patch_freq) == 0:
+            state, reg_losses = system.reg_patch_step(
+                state, self.ds.patch_buffer(self.rng, 1)[0], gen)
+            losses = {**losses, **reg_losses}
+        return state, losses
+
+
 def _upload(buffer_np, device):
     """A numpy ray buffer to ``device``, one copy per field."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in buffer_np.items()}
 
 
-def _validate_iter(opt, system, state, val_ds, writer, epoch, k):
+def _validate_iter(opt, system, state, val_ds, writer, epoch, k, step):
     """Mid-epoch validation of the first val view every ``--val_freq``
     steps: metrics on the device, or (every ``--vis_freq`` steps) a
     read-back render that also writes its strips."""
-    step = state.step
     need_vis = opt.vis_freq > 0 and step % opt.vis_freq < k
     m = None if need_vis else system.eval_metrics_fast(state.params,
                                                        val_ds, 0)
@@ -397,10 +535,7 @@ def train_refine(opt, timings=None):
     ``steps_per_epoch``."""
     system = setup(opt)
     if system.device.type == "cuda":
-        # deterministic cuDNN algorithms: a resumed run is the unbroken
-        # run bit for bit
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
+        _deterministic_cudnn()
     writer = MetricsWriter(opt.summary_dir, opt.name)
     dataset = create_dataset(opt, "train")
     steps_per_epoch = opt.steps_per_epoch or max(

@@ -16,7 +16,7 @@ learning rate, the device step, the parameters, moments and batch
 statistics, all updated in place); and its random draws come from a
 generator registered with the graph, so reseeding the generator between
 replays moves the replays' Philox seed and offset as it moves eager
-draws. The caller writes what changes between replays (a learning rate
+draws (a body may draw from several, each registered). The caller writes what changes between replays (a learning rate
 at an epoch's end, injected indices) with ``before``, which runs before
 each call.
 
@@ -49,16 +49,25 @@ from nerfsr_torch.kernels import _lib
 from nerfsr_torch.kernels import mlp as kmlp
 
 
-def signature(tensors, generator: Optional[torch.Generator] = None):
+def _generators(generator) -> tuple:
+    """A generator, a sequence of them, or None as a tuple."""
+    if generator is None:
+        return ()
+    if isinstance(generator, torch.Generator):
+        return (generator,)
+    return tuple(generator)
+
+
+def signature(tensors, generator=None):
     """What a captured graph holds on to: the address, shape and dtype of
-    each tensor it reads or writes in place, and the generator it
+    each tensor it reads or writes in place, and the generators it
     draws from."""
-    return (id(generator),) + tuple(
+    return tuple(id(g) for g in _generators(generator)) + tuple(
         (t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
 
 
 def run_steps(cache: Optional["GraphCache"], key, inputs, body, n: int,
-              generator: Optional[torch.Generator] = None,
+              generator=None,
               before: Optional[Callable[[int], None]] = None):
     """``n`` calls of ``body``, each after ``before(i)``: through
     ``cache.run`` (replays of its graph) or, with no cache (the CPU, or a
@@ -104,13 +113,15 @@ class GraphCache:
         return dict(self._entries)
 
     def run(self, key, inputs: Callable[[], list], body: Callable[[], object],
-            n: int = 1, generator: Optional[torch.Generator] = None,
+            n: int = 1, generator=None,
             before: Optional[Callable[[int], None]] = None):
         """Call ``body`` ``n`` times (``before(i)`` ahead of call i) and
         return the last call's outputs: the first call of ``key`` eagerly,
         then the capture, then replays; once captured, replays only.
         ``inputs()`` lists the tensors the body reads or updates in place
-        (evaluated after the warm-up, once lazily built state exists)."""
+        (evaluated after the warm-up, once lazily built state exists);
+        ``generator`` is the generator the body draws from, or a sequence
+        of them, each registered with the graph."""
         entry = self._entries.get(key)
         if entry is not None and entry.sig != signature(inputs(),
                                                          generator):
@@ -147,14 +158,14 @@ class GraphCache:
 
     def _capture(self, body, tensors, generator, stream) -> Captured:
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
+        for gen in _generators(generator):
             register = getattr(graph, "register_generator_state", None)
             if register is None:
                 raise RuntimeError(
                     f"torch {torch.__version__} cannot register a "
                     "generator with a CUDA graph "
                     "(CUDAGraph.register_generator_state)")
-            register(generator)
+            register(gen)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)

@@ -24,7 +24,21 @@ parameters and moments), where the JAX package returns a new state.
 captured CUDA graph (``nerfsr_torch/graphs.py``) that samples the batch,
 renders, takes the losses, backpropagates, clips, steps Adam and counts
 the device step; on the CPU the same step body runs eagerly.
-``train_steps`` is the eager loop. On the card the eval render of one
+``train_steps`` is the eager loop.
+
+The auxiliary training paths of the JAX package, each in a single-step
+form and a chunk (graph replays on the card, as ``train_steps_scan``):
+``--with_ref`` (``train_step_with_ref``, ``train_steps_scan_with_ref``:
+a same-size batch of the reference view's HR rays rendered beside the
+main batch and supervised at weight 1 / downscale^2, the ``--ref_freq``
+gate a 0/1 weight inside the chunk) and patch mode (``--patch_size`` >
+1: ``train_step_patches``, ``train_steps_scan_patches``: ``batch_size //
+ps^2`` contiguous patches of an image-structured buffer, with the
+edge-aware depth Laplacian and, from 32 px, the VGG perceptual loss).
+Random draws (the batch, the reference rows, the patches' images, rows
+and columns) can be injected.
+
+On the card the eval render of one
 image (``_render_dirs_chunks``, the JAX package's ``lax.map`` over the
 ray chunks) is one replay too, for ``render_pose``, ``render_eval_many``
 and ``eval_metrics_fast``.
@@ -64,8 +78,10 @@ class TrainState:
     """The training state: the step count (host int), the networks, the
     optimizer over their parameters (which holds the Adam moments), and
     the step count on the device (an int64 0-d tensor), which the steps
-    of a chunk read and advance where the host cannot. The host ``step``
-    is the engine's cadence counter; ``train_steps_scan`` writes it into
+    of a chunk read and advance where the host cannot. ``step`` counts
+    every optimizer update (main steps and the auxiliary GAN and TV
+    updates, as the JAX package's ``TrainState.step`` does): the learning
+    rate's schedule reads it. ``train_steps_scan`` writes it into
     ``step_t`` before a chunk, and the two agree after every chunk."""
 
     step: int
@@ -127,7 +143,8 @@ class NeRFSystem:
         self._eval_dirs_cache = {}
         self._eval_gt_cache = {}
         self._eval_inputs = {}     # static inputs of the eval graphs
-        self._scan_idx = None      # static injected indices of a chunk
+        self._static = {}          # static injected draws of the chunks
+        self._vgg = None           # patch mode's VGG, loaded at first use
         # the CUDA graphs of the card's chunks (and eval images); None on
         # the CPU, or set to None to run the card's paths eagerly
         self.graphs = GraphCache(self.device) \
@@ -390,6 +407,28 @@ class NeRFSystem:
         state.step_t.fill_(state.step)
         return state, losses
 
+    def _update(self, state: TrainState, loss, losses, fill: bool = False):
+        """Backward of ``loss``, the clip and Adam at the learning rate
+        already written; returns the losses detached. ``fill`` (the
+        auxiliary updates, whose renders reach only some networks, and
+        whose loss may reach a discriminator's weights too) takes the
+        gradient of the trained parameters alone and gives one that the
+        loss does not reach a zero gradient, as JAX's gradient has one:
+        Adam then still moves it by its moments, as optax does."""
+        state.params.zero_grad(set_to_none=True)
+        if fill:
+            params = [p for group in state.optimizer.param_groups
+                      for p in group["params"]]
+            loss.backward(inputs=params)
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        else:
+            loss.backward()
+        self._clip_grads(state.optimizer)
+        state.optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+
     def _scan_step(self, state: TrainState, buffer, generator, idx):
         """One step of a chunk, as a graph captures it: the batch (drawn
         on the device, or the injected indices), ``_step`` at the device
@@ -423,13 +462,8 @@ class NeRFSystem:
                              f"({n_steps}, {self.opt.batch_size})")
         state.step_t.fill_(state.step)
         write = lr_writer(state.optimizer, self.lr_fn, state.step)
-        idx_buf = None
-        if idx is not None:
-            if self._scan_idx is None or \
-                    self._scan_idx.shape[0] != idx.shape[1]:
-                self._scan_idx = torch.empty(idx.shape[1], dtype=torch.long,
-                                             device=self.device)
-            idx_buf = self._scan_idx
+        idx_buf = None if idx is None else \
+            self._idx_buffer("idx", idx.shape[1:])
 
         def before(i):
             write(i)
@@ -444,6 +478,243 @@ class NeRFSystem:
                      + ([] if idx_buf is None else [idx_buf])),
             lambda: self._scan_step(state, buffer, generator, idx_buf),
             n_steps, generator, before)
+        state.step += n_steps
+        return state, losses
+
+    def _idx_buffer(self, name, shape, dtype=torch.long):
+        """A static device tensor of ``shape`` that a chunk's injected
+        draws are copied into before each step (kept across chunks, so a
+        captured graph reads the same one)."""
+        buf = self._static.get(name)
+        if buf is None or tuple(buf.shape) != tuple(shape):
+            buf = self._static[name] = torch.empty(shape, dtype=dtype,
+                                                   device=self.device)
+        return buf
+
+    # ------------------------------------------------------------------
+    # --with_ref: the reference view's HR rays beside the main batch
+    # ------------------------------------------------------------------
+    def _ref_losses(self, params, ref_batch, generator=None, step=None):
+        """The reference view's HR supervision: the mse of each level
+        against its rays' colours, divided by downscale^2."""
+        out = self.render(params, self._batch_to_rays(ref_batch),
+                          randomized=bool(self.opt.randomized), step=step,
+                          generator=generator)
+        scale = 1.0 / (self.opt.downscale ** 2)
+        losses, tot = {}, 0.0
+        for level in ("coarse", "fine"):   # no coarse level when fast
+            if f"{level}_rgb" in out:
+                losses[f"ref_{level}_mse"] = torch.mean(
+                    (out[f"{level}_rgb"] - ref_batch["rgbs"]) ** 2) * scale
+                tot = tot + losses[f"ref_{level}_mse"]
+        return tot, losses
+
+    def _with_ref_step(self, state: TrainState, buffer, ref_buffer,
+                       generator, step, ref_w=None, idx=None, ref_idx=None):
+        """One with-ref step at ``step``: a main batch and a same-size
+        batch of reference rays (drawn, or the injected rows), both
+        rendered, the reference losses (times the 0/1 tensor ``ref_w``
+        when given) added to the total; backward, clip, Adam."""
+        batch = self.sample_batch(buffer, generator) if idx is None \
+            else {k: v[idx] for k, v in buffer.items()}
+        if ref_idx is None:
+            ref_idx = torch.randint(0, ref_buffer["rgbs"].shape[0],
+                                    (self.opt.batch_size,),
+                                    generator=generator, device=self.device)
+        ref_batch = {k: v[ref_idx] for k, v in ref_buffer.items()}
+        loss, losses = self._loss_fn(state.params, batch, generator, step)
+        ref_tot, ref_losses = self._ref_losses(state.params, ref_batch,
+                                               generator, step)
+        if ref_w is not None:
+            ref_losses = {k: v * ref_w for k, v in ref_losses.items()}
+            ref_tot = ref_tot * ref_w
+        losses.update(ref_losses)
+        losses["tot"] = loss + ref_tot
+        return self._update(state, losses["tot"], losses)
+
+    def train_step_with_ref(self, state: TrainState, buffer, ref_buffer,
+                            generator: Optional[torch.Generator] = None,
+                            idx=None, ref_idx=None):
+        """One with-ref step from the buffers at the schedule's learning
+        rate; updates ``state`` in place and returns it with the losses."""
+        write_lr(state.optimizer, self.lr_fn, state.step)
+        losses = self._with_ref_step(state, buffer, ref_buffer, generator,
+                                     state.step, idx=idx, ref_idx=ref_idx)
+        state.step += 1
+        state.step_t.fill_(state.step)
+        return state, losses
+
+    def train_steps_scan_with_ref(self, state: TrainState, buffer,
+                                  ref_buffer, n_steps: int, ref_freq: int,
+                                  it0: int,
+                                  generator: Optional[torch.Generator] = None,
+                                  idx=None, ref_idx=None):
+        """``n_steps`` with-ref steps as the JAX package's
+        ``train_steps_scan_with_ref`` runs them (on the card one graph
+        replay a step). ``--ref_freq`` gates the reference losses by a
+        0/1 weight, 1 where the step's within-epoch iteration ``it0 + i``
+        is a multiple of ``ref_freq`` (the reference rays render on every
+        step); with ``ref_freq`` 1 there is no weight. ``idx`` and
+        ``ref_idx`` (n_steps, batch_size) inject each step's rows."""
+        state.step_t.fill_(state.step)
+        write = lr_writer(state.optimizer, self.lr_fn, state.step)
+        ref_w = None if ref_freq == 1 else \
+            self._idx_buffer("ref_w", (), torch.float32)
+        rows = None if idx is None else \
+            self._idx_buffer("idx", idx.shape[1:])
+        ref_rows = None if ref_idx is None else \
+            self._idx_buffer("ref_idx", ref_idx.shape[1:])
+
+        def before(i):
+            write(i)
+            if ref_w is not None:
+                ref_w.fill_(float((it0 + i) % ref_freq == 0))
+            if rows is not None:
+                rows.copy_(idx[i])
+            if ref_rows is not None:
+                ref_rows.copy_(ref_idx[i])
+
+        def body():
+            losses = self._with_ref_step(state, buffer, ref_buffer,
+                                         generator, state.step_t, ref_w,
+                                         rows, ref_rows)
+            state.step_t.add_(1)
+            return losses
+
+        losses = run_steps(
+            self.graphs, ("with_ref", ref_freq == 1, idx is None,
+                          ref_idx is None),
+            lambda: (list(state.params.parameters())
+                     + state.optimizer.state_tensors() + [state.step_t]
+                     + list(buffer.values()) + list(ref_buffer.values())
+                     + [t for t in (ref_w, rows, ref_rows)
+                        if t is not None]),
+            body, n_steps, generator, before)
+        state.step += n_steps
+        return state, losses
+
+    # ------------------------------------------------------------------
+    # patch mode: contiguous patches, the depth Laplacian and VGG
+    # ------------------------------------------------------------------
+    def n_patches(self, ps: int) -> int:
+        return max(1, self.opt.batch_size // (ps * ps))
+
+    def sample_patches(self, img_buffer, ps: int, generator=None,
+                       draws=None):
+        """``n_patches(ps)`` ps x ps patches of the image-structured
+        buffer (N_img, H, W, C), flat (n * ps * ps, C) per field. The
+        patches' images, rows and columns are drawn on the buffer's device
+        (rows in [0, H - ps], columns in [0, W - ps]) or injected as
+        ``draws`` (3, n)."""
+        n = self.n_patches(ps)
+        n_img, h, w = img_buffer["rgbs"].shape[:3]
+        dev = img_buffer["rgbs"].device
+        if draws is None:
+            img_idx = torch.randint(0, n_img, (n,), generator=generator,
+                                    device=dev)
+            rows = torch.randint(0, h - ps + 1, (n,), generator=generator,
+                                 device=dev)
+            cols = torch.randint(0, w - ps + 1, (n,), generator=generator,
+                                 device=dev)
+        else:
+            img_idx, rows, cols = draws
+        ar = torch.arange(ps, device=dev)
+        r = (rows[:, None] + ar)[:, :, None]
+        c = (cols[:, None] + ar)[:, None, :]
+        i = img_idx[:, None, None]
+        return {k: v[i, r, c].reshape(-1, v.shape[-1])
+                for k, v in img_buffer.items()}
+
+    def _get_vgg(self):
+        if self._vgg is None:
+            from nerfsr_torch.models.criterions import VGGPerceptualLoss
+            self._vgg = VGGPerceptualLoss(self.opt.vgg_weights)
+        return self._vgg
+
+    def _patch_loss(self, params, flat, ps: int, generator=None, step=None):
+        """The patch step's objective: the render's losses, the edge-aware
+        depth Laplacian of each level (``--lambda_{coarse,fine}_depth_lap``,
+        patches above 2 px; its depth cotangent reaches the composite's
+        backward) and the VGG perceptual loss (``--lambda_{coarse,fine}
+        _vgg``, patches of 32 px and more)."""
+        from nerfsr_torch.models.criterions import bilateral_laplacian_loss
+        opt = self.opt
+        n = self.n_patches(ps)
+        out = self.render(params, self._batch_to_rays(flat),
+                          randomized=bool(opt.randomized), step=step,
+                          generator=generator)
+        loss, losses = self.compute_losses(out, flat)
+        rgb_p = flat["rgbs"].reshape(n, ps, ps, 3)
+        for level in ("coarse", "fine"):
+            lam = getattr(opt, f"lambda_{level}_depth_lap")
+            if lam > 0 and ps > 2 and f"{level}_depth" in out:
+                lap = bilateral_laplacian_loss(
+                    out[f"{level}_depth"].reshape(n, ps, ps), rgb_p,
+                    opt.bilateral_gamma)
+                losses[f"{level}_depth_lap"] = lap
+                loss = loss + lap * lam
+        if ps >= 32 and (opt.lambda_coarse_vgg > 0
+                         or opt.lambda_fine_vgg > 0):
+            vgg = self._get_vgg()
+            for level in ("coarse", "fine"):
+                lam = getattr(opt, f"lambda_{level}_vgg")
+                if lam > 0 and f"{level}_rgb" in out:
+                    pred = out[f"{level}_rgb"].reshape(n, ps, ps, 3) * 2 - 1
+                    v = vgg(pred, rgb_p * 2 - 1) * lam
+                    losses[f"{level}_vgg"] = v
+                    loss = loss + v
+        losses["tot"] = loss
+        return loss, losses
+
+    def train_step_patches(self, state: TrainState, img_buffer,
+                           generator: Optional[torch.Generator] = None,
+                           patch_size: int = 0, draws=None):
+        """One patch-mode step (``--patch_size``, or ``patch_size``) at
+        the schedule's learning rate; updates ``state`` in place and
+        returns it with the losses."""
+        ps = patch_size or self.opt.patch_size
+        write_lr(state.optimizer, self.lr_fn, state.step)
+        flat = self.sample_patches(img_buffer, ps, generator, draws)
+        losses = self._update(state, *self._patch_loss(
+            state.params, flat, ps, generator, state.step))
+        state.step += 1
+        state.step_t.fill_(state.step)
+        return state, losses
+
+    def train_steps_scan_patches(self, state: TrainState, img_buffer,
+                                 n_steps: int, patch_size: int,
+                                 generator: Optional[torch.Generator] = None,
+                                 draws=None):
+        """``n_steps`` patch-mode steps as the JAX package's
+        ``train_steps_scan_patches`` runs them (on the card one graph
+        replay a step: the patches cut on the device, the render, the
+        patch losses, backward, clip, Adam). ``draws`` (n_steps, 3, n)
+        injects each step's images, rows and columns."""
+        ps = patch_size
+        state.step_t.fill_(state.step)
+        write = lr_writer(state.optimizer, self.lr_fn, state.step)
+        static = None if draws is None else \
+            self._idx_buffer("patch_draws", draws.shape[1:])
+
+        def before(i):
+            write(i)
+            if static is not None:
+                static.copy_(draws[i])
+
+        def body():
+            flat = self.sample_patches(img_buffer, ps, generator, static)
+            losses = self._update(state, *self._patch_loss(
+                state.params, flat, ps, generator, state.step_t))
+            state.step_t.add_(1)
+            return losses
+
+        losses = run_steps(
+            self.graphs, ("patches", ps, draws is None),
+            lambda: (list(state.params.parameters())
+                     + state.optimizer.state_tensors() + [state.step_t]
+                     + list(img_buffer.values())
+                     + ([] if static is None else [static])),
+            body, n_steps, generator, before)
         state.step += n_steps
         return state, losses
 

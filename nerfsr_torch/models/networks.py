@@ -6,8 +6,11 @@ up, ``--learn_residual`` adding the input rgb) and ``MaxPoolingModel``
 (the shared multi-scale ``VNPCATEncoder`` for the SR patch and each
 reference patch, a max over the candidates at each scale, and the
 ``VNPCATDecoder``; ``use_ref=False`` decodes from the SR features
-alone). The modules take and return NHWC tensors, as the JAX modules
-do, and run NCHW inside (an NHWC tensor permuted to NCHW is
+alone), and the GAN's ``NLayerDiscriminator`` with ``create_discriminator``
+(``--dis_network``, ``--ndf_dis``, ``--patch_len``) and its spectral
+normalization (``SpectralConv``, flax's ``nn.SpectralNorm``). The
+modules take and return NHWC tensors, as the JAX modules do, and run
+NCHW inside (an NHWC tensor permuted to NCHW is
 channels-last in memory, which cuDNN takes as it is).
 
 Normalization follows flax's rules, not torch's: ``BatchNorm`` (momentum
@@ -284,3 +287,113 @@ class MaxPoolingModel(nn.Module):
         f_max = [f.reshape((n, k) + f.shape[1:]).amax(1)
                  for f in self.E(_nchw(flat))]
         return _nhwc(self.D(f_synth, f_max))
+
+
+# ---------------------------------------------------------------------------
+# the GAN discriminator
+# ---------------------------------------------------------------------------
+
+def _l2_normalize(x, eps: float):
+    """flax's ``_l2_normalize``: ``x * rsqrt(sum(x^2) + eps)``."""
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralConv(nn.Module):
+    """A bias-free convolution whose kernel is divided by its largest
+    singular value, estimated as flax's ``nn.SpectralNorm`` estimates it
+    (one power-iteration step, eps 1e-12): the kernel, HWIO reshaped to
+    (kh*kw*cin, cout), and the stored ``u`` (1, cout) give
+    ``v = normalize(u W^T)``, ``u' = normalize(v W)`` (both without
+    gradient) and ``sigma = v W u'^T``, which keeps its gradient with
+    respect to W; the kernel is divided by sigma where sigma != 0. Every
+    call starts from the stored ``u``; ``refresh_stats`` writes the
+    refined ``u'`` and its sigma back, as flax does on a call with
+    ``update_stats=True``. ``torch.nn.utils.parametrizations.spectral_norm``
+    iterates and stores on every training call and normalizes by
+    ``max(|x|, eps)``, so it is not used."""
+
+    def __init__(self, cin, cout, stride, padding, gen, eps: float = 1e-12):
+        super().__init__()
+        self.stride, self.padding, self.eps = stride, padding, eps
+        self.weight = conv(cin, cout, 4, stride, padding, False, gen).weight
+        self.register_buffer("u", torch.randn((1, cout), generator=gen))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def _power_iteration(self):
+        """(u', sigma) from the stored u and the current kernel."""
+        w = self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ w.T, self.eps)
+            u = _l2_normalize(v @ w, self.eps)
+        sigma = ((v @ w) @ u.T)[0, 0]
+        return u, sigma
+
+    @torch.no_grad()
+    def refresh_stats(self):
+        u, sigma = self._power_iteration()
+        self.u.copy_(u)
+        self.sigma.copy_(sigma)
+
+    def forward(self, x):
+        _, sigma = self._power_iteration()
+        w = self.weight / torch.where(sigma != 0, sigma,
+                                      torch.ones_like(sigma))
+        return F.conv2d(x, w, stride=self.stride, padding=self.padding)
+
+
+class NLayerDiscriminator(nn.Module):
+    """The spectral-norm patch discriminator for 32 or 64 px NHWC
+    patches: 4x4 stride-2 convolutions (``c0`` only at 64) widening
+    ``ndf`` -> 2, 4, 8 ndf, instance norm (flax's, eps 1e-6) after ``c1``
+    to ``c3``, leaky relu 0.2, and a 4x4 valid convolution ``c4`` to one
+    logit: (N, P, P, 3) -> (N, 1, 1, 1). The parameter and statistics
+    names are flax's (``c1/kernel``, ``SpectralNorm_0/c1/kernel/u``), which
+    ``nerfsr_torch/weights.py`` maps both ways."""
+
+    def __init__(self, ndf: int = 64, patch_len: int = 64,
+                 input_nc: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if patch_len not in (32, 64):
+            raise ValueError(f"--patch_len {patch_len}: the discriminator "
+                             "takes 32 or 64")
+        gen = generator or torch.Generator().manual_seed(0)
+        self.patch_len = patch_len
+        cin = input_nc
+        if patch_len == 64:
+            self.c0 = SpectralConv(cin, ndf, 2, 1, gen)
+            cin = ndf
+        self.c1 = SpectralConv(cin, ndf * 2, 2, 1, gen)
+        self.c2 = SpectralConv(ndf * 2, ndf * 4, 2, 1, gen)
+        self.c3 = SpectralConv(ndf * 4, ndf * 8, 2, 1, gen)
+        self.c4 = SpectralConv(ndf * 8, 1, 1, 0, gen)
+
+    def spectral_convs(self):
+        """(name, SpectralConv) in the order flax numbers them."""
+        return [(n, m) for n, m in self.named_children()
+                if isinstance(m, SpectralConv)]
+
+    def refresh_stats(self):
+        """Refine every layer's stored ``u`` and sigma by one power
+        iteration (flax's ``update_stats=True``; the call's output is not
+        needed for it)."""
+        for _, m in self.spectral_convs():
+            m.refresh_stats()
+
+    def forward(self, x_nhwc):
+        h = _nchw(x_nhwc)
+        if self.patch_len == 64:
+            h = F.leaky_relu(self.c0(h), 0.2)
+        for c in (self.c1, self.c2, self.c3):
+            h = F.leaky_relu(instance_norm(c(h)), 0.2)
+        return _nhwc(self.c4(h))
+
+
+def create_discriminator(opt, generator=None) -> NLayerDiscriminator:
+    """``--dis_network`` (only ``nlayerdiscriminator``) at ``--ndf_dis``
+    for ``--patch_len`` patches."""
+    if opt.dis_network != "nlayerdiscriminator":
+        raise KeyError(f"unknown dis_network '{opt.dis_network}' "
+                       "(available: nlayerdiscriminator)")
+    return NLayerDiscriminator(ndf=opt.ndf_dis, patch_len=opt.patch_len,
+                               generator=generator)

@@ -5,8 +5,9 @@ synthesized patches with nearby patches of the reference view.
 ``--refine_network unetgenerator`` stacks the SR patch and the reference
 patches on the channel axis (``_stack_unet_input``, the one packing
 order); ``maxpoolingmodel`` takes them apart. The losses are the mse,
-l1 and gradient terms of ``--refine_with_*`` with their lambdas, and
-each step reports the PSNR of the input and of the refined patch.
+l1, gradient and VGG perceptual (``--vgg_weights``) terms of
+``--refine_with_*`` with their lambdas, and each step reports the PSNR
+of the input and of the refined patch.
 
 A ``RefineState`` holds the step, the network (its parameters and batch
 norm's running statistics) and the Adam optimizer (b1 ``--beta1``, b2
@@ -24,8 +25,8 @@ the eager loop. ``refine_image`` tiles an image, refines the
 tiles eight at a time (the last batch padded) and stitches them by
 ``start_locs``.
 
-``--refine_as_gan`` and ``--refine_with_vgg`` are not ported: they
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` items.
+``--refine_as_gan`` is not ported: it raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from torch import nn
 from nerfsr_torch.device import resolve_device
 from nerfsr_torch.graphs import GraphCache, run_steps
 from nerfsr_torch.models import register_model
-from nerfsr_torch.models.criterions import gradient_loss
+from nerfsr_torch.models.criterions import (VGGPerceptualLoss,
+                                            gradient_loss)
 from nerfsr_torch.models.criterions import l1 as l1_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.criterions import ssim as ssim_fn
@@ -52,8 +54,6 @@ from nerfsr_torch.utils.schedule import (lr_writer, make_lr_schedule,
 UNPORTED = (
     ("refine_as_gan", "--refine_as_gan",
      "5, the refine GAN mode"),
-    ("refine_with_vgg", "--refine_with_vgg",
-     "6, VGGPerceptualLoss"),
 )
 
 
@@ -120,6 +120,8 @@ class RefineSystem:
                     f"= {expect}; adjust --num_ref_patches instead")
         self._steps_per_epoch = 1
         self.lr_fn = None          # built in create_state
+        self.vgg = VGGPerceptualLoss(opt.vgg_weights) \
+            if opt.refine_with_vgg else None
         # the CUDA graphs of the card's chunks (and eval images); None on
         # the CPU, or set to None to run the card's paths eagerly
         self.graphs = GraphCache(self.device) \
@@ -186,6 +188,9 @@ class RefineSystem:
         if opt.refine_with_grad:
             losses["grad"] = gradient_loss(pred, gt) * opt.lambda_refine_grad
             tot = tot + losses["grad"]
+        if self.vgg is not None:
+            losses["vgg"] = self.vgg(pred, gt) * opt.lambda_refine_vgg
+            tot = tot + losses["vgg"]
         if not isinstance(tot, torch.Tensor):   # no loss flag: no update
             tot = pred.sum() * 0.0
         losses["tot"] = tot

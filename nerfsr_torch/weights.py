@@ -19,6 +19,12 @@ tensor by its flax path, ``export_variables`` and ``load_variables`` map
 the whole tree (convolutions HWIO <-> OIHW; transposed convolutions
 (kh, kw, in, out) <-> (in, out, kh, kw) with both spatial axes flipped;
 batch norm's ``scale``, ``bias``, ``mean`` and ``var`` as they are).
+
+The GAN's discriminator crosses the same way with
+``export_discriminator`` / ``load_discriminator``: ``params`` holds each
+layer's kernel (HWIO <-> OIHW), ``batch_stats`` the spectral norm's
+``u`` and ``sigma`` under flax's names (``SpectralNorm_{i}`` in layer
+order, ``{layer}/kernel/u`` and ``{layer}/kernel/sigma``).
 """
 
 from __future__ import annotations
@@ -217,4 +223,58 @@ def load_variables(net: nn.Module, variables: Mapping[str, Any]):
     for coll, path, t, layout in variable_leaves(net):
         t.copy_(from_flax_layout(tree_get(variables[coll], path, coll), t,
                                  layout, path))
+    return net
+
+
+# ---------------------------------------------------------------------------
+# the GAN discriminator: params {layer: {kernel}}, spectral-norm batch_stats
+# ---------------------------------------------------------------------------
+
+def discriminator_leaves(net: nn.Module
+                         ) -> Iterator[Tuple[str, str, torch.Tensor, str]]:
+    """(collection, flax path, tensor, layout) of every variable of an
+    ``NLayerDiscriminator``."""
+    for i, (name, m) in enumerate(net.spectral_convs()):
+        yield "params", f"{name}/kernel", m.weight, "conv"
+        sn = f"SpectralNorm_{i}/{name}/kernel"
+        yield "batch_stats", f"{sn}/u", m.u, "vector"
+        yield "batch_stats", f"{sn}/sigma", m.sigma, "vector"
+
+
+@torch.no_grad()
+def export_discriminator(net: nn.Module) -> dict:
+    """The discriminator's flax variables as nested numpy dicts."""
+    out = {"params": {}, "batch_stats": {}}
+    for coll, path, t, layout in discriminator_leaves(net):
+        arr = to_flax_layout(t, layout)
+        if coll == "params":
+            tree_set(out["params"], path, arr)
+        else:
+            # flax keeps the layer's path in one key under SpectralNorm_i
+            head, rest = path.split("/", 1)
+            out["batch_stats"].setdefault(head, {})[rest] = arr
+    return out
+
+
+@torch.no_grad()
+def load_discriminator(net: nn.Module, variables: Mapping[str, Any]):
+    """Load flax discriminator variables (``params`` and the spectral
+    norm's ``batch_stats``) into ``net``; every variable must be covered
+    and every entry used."""
+    want = {(c, p) for c, p, _, _ in discriminator_leaves(net)}
+    have = {("params", p) for p in flatten_tree(variables["params"])}
+    have |= {("batch_stats", f"{head}/{rest}")
+             for head, leaves in variables.get("batch_stats", {}).items()
+             for rest in leaves}
+    if want != have:
+        raise KeyError(f"discriminator variables differ: only in the port "
+                       f"{sorted(want - have)}, only in the variables "
+                       f"{sorted(have - want)}")
+    for coll, path, t, layout in discriminator_leaves(net):
+        if coll == "params":
+            arr = tree_get(variables["params"], path, coll)
+        else:
+            head, rest = path.split("/", 1)
+            arr = variables["batch_stats"][head][rest]
+        t.copy_(from_flax_layout(arr, t, layout, path))
     return net

@@ -416,19 +416,19 @@ def test_dataset_spheric_and_sisr_match_jax(scene, tmp_path):
 
 
 def test_dataset_refuses_what_is_not_ported(scene):
-    opt, _ = _opts(scene)
+    opt, jopt = _opts(scene, ref_idx=2)
+    # the reg_patch and gan modes are ported: the train split's length
     for mode in ("reg_patch", "gan"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_dataset(opt, mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLFFDownXDataset(opt, "train").ref_buffer()
-    # every dataset mode of the JAX package's registry is ported; what
-    # stays of them is refused by name, and an unknown mode is not found
+        assert len(create_dataset(opt, mode)) == len(JDataset(jopt, mode))
+    # --with_ref's reference buffer: grouped rays with grouped colours
+    _same_sample(LLFFDownXDataset(opt, "train").ref_buffer(),
+                 JDataset(jopt, "train").ref_buffer())
+    # every dataset mode of the JAX package's registry is ported, and an
+    # unknown mode is not found
     for mode in ("llff", "blender", "blender_downX", "llff_refine"):
         assert mode in DATASET_REGISTRY
-    opt.dataset_mode = "llff"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_dataset(opt, "train").ref_buffer()
     opt.dataset_mode = "no_such_mode"
     with pytest.raises(KeyError, match="not found"):
         create_dataset(opt, "train")
+    with pytest.raises(ValueError, match="modes"):
+        LLFFDownXDataset(opt, "no_such_split")

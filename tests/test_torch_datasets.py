@@ -205,10 +205,16 @@ def test_blender_truth_is_blended_after_the_resize(blender_scene):
 
 
 def test_blender_dataset_refusals(blender_scene):
-    opt = default_options("train", model="nerf", dataset_mode="blender",
-                          dataset_root=blender_scene, img_wh=(24, 24))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        create_dataset(opt, "train").image_buffer()
+    kw = dict(model="nerf", dataset_mode="blender",
+              dataset_root=blender_scene, img_wh=(24, 24))
+    opt = default_options("train", **kw)
+    # patch mode's image_buffer is ported: the JAX dataset's, to the bit
+    # for the truth; only the train split has one
+    _same(create_dataset(opt, "train").image_buffer(),
+          j_create_dataset(j_default_options("train", **kw),
+                           "train").image_buffer())
+    with pytest.raises(ValueError, match="train split"):
+        create_dataset(opt, "val").image_buffer()
     with pytest.raises(ValueError, match="modes"):
         create_dataset(opt, "test_viewdir")
     with pytest.raises(ValueError, match="train split"):
@@ -252,10 +258,15 @@ def test_llff_dataset_matches_jax_in_every_mode(llff_scene, option):
             assert spec["geom"] == jspec["geom"]
             for k in ("c2w", "vd_c2w"):
                 np.testing.assert_array_equal(spec[k], jspec[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        create_dataset(opt, "train").ref_buffer()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        create_dataset(opt, "train").image_buffer()
+    # the auxiliary paths' buffers: the reference view's HR rays
+    # (--with_ref) and the training rays image by image (patch mode)
+    ds, jds = create_dataset(opt, "train"), j_create_dataset(jopt, "train")
+    ref, jref = ds.ref_buffer(), jds.ref_buffer()
+    assert set(ref) == set(jref)
+    _same({k: v for k, v in ref.items() if k != "viewdirs"},
+          {k: v for k, v in jref.items() if k != "viewdirs"})
+    np.testing.assert_array_equal(ref["viewdirs"], ref["directions"])
+    _same(ds.image_buffer(), jds.image_buffer())
 
 
 # ---------------------------------------------------------------------

@@ -277,10 +277,6 @@ def test_kernel_a_bin_cap_does_not_bind_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(patch_size=2), "patch mode.*item 4"),
-    (dict(with_ref=True), "with_ref.*item 4"),
-    (dict(with_netD=True), "with_netD.*item 4"),
-    (dict(reg_patch=True), "reg_patch.*item 4"),
     (dict(mesh_devices=2), "mesh_devices.*item 3"),
     (dict(ckpt_backend="orbax"), "orbax")])
 def test_engine_refuses_unported_paths(tmp_path, flags, match):

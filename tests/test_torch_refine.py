@@ -214,12 +214,16 @@ def _batch(seed, n=2, plen=32, k=2):
 @pytest.mark.parametrize("losses", [
     dict(refine_with_l1=True), dict(refine_with_l1=False,
                                     refine_with_mse=True),
-    dict(refine_with_l1=False, refine_with_grad=True)])
-def test_train_step_matches_jax(losses):
+    dict(refine_with_l1=False, refine_with_grad=True),
+    dict(refine_with_l1=True, refine_with_vgg=True)])
+def test_train_step_matches_jax(losses, tmp_path):
     """One step from the same weights and batch against JAX's
     ``_train_step_impl``: every loss, each gradient leaf (JAX's from its
     first Adam moment, mu = 0.1 g), the parameters after Adam and the
-    new statistics."""
+    new statistics. ``--refine_with_vgg`` reads the synthetic VGG19
+    archive (``write_synthetic_vgg_npz``) on both sides."""
+    if losses.get("refine_with_vgg"):
+        losses = dict(losses, vgg_weights=_vgg_npz(tmp_path))
     opt, jopt = _jax_opts(**losses)
     system = create_model(opt, device="cpu")
     state = system.create_state(seed=0, steps_per_epoch=1)
@@ -254,6 +258,11 @@ def test_train_step_matches_jax(losses):
     _variables_equal({"batch_stats": got["batch_stats"]},
                      {"batch_stats": jstate.batch_stats}, NET_ABS)
     assert state.step == int(jstate.step) == 1
+
+
+def _vgg_npz(tmp_path):
+    from nerfsr_torch.models.criterions import write_synthetic_vgg_npz
+    return write_synthetic_vgg_npz(str(tmp_path / "vgg.npz"), seed=0)
 
 
 def _get_path(tree, path):
@@ -591,8 +600,7 @@ def test_train_resume_test_through_the_entry_points(scene, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(refine_as_gan=True), "refine_as_gan.*item 5"),
-    (dict(refine_with_vgg=True), "refine_with_vgg.*item 6")])
+    (dict(refine_as_gan=True), "refine_as_gan.*item 5")])
 def test_refine_refuses_unported_options(scene, tmp_path, flags, match):
     opt, _ = _refine_opts(scene, checkpoints_dir=str(tmp_path),
                           summary_dir=str(tmp_path), **flags)
