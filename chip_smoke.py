@@ -117,7 +117,23 @@
    kernel checks) ``check_aux_shapes`` holds A, B and D at N = 4 and
    1,024 rays and C and E at P = 64 and 16,384 points, the reg and GAN
    patches' shapes, against their plain versions;
-10. prints a JSON line of details (also written to
+10. refine_gan: ``--refine_as_gan`` at ``scripts/train_llff_refine.sh``'s
+   full width on the engine phase's scene and renders (UNet ngf 64, 6
+   downs, 32 patches of 64 px, D at ndf 64 with the 64 px depth, a fake
+   pool of 50): one update pair on the card against the CPU's (D's rate
+   1e-9), a graphed 20-step chunk equal to the eager one bit for bit (G,
+   its running statistics, D, both Adams, the pool) with no port kernel
+   launched, each route's ms/step, the capture and the pools' memory;
+   then ``train_refine`` for one epoch of 40 steps (every logged loss
+   finite, ``G_L1`` falling) and ``test_refine`` from it;
+11. dist: the engine phase's run for one epoch with ``--num_processes 1
+   --process_id 0 --coordinator 127.0.0.1:<port>`` (NCCL at world size
+   1: the split step's collectives and the eval render's gather inside
+   the graphs) against the same run without: each chunk's state bit for
+   bit, the launch counts of training and test equal, the test PNGs
+   byte for byte; a graphed chunk's ms/step with the collectives and
+   without; and ``--mesh_devices 2`` refused, naming the card count;
+12. prints a JSON line of details (also written to
    ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
    summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -2425,6 +2441,333 @@ def aux_phase(dev, card, work):
     return out
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _empty_cache(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _upload_buffer(dataset, dev):
+    """A dataset's training ray buffer on ``dev``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in dataset.ray_buffer().items()}
+
+
+# refine_gan phase: --refine_as_gan at scripts/train_llff_refine.sh's full
+# width (UNet ngf 64, 6 downs, 32 patches of 64 px a step, D at ndf 64
+# with the 64 px depth, a pool of 50) on the engine phase's scene and
+# renders, cut to one engine epoch of REFINE_GAN_STEPS steps
+REFINE_GAN_STEPS = 40
+# one step on the card against the plain step on the CPU (the aux
+# bars, STEP_BARS f32): each loss within 1e-5 of max(|loss|, 1), each
+# gradient leaf of G and of D within 1e-2 of its norm, floored at
+# AUX_LEAF_FLOOR of the step's whole gradient; D steps at --gan_lr 1e-9
+# there, so that what D' tells G does not turn with a sign of D's first
+# Adam step (the aux phase's rule)
+REFINE_GAN_BARS = STEP_BARS["f32"]
+
+
+def _gan_run_tensors(state, gs, pool):
+    """G's parameters, statistics and Adam state, D's, and the pool."""
+    out = _refine_tensors(state)
+    out.update(_gan_tensors(gs))
+    out.update({f"pool/{k}": v for k, v in pool.items()})
+    return out
+
+
+def _gan_step_vs_cpu(opt, dev, buffers):
+    """One update pair on the card and on the CPU from the same G, D and
+    batch, with D's learning rate 1e-9: the four losses and every
+    gradient leaf of G and D against the CPU's."""
+    from nerfsr_torch.models import create_model
+    popt = copy.copy(opt)
+    popt.gan_lr = 1e-9
+    batch = create_model(popt, device=dev).sample_patch_batch(
+        buffers, torch.Generator(device=dev).manual_seed(7))
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        system = create_model(popt, device=device)
+        state = system.create_state(seed=opt.seed, steps_per_epoch=1)
+        gs = system.create_gan_state(opt.seed)
+        _, _, losses, _ = system.gan_train_step(
+            state, gs, {k: v.to(device) for k, v in batch.items()})
+        grads = [(f"G/{n}", p.grad.cpu().double())
+                 for n, p in state.net.named_parameters()]
+        grads += [(f"D/{n}", p.grad.cpu().double())
+                  for n, p in gs.net.named_parameters()]
+        runs[name] = ({k: float(v) for k, v in losses.items()}, grads)
+    (lk, gk), (lc, gc) = runs["card"], runs["cpu"]
+    loss_err = {k: abs(lk[k] - lc[k]) / max(abs(lc[k]), 1.0) for k in lc}
+    total = float(torch.sqrt(sum(b.pow(2).sum() for _, b in gc)))
+    rels = {}
+    for (leaf, a), (_, b) in zip(gk, gc):
+        if not torch.isfinite(a).all():
+            fail(f"refine_gan: gradient {leaf} non-finite on the card")
+        rels[leaf] = float((a - b).norm()) / max(
+            float(b.norm()), AUX_LEAF_FLOOR * total, 1e-30)
+    worst = max(rels, key=rels.get)
+    loss_bar, grad_bar = REFINE_GAN_BARS
+    if max(loss_err.values()) > loss_bar or rels[worst] > grad_bar:
+        fail(f"refine_gan one step, card vs CPU: losses {loss_err} (bar "
+             f"{loss_bar}), gradient {worst} {rels[worst]:.3e} (bar "
+             f"{grad_bar})")
+    return {"loss_err": loss_err, "max_leaf_rel": rels[worst],
+            "worst_leaf": worst,
+            "median_leaf_rel": float(np.median(list(rels.values())))}
+
+
+def refine_gan_phase(dev, card, work):
+    """``--refine_as_gan`` on the engine phase's scene and renders: a
+    graphed 20-step chunk against the eager one from the same seed (G,
+    its running statistics, D, both Adams and the pool, bit for bit; no
+    port kernel launched), each route's ms/step, the capture and the
+    pool's memory; one step against the CPU; the engine for one epoch
+    (G_L1 falling, every loss finite) and test_refine from it."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+
+    # deterministic cuDNN, as train_refine asks for (graphed equal to
+    # eager)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_phase = time.perf_counter()
+    scene = os.path.join(work, "scene")
+    syn = os.path.join(work, "results", "engine", "test_train_3")
+    opt = parse_options("train", refine_argv(
+        scene, syn, work, "gan", "train", "--refine_as_gan", "--device",
+        dev.type, "--n_epochs", "1", "--steps_per_epoch",
+        str(REFINE_GAN_STEPS), "--print_freq", str(REFINE_GAN_STEPS // 4),
+        "--val_freq", "0"))
+    buffers = create_model(opt, device=dev).upload_buffers(
+        create_dataset(opt, "train").device_buffers())
+    out = {"step_vs_cpu": _gan_step_vs_cpu(opt, dev, buffers)}
+
+    runs = {}
+    for route in ("eager", "graphed"):
+        system = create_model(opt, device=dev)
+        if route == "eager":
+            system.graphs = None
+        state = system.create_state(seed=0, steps_per_epoch=10 * GRAPH_STEPS)
+        gs, pool = system.create_gan_state(0), system.new_pool()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_counts()
+        state, gs, pool, losses = system.train_steps_scan_gan(
+            state, gs, pool, buffers, GRAPH_STEPS, gen)
+        _sync(dev)
+        if any(COUNTS.values()):
+            fail(f"refine_gan {route}: port kernels launched {dict(COUNTS)}")
+        runs[route] = _gan_run_tensors(state, gs, pool)
+        gen.manual_seed(1)
+        t0 = time.perf_counter()
+        state, gs, pool, losses = system.train_steps_scan_gan(
+            state, gs, pool, buffers, GRAPH_STEPS, gen)
+        vals = torch.stack(list(losses.values())).cpu()
+        out[f"{route}_ms_per_step"] = (time.perf_counter() - t0) \
+            / GRAPH_STEPS * 1e3
+        if not torch.isfinite(vals).all():
+            fail(f"refine_gan {route}: non-finite losses {losses}")
+        if route == "graphed" and system.graphs is not None:
+            (graph,) = system.graphs.entries().values()
+            out.update(capture_s=graph.capture_s,
+                       graph_pool_mib=graph.pool_bytes / 2 ** 20,
+                       replays=graph.replays)
+        out["fake_pool_mib"] = pool["buf"].numel() * 4 / 2 ** 20
+        del system, state, gs, pool
+        _empty_cache(dev)
+    a, b = runs["eager"], runs["graphed"]
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or a.keys() != b.keys():
+        fail(f"refine_gan: the graphed chunk differs from the eager one in "
+             f"{len(differ)} tensors, first {differ[:3]}")
+    out["tensors_equal"] = len(a)
+    del runs, a, b, buffers
+
+    # the engine: one epoch, then test_refine from it
+    reset_counts()
+    t0 = time.perf_counter()
+    state = engine.train_refine(opt)
+    out["engine_s"] = time.perf_counter() - t0
+    if state.step != REFINE_GAN_STEPS:
+        fail(f"refine_gan: the engine ended at step {state.step}")
+    g_l1 = []
+    with open(os.path.join(work, "refine_runs", "gan", "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["tag"].startswith("train/") and not \
+                    np.isfinite(rec["value"]):
+                fail(f"refine_gan: {rec['tag']} at step {rec['step']} is "
+                     f"{rec['value']}")
+            if rec["tag"] == "train/G_L1":
+                g_l1.append(rec["value"])
+    if len(g_l1) != 4 or not g_l1[-1] < g_l1[0]:
+        fail(f"refine_gan: G_L1 over the run {g_l1}")
+    tst = parse_options("test", refine_argv(
+        scene, syn, work, "gan", "test", "--device", dev.type,
+        "--test_split", "test_train", "--load_epoch", "1"))
+    out_dir = engine.test_refine(tst)
+    if len([f for f in os.listdir(out_dir) if f.endswith("-sr-refine.png")]) \
+            != ENGINE_VIEWS:
+        fail(f"refine_gan: test_refine wrote {os.listdir(out_dir)}")
+    if any(COUNTS.values()):
+        fail(f"refine_gan: the engine launched port kernels {dict(COUNTS)}")
+    vp = out["step_vs_cpu"]
+    print(f"[refine_gan] a {GRAPH_STEPS}-step chunk graphed equals the eager "
+          f"one in {out['tensors_equal']} tensors bit for bit (G, its "
+          f"statistics, D, both Adams, the pool); "
+          f"{out['graphed_ms_per_step']:.2f} ms/step graphed, "
+          f"{out['eager_ms_per_step']:.2f} eager (batch {opt.batch_size}, "
+          f"{opt.patch_len} px, host clock to a synchronize); capture "
+          f"{out.get('capture_s', 0):.2f} s, graph pool "
+          f"{out.get('graph_pool_mib', 0):.0f} MiB, fake pool "
+          f"{out['fake_pool_mib']:.2f} MiB; one step card vs CPU: worst loss "
+          f"{max(vp['loss_err'].values()):.2e}, worst gradient leaf "
+          f"{vp['max_leaf_rel']:.2e} ({vp['worst_leaf']}); engine epoch of "
+          f"{REFINE_GAN_STEPS} steps in {out['engine_s']:.1f} s, G_L1 "
+          f"{g_l1[0]:.3f} -> {g_l1[-1]:.3f}; test_refine wrote "
+          f"{ENGINE_VIEWS} strips; no port kernel launched; on {card}")
+    out.update(g_l1=g_l1, phase_s=time.perf_counter() - t_phase, card=card)
+    return out
+
+
+# dist phase: the engine phase's run (scripts/train_llff_downX_fast.sh's
+# flags, one epoch of ENGINE_STEPS) with and without --num_processes 1
+# (NCCL at world size 1: every collective of the split step and the
+# eval render runs, inside the graphs)
+class _StateLog(_ChunkLog):
+    """A ``_ChunkLog`` that also keeps every state tensor after each
+    chunk (on the host)."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.states = []
+        real, states = dict(self._real), self.states
+        from nerfsr_torch.models.nerf_system import NeRFSystem
+
+        def keeper(run):
+            def wrapped(system, state, *a, **kw):
+                out = run(system, state, *a, **kw)
+                states.append({k: v.detach().cpu().clone()
+                               for k, v in _state_tensors(out[0]).items()})
+                return out
+            return wrapped
+        for name in real:
+            setattr(NeRFSystem, name, keeper(getattr(NeRFSystem, name)))
+        return self
+
+
+def _graphed_ms(dev, opt, buffer):
+    """ms/step of a graphed chunk of GRAPH_STEPS after the one that
+    captures it (host clock to a synchronize)."""
+    from nerfsr_torch.models import create_model
+    system = create_model(opt, device=dev)
+    state = system.create_state(seed=0, steps_per_epoch=10 * GRAPH_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = system.train_steps_scan(state, buffer, GRAPH_STEPS, gen)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, losses = system.train_steps_scan(state, buffer, GRAPH_STEPS, gen)
+    torch.stack(list(losses.values())).cpu()
+    return (time.perf_counter() - t0) / GRAPH_STEPS * 1e3
+
+
+def dist_phase(dev, card, work):
+    """The engine with ``--num_processes 1 --process_id 0 --coordinator``
+    (NCCL at world size 1) against the same run without a group: each
+    chunk's state bit for bit, the launch counts, the test PNGs byte for
+    byte; ms/step of a graphed chunk with the collectives and without;
+    ``--mesh_devices 2`` refused with the card count."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    scene = os.path.join(work, "scene")
+    group = ["--num_processes", "1", "--process_id", "0", "--coordinator",
+             f"127.0.0.1:{mesh.free_port()}"]
+    out, runs = {}, {}
+    buffer = None
+    for name, extra in (("plain", []), ("group", group)):
+        argv = ["--name", f"dist_{name}", "--device", dev.type] + extra
+        opt = parse_options("train", engine_argv(
+            scene, work, "train", "--n_epochs", "1", *argv))
+        reset_counts()
+        with _StateLog() as log:
+            state = engine.train(opt)
+        _sync(dev)
+        if set(log.routes()) != {"train_steps_scan"}:
+            fail(f"dist {name}: the engine's chunks {log.chunks}")
+        if (name == "group") != mesh.active():
+            fail(f"dist {name}: process group active: {mesh.active()}")
+        train_counts = dict(COUNTS)
+        topt = parse_options("test", engine_argv(
+            scene, work, "test", "--test_split", "test_train",
+            "--load_epoch", "1", *argv))
+        reset_counts()
+        out_dir = engine.test(topt)
+        test_counts = dict(COUNTS)
+        if buffer is None:
+            buffer = _upload_buffer(create_dataset(opt, "train"), dev)
+        runs[name] = {"states": log.states, "train_counts": train_counts,
+                      "test_counts": test_counts, "dir": out_dir,
+                      "ms": _graphed_ms(dev, opt, buffer), "step": state.step}
+        _empty_cache(dev)
+    a, b = runs["plain"], runs["group"]
+    if len(a["states"]) != len(b["states"]) or not a["states"]:
+        fail(f"dist: {len(a['states'])} and {len(b['states'])} chunks")
+    n_tensors = 0
+    for i, (sa, sb) in enumerate(zip(a["states"], b["states"])):
+        differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        if differ or sa.keys() != sb.keys():
+            fail(f"dist: chunk {i} at world size 1 differs from the plain "
+                 f"run's in {len(differ)} tensors, first {differ[:3]}")
+        n_tensors += len(sa)
+    for k in ("train_counts", "test_counts"):
+        if a[k] != b[k]:
+            fail(f"dist: {k} {b[k]} at world size 1, {a[k]} without")
+    files = sorted(f for f in os.listdir(a["dir"]) if f.endswith(".png"))
+    if not files or files != sorted(f for f in os.listdir(b["dir"])
+                                    if f.endswith(".png")):
+        fail(f"dist: test PNGs {files} and {os.listdir(b['dir'])}")
+    for f in files:
+        with open(os.path.join(a["dir"], f), "rb") as x, \
+                open(os.path.join(b["dir"], f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"dist: {f} differs at world size 1")
+    mesh.shutdown()
+    refused = None
+    if dev.type == "cuda":     # on the CPU it would spawn two gloo ranks
+        try:
+            engine.train(parse_options("train", engine_argv(
+                scene, work, "train", "--name", "dist_two",
+                "--mesh_devices", "2")))
+        except RuntimeError as e:
+            refused = str(e)
+        count = torch.cuda.device_count()
+        if refused is None or f"{count} card" not in refused:
+            fail(f"dist: --mesh_devices 2 on {count} card(s): {refused}")
+    out.update(chunks_equal=len(a["states"]), tensors_equal=n_tensors,
+               launches=b["train_counts"], test_launches=b["test_counts"],
+               test_pngs_equal=len(files), graphed_ms_per_step=b["ms"],
+               plain_graphed_ms_per_step=a["ms"], mesh_devices_2=refused,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    print(f"[dist] --num_processes 1 (NCCL, world size 1) against no group: "
+          f"{len(a['states'])} chunks of the engine equal bit for bit "
+          f"({n_tensors} tensors), launch counts equal (train "
+          f"{b['train_counts']}, test {b['test_counts']}), {len(files)} test "
+          f"PNGs equal byte for byte; graphed {b['ms']:.3f} ms/step with the "
+          f"collectives, {a['ms']:.3f} without; --mesh_devices 2 refused: "
+          f"{refused}; on {card}")
+    return out
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2472,6 +2815,8 @@ def main():
         t0 = time.perf_counter()
         aux_out = aux_phase(dev, card, work)
         aux_out["phase_s"] = time.perf_counter() - t0
+        refine_gan_out = refine_gan_phase(dev, card, work)
+        dist_out = dist_phase(dev, card, work)
 
     # launches: the timed training window (graph replays), which runs all
     # five kernels
@@ -2524,6 +2869,8 @@ def main():
                                  "datasets": datasets_out,
                                  "refine": refine_out,
                                  "aux": aux_out,
+                                 "refine_gan": refine_gan_out,
+                                 "dist": dist_out,
                                  "card": card}})
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         f.write(detail + "\n")

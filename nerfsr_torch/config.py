@@ -20,11 +20,13 @@ The auxiliary training paths' flags (``--with_ref`` with
 ``--ref_freq``/``--ref_idx``/``--all_ref``, ``--patch_size`` with the
 depth-Laplacian and VGG weights, ``--with_netD`` with the GAN's,
 ``--reg_patch`` with its length, cadence and weight) keep the JAX
-package's names and defaults. ``--mesh_devices`` is accepted so that the
-engine can refuse it by name. The refine stage's flags (the refine
-model, ``llff_refine`` dataset and network options) keep the JAX
-package's names and defaults too; ``--refine_as_gan`` is accepted so
-that the refine system can refuse it by name.
+package's names and defaults. The refine stage's flags (the refine
+model, ``llff_refine`` dataset and network options, ``--refine_as_gan``
+with ``--lambda_L1``) keep the JAX package's names and defaults too. So
+do the data-parallel flags: ``--mesh_devices`` (ranks, one card each; 0
+means every visible card) and the multi-process ``--coordinator``,
+``--num_processes`` and ``--process_id`` (``nerfsr_torch/parallel/
+mesh.py``).
 """
 
 from __future__ import annotations
@@ -247,6 +249,7 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--lambda_refine_mse", type=float, default=10.0)
     p.add_argument("--lambda_refine_grad", type=float, default=1.0)
     p.add_argument("--refine_as_gan", action="store_true")
+    p.add_argument("--lambda_L1", type=float, default=100.0)
     p.add_argument("--vgg_weights", type=str, default=None)
     p.add_argument("--patch_len", type=int, default=32)
 
@@ -280,8 +283,21 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--pallas_mlp_bwd", type=str, default="xla",
                    choices=["xla", "pallas"])
     p.add_argument("--pallas_interpret", action="store_true")
-    p.add_argument("--mesh_devices", type=int, default=0)
     p.add_argument("--compilation_cache_dir", type=str, default="")
+
+    # ---- data parallelism (nerfsr_torch/parallel/mesh.py) ----
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="ranks of the data-parallel world, one card each "
+                        "(0 = every visible card); above 1 without "
+                        "--num_processes the ranks are spawned here")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="multi-process: rank 0's host:port for "
+                        "torch.distributed's TCP rendezvous")
+    p.add_argument("--num_processes", type=int, default=0,
+                   help="multi-process: the world size (0 = one process, "
+                        "no process group)")
+    p.add_argument("--process_id", type=int, default=-1,
+                   help="multi-process: this process's rank")
     return p
 
 
@@ -379,14 +395,17 @@ def default_options(phase: str = "train", **overrides):
 
 def save_options(opt):
     """Write the options to ``{checkpoints_dir}/{name}/{phase}_opt.txt``
-    and ``.json``; returns the text."""
+    and ``.json`` (on the master rank only: ``--process_id`` 0 or none);
+    returns the text."""
     import json
-    expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
-    os.makedirs(expr_dir, exist_ok=True)
     d = dict(sorted(vars(opt).items()))
     msg = "\n".join(["----------------- Options ---------------"]
                     + [f"{str(k):>25}: {v}" for k, v in d.items()]
                     + ["----------------- End -------------------"])
+    if getattr(opt, "num_processes", 0) and opt.process_id > 0:
+        return msg
+    expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    os.makedirs(expr_dir, exist_ok=True)
     with open(os.path.join(expr_dir, f"{opt.phase}_opt.txt"), "w") as f:
         f.write(msg + "\n")
     with open(os.path.join(expr_dir, f"{opt.phase}_opt.json"), "w") as f:

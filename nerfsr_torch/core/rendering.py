@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from nerfsr_torch.parallel import mesh
+
 
 def sigma_activation(sigma: torch.Tensor, kind: str = "relu") -> torch.Tensor:
     """Density activation: relu, or the shifted softplus log(1+exp(x-1))."""
@@ -92,7 +94,7 @@ def add_gaussian_noise(raw: torch.Tensor, randomized: bool,
     """Sigma noise regularizer; ``noise`` overrides the N(0, 1) draw."""
     if randomized and noise_std > 0:
         if noise is None:
-            noise = torch.randn(raw.shape, generator=generator,
-                                dtype=raw.dtype, device=raw.device)
+            noise = mesh.draw(torch.randn, raw.shape, generator=generator,
+                              dtype=raw.dtype, device=raw.device)
         return raw + noise * noise_std
     return raw

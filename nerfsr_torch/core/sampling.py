@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from nerfsr_torch.parallel import mesh
+
 
 def cast_rays(origins: torch.Tensor, directions: torch.Tensor,
               z_vals: torch.Tensor) -> torch.Tensor:
@@ -22,9 +24,10 @@ def cast_rays(origins: torch.Tensor, directions: torch.Tensor,
 
 
 def _uniform(shape, like: torch.Tensor, generator: Optional[torch.Generator]):
-    """U[0, 1) draws in ``like``'s dtype on ``like``'s device."""
-    return torch.rand(shape, generator=generator, dtype=like.dtype,
-                      device=like.device)
+    """U[0, 1) draws in ``like``'s dtype on ``like``'s device (a rank's
+    rows of the world's draw inside a split step, ``parallel/mesh.py``)."""
+    return mesh.draw(torch.rand, shape, generator=generator,
+                     dtype=like.dtype, device=like.device)
 
 
 def sample_along_rays(origins, directions, near, far, num_samples: int,

@@ -56,9 +56,22 @@ is a full optimizer step, so ``TrainState.step`` counts them; the cadence
 counts the main steps from the step the run started at, as the JAX
 engine's ``global_step`` does. The discriminator is not checkpointed.
 
+With ``--refine_as_gan`` the refine chunks are
+``RefineSystem.train_steps_scan_gan`` (G and D updates with the device
+fake pool); D starts from ``--seed`` and the pool empty, also on a
+resume, as in the JAX engine, which saves neither.
+
+Data parallelism (``nerfsr_torch/parallel/mesh.py``): with
+``--num_processes`` (and ``--coordinator``, ``--process_id``) ``setup``
+joins the process group and the rank runs on its card; with
+``--mesh_devices`` N > 1 and no ``--num_processes`` each entry spawns N
+ranks, one card each, and returns nothing. Every rank runs every chunk,
+validation and render (the systems split the rows), reads a resume, and
+takes rank 0's state; only the master writes checkpoints, metrics,
+visuals and test artifacts (the others' metrics writer is a null sink).
+
 Paths the port does not cover yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item: ``--mesh_devices`` > 1 and
-``--refine_as_gan``.
+their ``ROADMAP.md`` item (``nerfsr_torch.models.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -71,32 +84,50 @@ import numpy as np
 import torch
 
 from nerfsr_torch.data import create_dataset
-from nerfsr_torch.models import create_model, refine_system
+from nerfsr_torch.models import create_model, refuse_unported
+from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils import checkpoint as ckpt
-from nerfsr_torch.utils.visualizer import (MetricsWriter, Visualizee,
-                                           save_visuals)
-
-_ROADMAP = "is not ported yet (ROADMAP.md queue 1 item {})"
+from nerfsr_torch.utils.visualizer import (MetricsWriter, NullMetricsWriter,
+                                           Visualizee, save_visuals)
 
 
 def _refuse_unported(opt):
-    refusals = [
-        (opt.mesh_devices > 1, "--mesh_devices > 1", "3, distributed"),
-    ] + [(getattr(opt, flag), what, item)
-         for flag, what, item in refine_system.UNPORTED]
-    for hit, what, item in refusals:
-        if hit:
-            raise NotImplementedError(f"{what} {_ROADMAP.format(item)}")
+    """Raise for what the port does not cover yet (ROADMAP.md queue 1 item
+    6), and for a world the cards cannot hold."""
+    refuse_unported(opt)
+    ckpt.check_backend(opt)
+    mesh.check_world(opt)
 
 
 def setup(opt):
-    """Refuse what is not ported, seed, and build the system on
-    ``--device``."""
+    """Refuse what is not ported, join the process group when
+    ``--num_processes`` asks for one (the rank's card becomes the device),
+    seed, and build the system."""
     _refuse_unported(opt)
-    ckpt.check_backend(opt)
+    device = opt.device
+    if opt.num_processes:
+        device = mesh.init_distributed(opt.coordinator, opt.num_processes,
+                                       opt.process_id, opt.device)
+        print(f"[setup] torch.distributed: rank {mesh.rank()} of "
+              f"{mesh.world_size()} on {device}")
     np.random.seed(opt.seed)
     torch.manual_seed(opt.seed)
-    return create_model(opt, device=opt.device)
+    return create_model(opt, device=device)
+
+
+def _make_writer(opt):
+    """The metrics sink: the master's file, a null sink on other ranks."""
+    return MetricsWriter(opt.summary_dir, opt.name) if mesh.is_master() \
+        else NullMetricsWriter()
+
+
+def _broadcast_state(state):
+    """Rank 0's parameters, statistics and Adam state on every rank."""
+    if not mesh.active():
+        return
+    net = state.net if hasattr(state, "net") else state.params
+    mesh.broadcast_state(list(net.parameters()) + list(net.buffers())
+                         + state.optimizer.state_tensors())
 
 
 def _deterministic_cudnn():
@@ -147,9 +178,12 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
     steps from that split's buffer, uploaded once, instead of the train
     split's. ``timings``, when a dict, receives each epoch's host seconds
     over its steps (ending in the chunk's loss read, which waits for the
-    card) under ``"epoch_s"`` and ``steps_per_epoch``."""
+    card) under ``"epoch_s"`` and ``steps_per_epoch``. Returns the state
+    (nothing when it spawned the ranks)."""
+    if mesh.spawns(opt):
+        return mesh.spawn(train, opt, warmup_mode, warmup_iters)
     system = setup(opt)
-    writer = MetricsWriter(opt.summary_dir, opt.name)
+    writer = _make_writer(opt)
 
     train_ds = create_dataset(opt, opt.train_split)
     buffer_np = train_ds.ray_buffer()
@@ -194,6 +228,7 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
         print(f"[train] resumed from epoch {start_epoch} at step "
               f"{state.step}")
     ckpt.init_weights_from(opt, state)
+    _broadcast_state(state)
 
     gen = torch.Generator(device=system.device)
     rays_per_batch = _rays_per_batch(opt, buffer_np)
@@ -244,7 +279,7 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
               f"({seconds / steps_per_epoch * 1e3:.2f} ms/step)")
 
         if ((opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0)
-                or epoch == opt.n_epochs):
+                or epoch == opt.n_epochs) and mesh.is_master():
             print(f"[train] saved {ckpt.save_checkpoint(opt, state, epoch)}")
 
         if val_ds is not None and opt.val_epoch_freq and \
@@ -389,7 +424,7 @@ def _validate_iter(opt, system, state, val_ds, writer, epoch, k, step):
         out = system.render_eval(state.params, val_ds, 0, sample)
         with_gt = sample.get("rgbs") is not None
         m = system.eval_metrics(out, sample) if with_gt else {}
-        if need_vis:
+        if need_vis and mesh.is_master():
             save_visuals(system.eval_visuals(
                 out, sample, f"s{step}", with_gt=with_gt,
                 depth_bounds=val_ds.depth_bounds),
@@ -465,7 +500,7 @@ def validate(opt, system, params, dataset, out_dir=None, max_images=None):
                 if v.kind == "image":
                     gif_frames.setdefault(v.name.split("-", 1)[1],
                                           []).append(v.data)
-    if out_dir is not None and visuals:
+    if out_dir is not None and visuals and mesh.is_master():
         save_visuals(visuals + _gif_visuals(gif_frames), out_dir)
     if not metrics:            # a split without ground truth
         return {}
@@ -480,7 +515,10 @@ def test(opt, timings=None):
     the end. Returns the directory. ``timings``, when a dict, receives
     the host seconds of the render-and-write loop (ending with the last
     GIF written), the part of them spent building and writing the
-    artifacts, and the view count."""
+    artifacts, and the view count. Every rank renders; the master
+    writes."""
+    if mesh.spawns(opt):
+        return mesh.spawn(test, opt)
     system = setup(opt)
     dataset = create_dataset(opt, opt.test_split)
     state = system.create_state(seed=0, steps_per_epoch=1)
@@ -496,6 +534,8 @@ def test(opt, timings=None):
                                       range(len(dataset)), quantize_rgb=True)
     for i, out in enumerate(renders):
         t_write = time.perf_counter()
+        if not mesh.is_master():
+            continue
         sample = dataset.image_rays(i)
         vis = system.eval_visuals(out, sample, i,
                                   with_gt=sample.get("rgbs") is not None,
@@ -509,7 +549,8 @@ def test(opt, timings=None):
         write_s += time.perf_counter() - t_write
     t_write = time.perf_counter()
     gifs = _gif_visuals(gif_frames)
-    save_visuals(gifs, out_dir)
+    if mesh.is_master():
+        save_visuals(gifs, out_dir)
     if timings is not None:
         end = time.perf_counter()
         timings.update(seconds=end - t0, write_s=write_s + end - t_write,
@@ -532,11 +573,14 @@ def train_refine(opt, timings=None):
     """The refine stage's training loop; ``timings``, when a dict,
     receives each epoch's host seconds under ``"epoch_s"`` (ending in the
     last chunk's loss read, which waits for the card) and
-    ``steps_per_epoch``."""
+    ``steps_per_epoch``. Under a process group every rank runs the whole
+    step (``RefineSystem``); the master validates and writes."""
+    if mesh.spawns(opt):
+        return mesh.spawn(train_refine, opt)
     system = setup(opt)
     if system.device.type == "cuda":
         _deterministic_cudnn()
-    writer = MetricsWriter(opt.summary_dir, opt.name)
+    writer = _make_writer(opt)
     dataset = create_dataset(opt, "train")
     steps_per_epoch = opt.steps_per_epoch or max(
         1, len(dataset) // opt.batch_size)
@@ -551,7 +595,15 @@ def train_refine(opt, timings=None):
     if start_epoch:
         print(f"[refine] resumed from epoch {start_epoch} at step "
               f"{state.step}")
+    _broadcast_state(state)
     buffers = system.upload_buffers(dataset.device_buffers())
+    d_state = pool = None
+    if opt.refine_as_gan:
+        # D from --seed and an empty pool, also on a resume: neither is
+        # checkpointed, as in the JAX engine
+        d_state, pool = system.create_gan_state(opt.seed), system.new_pool()
+        print(f"[refine] --refine_as_gan: D at ndf {opt.ndf_dis}, a pool of "
+              f"{pool['buf'].shape[0]} fakes on {system.device}")
     print(f"[refine] {len(dataset.sr_imgs)} augmented views "
           f"{opt.img_wh[0]}x{opt.img_wh[1]} on {system.device}, "
           f"{steps_per_epoch} steps/epoch, {opt.n_epochs} epochs")
@@ -570,14 +622,20 @@ def train_refine(opt, timings=None):
             k = min([left] + [f - state.step % f for f in
                               (log_every, val_freq) if f > 0])
             _seed_chunk(gen, opt.seed, state.step)
-            state, losses = system.train_steps_scan(state, buffers, k, gen)
+            if d_state is not None:
+                state, d_state, pool, losses = system.train_steps_scan_gan(
+                    state, d_state, pool, buffers, k, gen)
+            else:
+                state, losses = system.train_steps_scan(state, buffers, k,
+                                                        gen)
             left -= k
             scal = _read(losses)
             step = state.step
             if log_every > 0 and step % log_every == 0:
                 writer.add_scalars(scal, step, prefix="train/")
                 print(f"[e{epoch} s{step}] {_fmt(scal)}")
-            if val_ds is not None and val_freq > 0 and step % val_freq == 0:
+            if (val_ds is not None and val_freq > 0 and step % val_freq == 0
+                    and mesh.is_master()):
                 batch = val_ds.sample_val_item(val_counter)
                 val_counter += 1
                 pred, m = system.validate_item(state, batch)
@@ -594,10 +652,11 @@ def train_refine(opt, timings=None):
         print(f"[refine] epoch {epoch} done in {seconds:.1f}s "
               f"({seconds / steps_per_epoch * 1e3:.2f} ms/step)")
         if ((opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0)
-                or epoch == opt.n_epochs):
+                or epoch == opt.n_epochs) and mesh.is_master():
             print(f"[refine] saved {ckpt.save_checkpoint(opt, state, epoch)}")
-        if val_ds is not None and opt.val_epoch_freq and \
-                (epoch % opt.val_epoch_freq == 0 or epoch == opt.n_epochs):
+        if val_ds is not None and opt.val_epoch_freq and mesh.is_master() \
+                and (epoch % opt.val_epoch_freq == 0
+                     or epoch == opt.n_epochs):
             metrics, visuals = [], []
             for i in range(max(1, val_ds.n_images())):
                 batch = val_ds.sample_val_item(i)
@@ -620,7 +679,10 @@ def test_refine(opt, timings=None):
     ``--load_epoch``; each ``{i}-sr-refine.png`` strip is written as its
     image is done. Returns the directory. ``timings``, when a dict,
     receives the host seconds of the loop, the part of them spent
-    building and writing the strips, and the image count."""
+    building and writing the strips, and the image count. Every rank
+    refines; the master writes."""
+    if mesh.spawns(opt):
+        return mesh.spawn(test_refine, opt)
     system = setup(opt)
     dataset = create_dataset(opt, opt.test_split)
     state = system.create_state(seed=0, steps_per_epoch=1)
@@ -636,9 +698,10 @@ def test_refine(opt, timings=None):
             state, dataset.tiles_for_image(i))
         t_write = time.perf_counter()
         parts = [sr_img, refined] + ([gt_img] if gt_img is not None else [])
-        save_visuals([Visualizee("image", np.concatenate(parts, axis=1),
-                                 name=f"{i}-sr-refine", range=(-1, 1))],
-                     out_dir)
+        if mesh.is_master():
+            save_visuals([Visualizee("image", np.concatenate(parts, axis=1),
+                                     name=f"{i}-sr-refine", range=(-1, 1))],
+                         out_dir)
         write_s += time.perf_counter() - t_write
         if gt_img is not None:
             metrics.append(system.eval_image_metrics(refined, sr_img,

@@ -24,11 +24,13 @@ The first call of a key runs the body eagerly on the capture stream. It
 is the warm-up of PyTorch's whole-network capture recipe (cuBLAS and
 cuDNN handles and workspaces, the kernel library, Adam's lazily built
 moments) and a real call, whose result is returned. The capture follows;
-it launches nothing, and every later call of the key replays. A key's
-graph is captured again when a tensor it was captured with has been
-replaced by another (``inputs``: a resume that loads new Adam state, a
-new buffer). Capture and replay failures raise; nothing falls back to
-eager execution.
+it launches nothing, and every later call of the key replays. Under a
+process group (``parallel/mesh.py``) a step's collectives are captured
+with the rest of it; the eager first call brings the communicator up
+before the capture. A key's graph is captured again when a tensor it
+was captured with has been replaced by another (``inputs``: a resume
+that loads new Adam state, a new buffer). Capture and replay failures
+raise; nothing falls back to eager execution.
 
 Kernel launch counts (``kernels/_lib.py``): a capture's wrapper calls
 are taken back out of ``COUNTS`` and added once per replay. The fused

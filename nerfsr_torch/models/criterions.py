@@ -20,12 +20,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerfsr_torch.parallel import mesh
+
 
 def psnr(pred, target, valid_mask=None):
-    """-10 log10(mse)."""
+    """-10 log10(mse). Inside a step's split of the rows
+    (``parallel/mesh.py``) it is this rank's share of the world's mse,
+    which the step's ``reduce_losses`` sums and turns into the PSNR."""
     err = (pred - target) ** 2
     if valid_mask is not None:
         err = err[valid_mask]
+    if mesh.share() is not None:
+        return mesh.mse_share(torch.mean(err))
     return -10.0 * torch.log10(torch.mean(err))
 
 
@@ -81,8 +87,8 @@ def interlevel_loss(z_fine, w_fine, z_prop, w_prop, eps: float = 1e-6):
     w_f = w_fine[..., :-1].detach()
     w_outer = _outer_mass(z_fine, z_prop, w_prop[..., :-1])
     d = w_f - w_outer
-    return torch.mean(torch.maximum(d, torch.zeros_like(d)) ** 2
-                      / (w_f + eps))
+    return mesh.row_mean(torch.maximum(d, torch.zeros_like(d)) ** 2
+                         / (w_f + eps))
 
 
 def _gaussian_kernel(size: int, sigma: float, device) -> torch.Tensor:

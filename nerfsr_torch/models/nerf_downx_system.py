@@ -30,12 +30,10 @@ graph, the patches made on the device from ``gan_raygen_buffers``.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.graphs import run_steps
@@ -45,7 +43,8 @@ from nerfsr_torch.models.criterions import (gan_loss, image_gradients,
 from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.criterions import ssim as ssim_fn
 from nerfsr_torch.models.nerf_system import NeRFSystem, TrainState, _host
-from nerfsr_torch.models.networks import create_discriminator
+from nerfsr_torch.models.networks import GanState, create_discriminator
+from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils.optim import Adam
 from nerfsr_torch.utils.schedule import write_lr
 from nerfsr_torch.utils.visualizer import Visualizee, depth2im
@@ -68,17 +67,6 @@ def _pick(x, i):
     since indexing by a 0-d tensor reads its value back to the host,
     which a CUDA graph's capture forbids."""
     return torch.index_select(x, 0, i.reshape(1))[0]
-
-
-@dataclasses.dataclass
-class GanState:
-    """The discriminator (its parameters and spectral-norm statistics) and
-    its Adam (``--gan_lr``, b1 ``--beta1``, b2 0.999, no clip, a constant
-    learning rate: optax's ``adam``). It is not checkpointed, as in the
-    JAX package: a resumed run starts D afresh."""
-
-    net: nn.Module
-    optimizer: torch.optim.Optimizer
 
 
 GAN_LOSS_NAMES = ("G_GAN", "D_real", "D_fake")
@@ -127,13 +115,13 @@ class NeRFDownXSystem(NeRFSystem):
         coarse_lr = None
         if has_coarse:
             coarse_lr = subpixel_mean(out["coarse_rgb"], ds2)
-            losses["coarse_mse"] = torch.mean((coarse_lr - lr_rgbs) ** 2)
+            losses["coarse_mse"] = mesh.row_mean((coarse_lr - lr_rgbs) ** 2)
             loss_tot = loss_tot + losses["coarse_mse"] \
                 * opt.lambda_coarse_mse
         fine_lr = None
         if "fine_rgb" in out:
             fine_lr = subpixel_mean(out["fine_rgb"], ds2)
-            losses["fine_mse"] = torch.mean((fine_lr - lr_rgbs) ** 2)
+            losses["fine_mse"] = mesh.row_mean((fine_lr - lr_rgbs) ** 2)
             loss_tot = loss_tot + losses["fine_mse"] * opt.lambda_fine_mse
         else:
             losses["fine_mse"] = zero
@@ -163,9 +151,9 @@ class NeRFDownXSystem(NeRFSystem):
 
         if "rgbs_sr" in batch:    # SISR supervision of the HR output
             sr = batch["rgbs_sr"].reshape(-1, batch["rgbs_sr"].shape[-1])
-            c_sr = torch.mean((out["coarse_rgb"] - sr) ** 2) if has_coarse \
-                else zero
-            f_sr = torch.mean((out["fine_rgb"] - sr) ** 2) \
+            c_sr = mesh.row_mean((out["coarse_rgb"] - sr) ** 2) \
+                if has_coarse else zero
+            f_sr = mesh.row_mean((out["fine_rgb"] - sr) ** 2) \
                 if "fine_rgb" in out else zero
             losses["coarse_mse_sr"] = c_sr
             losses["fine_mse_sr"] = f_sr

@@ -8,8 +8,14 @@ the device-raygen eval render (``eval_image_device_pose`` /
 ``_render_dirs_chunks``, ``render_pose``, ``render_eval_many``), the
 host-rays render (``render_image``), and the engine's metrics and
 visuals (``eval_metrics_fast``: PSNR and SSIM on the device, scalars
-read back; ``eval_metrics``; ``eval_visuals``). The port is single-card:
-there is no mesh.
+read back; ``eval_metrics``; ``eval_visuals``). Under a process group
+(``nerfsr_torch/parallel/mesh.py``, the JAX package's shard points) the
+main step and the with-ref step split the batch's rows over the ranks
+and sum the gradients, the eval render splits each chunk's rays and
+gathers them, and patch mode, the GAN and the TV updates run whole on
+every rank: their losses (D's, the TV, the Laplacian, VGG) are not sums
+over rows, and the replicated step is the exact counterpart of the JAX
+package's global-semantics sharding, with no collective.
 
 Parameters are an ``nn.ModuleDict`` of the networks (``prop``/``fine``
 under fast sampling, else ``coarse``/``fine``) on the system's device;
@@ -58,13 +64,14 @@ from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
 from nerfsr_torch.graphs import GraphCache, run_steps
 from nerfsr_torch.kernels import sampling as ksampling
-from nerfsr_torch.models import register_model
+from nerfsr_torch.models import refuse_unported, register_model
 from nerfsr_torch.models.criterions import interlevel_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.criterions import ssim as ssim_fn
 from nerfsr_torch.models.mlp import ProposalMLP, VanillaMLP
 from nerfsr_torch.models.render import (RenderConfig, render_rays,
                                         render_rays_fast)
+from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils.checkpoint import frozen_paths
 from nerfsr_torch.utils.optim import Adam
 from nerfsr_torch.utils.schedule import (lr_writer, make_lr_schedule,
@@ -105,9 +112,7 @@ class NeRFSystem:
     def __init__(self, opt, device=None):
         self.opt = opt
         self.device = resolve_device(device)
-        if opt.mlp_network != "vanilla_mlp":
-            raise NotImplementedError(
-                f"--mlp_network {opt.mlp_network} is not ported yet")
+        refuse_unported(opt)
         self.compute_dtype = _compute_dtype(opt.precision)
         cfg = RenderConfig(
             n_coarse=opt.N_coarse,
@@ -300,13 +305,12 @@ class NeRFSystem:
         """Render and losses at ``step`` (host int or device tensor),
         backward, clip, Adam at the learning rate already written; the
         body of ``train_step`` and of each step of ``train_steps_scan``.
-        Returns the step's losses (detached)."""
-        loss, losses = self._loss_fn(state.params, batch, generator, step)
-        state.params.zero_grad(set_to_none=True)
-        loss.backward()
-        self._clip_grads(state.optimizer)
-        state.optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        Under a process group the rank takes its share of the batch's rows
+        and the gradients are summed over the ranks before the clip
+        (``parallel/mesh.py``). Returns the step's losses (detached)."""
+        with mesh.split_rows():
+            return self._update(state, *self._loss_fn(
+                state.params, mesh.rank_rows_tree(batch), generator, step))
 
     def compute_losses(self, out: Dict[str, Any], batch: Dict[str, Any]):
         """MSE + PSNR losses (and the interlevel loss under fast
@@ -316,11 +320,11 @@ class NeRFSystem:
         losses = {}
         loss_tot = 0.0
         if "coarse_rgb" in out:
-            coarse_mse = torch.mean((out["coarse_rgb"] - rgbs) ** 2)
+            coarse_mse = mesh.row_mean((out["coarse_rgb"] - rgbs) ** 2)
             losses["coarse_mse"] = coarse_mse
             loss_tot = loss_tot + coarse_mse * opt.lambda_coarse_mse
         if "fine_rgb" in out:
-            fine_mse = torch.mean((out["fine_rgb"] - rgbs) ** 2)
+            fine_mse = mesh.row_mean((out["fine_rgb"] - rgbs) ** 2)
             losses["fine_mse"] = fine_mse
             loss_tot = loss_tot + fine_mse * opt.lambda_fine_mse
         else:
@@ -414,20 +418,23 @@ class NeRFSystem:
         whose loss may reach a discriminator's weights too) takes the
         gradient of the trained parameters alone and gives one that the
         loss does not reach a zero gradient, as JAX's gradient has one:
-        Adam then still moves it by its moments, as optax does."""
+        Adam then still moves it by its moments, as optax does. Inside a
+        split of the rows (``parallel/mesh.py``) the gradients and the
+        losses are summed over the ranks first."""
         state.params.zero_grad(set_to_none=True)
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"]]
         if fill:
-            params = [p for group in state.optimizer.param_groups
-                      for p in group["params"]]
             loss.backward(inputs=params)
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         else:
             loss.backward()
+        mesh.all_reduce_grads(params)
         self._clip_grads(state.optimizer)
         state.optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return {k: v.detach() for k, v in mesh.reduce_losses(losses).items()}
 
     def _scan_step(self, state: TrainState, buffer, generator, idx):
         """One step of a chunk, as a graph captures it: the batch (drawn
@@ -504,7 +511,7 @@ class NeRFSystem:
         losses, tot = {}, 0.0
         for level in ("coarse", "fine"):   # no coarse level when fast
             if f"{level}_rgb" in out:
-                losses[f"ref_{level}_mse"] = torch.mean(
+                losses[f"ref_{level}_mse"] = mesh.row_mean(
                     (out[f"{level}_rgb"] - ref_batch["rgbs"]) ** 2) * scale
                 tot = tot + losses[f"ref_{level}_mse"]
         return tot, losses
@@ -514,7 +521,8 @@ class NeRFSystem:
         """One with-ref step at ``step``: a main batch and a same-size
         batch of reference rays (drawn, or the injected rows), both
         rendered, the reference losses (times the 0/1 tensor ``ref_w``
-        when given) added to the total; backward, clip, Adam."""
+        when given) added to the total; backward, clip, Adam. Under a
+        process group each rank takes its share of both batches' rows."""
         batch = self.sample_batch(buffer, generator) if idx is None \
             else {k: v[idx] for k, v in buffer.items()}
         if ref_idx is None:
@@ -522,15 +530,19 @@ class NeRFSystem:
                                     (self.opt.batch_size,),
                                     generator=generator, device=self.device)
         ref_batch = {k: v[ref_idx] for k, v in ref_buffer.items()}
-        loss, losses = self._loss_fn(state.params, batch, generator, step)
-        ref_tot, ref_losses = self._ref_losses(state.params, ref_batch,
-                                               generator, step)
-        if ref_w is not None:
-            ref_losses = {k: v * ref_w for k, v in ref_losses.items()}
-            ref_tot = ref_tot * ref_w
-        losses.update(ref_losses)
-        losses["tot"] = loss + ref_tot
-        return self._update(state, losses["tot"], losses)
+        with mesh.split_rows():
+            loss, losses = self._loss_fn(state.params,
+                                         mesh.rank_rows_tree(batch),
+                                         generator, step)
+            ref_tot, ref_losses = self._ref_losses(
+                state.params, mesh.rank_rows_tree(ref_batch), generator,
+                step)
+            if ref_w is not None:
+                ref_losses = {k: v * ref_w for k, v in ref_losses.items()}
+                ref_tot = ref_tot * ref_w
+            losses.update(ref_losses)
+            losses["tot"] = loss + ref_tot
+            return self._update(state, losses["tot"], losses)
 
     def train_step_with_ref(self, state: TrainState, buffer, ref_buffer,
                             generator: Optional[torch.Generator] = None,
@@ -724,14 +736,16 @@ class NeRFSystem:
     def _eval_chunk_size(self, n: int, override: Optional[int] = None):
         """The eval ray chunk: an explicit ``--ray_chunk`` or ``override``,
         else 4096; shrunk to one 256-aligned chunk when the image is
-        smaller than the chunk."""
+        smaller than the chunk; rounded up to a multiple of the ranks, whose
+        shares of it they render (``parallel/mesh.py``)."""
         if override is not None:
             chunk = override
         else:
             chunk = self.opt.ray_chunk
             if chunk > n:
                 chunk = max(256, -(-n // 256) * 256)
-        return chunk
+        w = mesh.world_size()
+        return -(-chunk // w) * w
 
     @torch.no_grad()
     def eval_image_device_pose(self, params, dirs_stacked, c2w_pair,
@@ -785,22 +799,27 @@ class NeRFSystem:
         """Render each (chunk, 3) direction chunk of ``dirs_stacked``:
         rays from the pose (NDC with the near plane at 1.0 for forward-
         facing scenes, viewdirs from ``c2w_pair[1]`` through the same
-        NDC). Returns {k: (n_chunks, chunk, ...)} for ``keep``."""
+        NDC). Under a process group each rank renders its share of a
+        chunk's rays and gathers the others' (``parallel/mesh.py``).
+        Returns {k: (n_chunks, chunk, ...)} for ``keep``."""
         parts = {}
-        for d in dirs_stacked:
-            ro, rd = get_rays(d, c2w_pair[0])
-            vo, vd = get_rays(d, c2w_pair[1])
-            if geom[0] == "ndc":
-                _, h, w, focal, near, far = geom
-                _, vd = ndc_rays(h, w, focal, 1.0, vo, vd)
-                ro, rd = ndc_rays(h, w, focal, 1.0, ro, rd)
-            else:
-                _, near, far = geom
-            rays = make_rays(ro, rd, near, far, vd)
-            out = self.render(params, rays, randomized=False)
-            for k in keep:
-                if k in out:
-                    parts.setdefault(k, []).append(out[k])
+        with mesh.split_rows():
+            for d in dirs_stacked:
+                d = mesh.rank_rows(d)
+                ro, rd = get_rays(d, c2w_pair[0])
+                vo, vd = get_rays(d, c2w_pair[1])
+                if geom[0] == "ndc":
+                    _, h, w, focal, near, far = geom
+                    _, vd = ndc_rays(h, w, focal, 1.0, vo, vd)
+                    ro, rd = ndc_rays(h, w, focal, 1.0, ro, rd)
+                else:
+                    _, near, far = geom
+                rays = make_rays(ro, rd, near, far, vd)
+                out = self.render(params, rays, randomized=False)
+                for k in keep:
+                    if k in out:
+                        parts.setdefault(k, []).append(
+                            mesh.all_gather_rows(out[k]))
         return {k: torch.stack(v) for k, v in parts.items()}
 
     def _eval_dirs_device(self, dirs_flat: np.ndarray, n: int, chunk: int):
@@ -889,7 +908,8 @@ class NeRFSystem:
     def render_image(self, params, rays_np: Dict[str, np.ndarray],
                      chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Render host rays (N, .) chunk by chunk, the last chunk padded
-        by repeating the last ray; returns {k: (N, ...)} host arrays."""
+        by repeating the last ray (each rank its share of a chunk under a
+        process group); returns {k: (N, ...)} host arrays."""
         n = rays_np["origins"].shape[0]
         chunk = self._eval_chunk_size(n, chunk)
         pad = (-n) % chunk
@@ -901,13 +921,16 @@ class NeRFSystem:
                     v = np.concatenate([v, np.repeat(v[-1:], pad, 0)])
                 fields[k] = torch.from_numpy(v).to(self.device)
         parts = {}
-        for s in range(0, n + pad, chunk):
-            batch = {k: v[s:s + chunk] for k, v in fields.items()}
-            out = self.render(params, self._batch_to_rays(batch),
-                              randomized=False)
-            for k in self._EVAL_KEEP:
-                if k in out:
-                    parts.setdefault(k, []).append(out[k])
+        with mesh.split_rows():
+            for s in range(0, n + pad, chunk):
+                batch = mesh.rank_rows_tree(
+                    {k: v[s:s + chunk] for k, v in fields.items()})
+                out = self.render(params, self._batch_to_rays(batch),
+                                  randomized=False)
+                for k in self._EVAL_KEEP:
+                    if k in out:
+                        parts.setdefault(k, []).append(
+                            mesh.all_gather_rows(out[k]))
         return {k: torch.cat(v).cpu().numpy()[:n] for k, v in parts.items()}
 
     # ------------------------------------------------------------------

@@ -26,6 +26,7 @@ from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional
 
@@ -387,6 +388,17 @@ class NLayerDiscriminator(nn.Module):
         for c in (self.c1, self.c2, self.c3):
             h = F.leaky_relu(instance_norm(c(h)), 0.2)
         return _nhwc(self.c4(h))
+
+
+@dataclasses.dataclass
+class GanState:
+    """A discriminator (its parameters and spectral-norm statistics) and
+    its Adam (``--gan_lr``, b1 ``--beta1``, b2 0.999, no clip, a constant
+    learning rate: optax's ``adam``). It is not checkpointed, as in the
+    JAX package: a resumed run starts D afresh."""
+
+    net: nn.Module
+    optimizer: torch.optim.Optimizer
 
 
 def create_discriminator(opt, generator=None) -> NLayerDiscriminator:

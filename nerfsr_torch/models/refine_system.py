@@ -25,8 +25,30 @@ the eager loop. ``refine_image`` tiles an image, refines the
 tiles eight at a time (the last batch padded) and stitches them by
 ``start_locs``.
 
-``--refine_as_gan`` is not ported: it raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.
+``--refine_as_gan`` (the JAX package's ``create_gan_state``,
+``gan_fakes``, ``gan_train_step``, ``_pool_query`` and
+``train_steps_scan_gan``): pix2pix's lsgan update pair with the
+spectral-norm ``NLayerDiscriminator`` on the patch alone (3 channels, the
+reference's latent bug kept, as in JAX) at ``--ndf_dis``, its depth from
+``--patch_len``, and its own Adam (``--gan_lr``, b1 ``--beta1``, b2 0.999,
+eps 1e-8). D's spectral norm is refreshed once an update, then D takes
+one step on half the sum of mean(D(fake)^2) and mean((D(gt) - 1)^2)
+(lsgan whatever ``--gan_mode`` says); G's loss is mean((D'(G) - 1)^2) plus
+``--lambda_L1`` times the L1 to the truth under D's updated weights, and
+G's Adam steps at the refine schedule's rate; no ``--refine_with_*`` term
+enters it. One training-mode forward of G serves the step: its detached
+output feeds the fake pool and D, the output itself G's loss, so batch
+norm's running values move once a step, as JAX keeps ``g_loss_fn``'s
+statistics only. The fake pool is a device buffer (``new_pool``) that
+``train_steps_scan_gan`` queries image by image inside each step (one
+graph replay a step on the card); the host ``utils/image_pool.py`` serves
+the single-step route (``gan_fakes``, then ``ImagePool.query``, then
+``gan_train_step``). Neither D nor the pool is checkpointed, as in JAX.
+
+Under a process group (``nerfsr_torch/parallel/mesh.py``) every rank runs
+the refine steps whole on the same batch: the JAX package's sharding has
+global semantics (its batch norm sees the whole batch), and the exact
+torch counterpart is the replicated step, which needs no collective.
 """
 
 from __future__ import annotations
@@ -46,23 +68,16 @@ from nerfsr_torch.models.criterions import (VGGPerceptualLoss,
 from nerfsr_torch.models.criterions import l1 as l1_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.criterions import ssim as ssim_fn
-from nerfsr_torch.models.networks import MaxPoolingModel, UnetGenerator
+from nerfsr_torch.models.networks import (GanState, MaxPoolingModel,
+                                          UnetGenerator,
+                                          create_discriminator)
 from nerfsr_torch.utils.optim import Adam
 from nerfsr_torch.utils.schedule import (lr_writer, make_lr_schedule,
                                          write_lr)
 
-UNPORTED = (
-    ("refine_as_gan", "--refine_as_gan",
-     "5, the refine GAN mode"),
-)
-
-
-def refuse_unported(opt):
-    """Raise for the refine options that are not ported yet."""
-    for flag, what, item in UNPORTED:
-        if getattr(opt, flag, False):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+# the fake pool's size (the JAX engine's ImagePool and device pool)
+POOL_SIZE = 50
+GAN_LOSS_NAMES = ("G_GAN", "G_L1", "D_real", "D_fake")
 
 
 @dataclasses.dataclass
@@ -105,7 +120,6 @@ def _cut(imgs, idx, ys, xs, plen):
 @register_model("refine")
 class RefineSystem:
     def __init__(self, opt, device=None):
-        refuse_unported(opt)
         self.opt = opt
         self.device = resolve_device(device)
         if opt.refine_network not in ("unetgenerator", "maxpoolingmodel"):
@@ -293,6 +307,138 @@ class RefineSystem:
             lr_writer(state.optimizer, self.lr_fn, state.step))
         state.step += n_steps
         return state, losses
+
+    # ------------------------------------------------------------------
+    # --refine_as_gan
+    # ------------------------------------------------------------------
+    def create_gan_state(self, seed: int = 0) -> GanState:
+        """A fresh discriminator from ``seed`` (drawn on the CPU) on the
+        device, seeing the patch alone (3 channels), and its Adam."""
+        net = create_discriminator(
+            self.opt, torch.Generator().manual_seed(seed)).to(self.device)
+        return GanState(net=net, optimizer=Adam(
+            net.parameters(), lr=self.opt.gan_lr,
+            betas=(self.opt.beta1, 0.999), eps=1e-8, device=self.device))
+
+    def new_pool(self, size: int = POOL_SIZE) -> Dict[str, torch.Tensor]:
+        """An empty device fake pool: ``buf`` (size, P, P, 3) and the 0-d
+        count ``n`` of the images it holds."""
+        plen = self.opt.patch_len
+        return {"buf": torch.zeros((size, plen, plen, 3),
+                                   device=self.device),
+                "n": torch.zeros((), dtype=torch.long, device=self.device)}
+
+    @torch.no_grad()
+    def gan_fakes(self, state: RefineState, batch) -> torch.Tensor:
+        """G's training-mode output on ``batch`` (no gradient) for the host
+        pool's query; the running statistics are left as they were (the
+        step's own forward moves them)."""
+        stats = [t.clone() for t in state.net.buffers()]
+        fakes = self._apply(state.net, batch["sr_patch"],
+                            batch["ref_patches"], train=True)
+        for t, v in zip(state.net.buffers(), stats):
+            t.copy_(v)
+        return fakes
+
+    def _pool_query(self, pool, imgs, u=None, ridx=None, generator=None):
+        """The device fake pool queried with ``imgs`` (N, P, P, 3), one
+        image after another as the host pool does: while it has a free
+        slot the image is stored and passes through; once full, where the
+        uniform ``u`` is above 1/2 the image swaps with the buffered one
+        at ``ridx`` (D sees that one), else it passes through. ``u`` (N,)
+        and ``ridx`` (N,) are drawn from ``generator`` unless given.
+        Updates ``pool`` in place; returns D's fake batch."""
+        buf, n = pool["buf"], pool["n"]
+        size = buf.shape[0]
+        if u is None:
+            u = torch.rand(imgs.shape[0], generator=generator,
+                           device=imgs.device)
+        if ridx is None:
+            ridx = torch.randint(0, size, (imgs.shape[0],),
+                                 generator=generator, device=imgs.device)
+        outs = []
+        for i in range(imgs.shape[0]):
+            img = imgs[i]
+            not_full = n < size
+            swap = u[i] > 0.5
+            idx = torch.where(not_full, n, ridx[i]).reshape(1)
+            old = torch.index_select(buf, 0, idx)[0]
+            outs.append(torch.where(not_full | ~swap, img, old))
+            buf.index_copy_(0, idx, torch.where(not_full | swap, img,
+                                                old)[None])
+            n.add_(not_full.long())
+        return torch.stack(outs)
+
+    def _gan_step(self, state: RefineState, d_state: GanState, batch,
+                  pool=None, pool_fakes=None, generator=None):
+        """One G + D update pair at the learning rate already written:
+        G's one training-mode forward; D's fake batch (the device pool's
+        answer to G's detached output, or ``pool_fakes``, or that output
+        itself); D's spectral norm refreshed, D's lsgan loss and Adam
+        step; then G's loss under D's updated weights and G's Adam step.
+        Returns the losses (detached) and G's detached output."""
+        opt = self.opt
+        gt = batch["gt_patch"]
+        pred = self._apply(state.net, batch["sr_patch"],
+                           batch["ref_patches"], train=True)
+        fake = fake_in = pred.detach()
+        if pool is not None:
+            fake_in = self._pool_query(pool, fake, generator=generator)
+        elif pool_fakes is not None:
+            fake_in = pool_fakes
+        net = d_state.net
+        net.refresh_stats()
+        d_fake = torch.mean(net(fake_in) ** 2)
+        d_real = torch.mean((net(gt) - 1.0) ** 2)
+        d_state.optimizer.zero_grad(set_to_none=True)
+        (0.5 * (d_fake + d_real)).backward()
+        d_state.optimizer.step()
+
+        g_gan = torch.mean((net(pred) - 1.0) ** 2)
+        g_l1 = l1_loss(pred, gt) * opt.lambda_L1
+        state.optimizer.zero_grad(set_to_none=True)
+        (g_gan + g_l1).backward(inputs=list(state.net.parameters()))
+        state.optimizer.step()
+        return {k: v.detach() for k, v in zip(
+            GAN_LOSS_NAMES, (g_gan, g_l1, d_real, d_fake))}, fake
+
+    def gan_train_step(self, state: RefineState, d_state: GanState, batch,
+                       pool_fakes=None):
+        """One update pair on a patch batch (device tensors); D trains on
+        ``pool_fakes`` (the host pool's answer to ``gan_fakes``) when
+        given, else on G's detached output. Updates both states in place;
+        returns (state, d_state, losses, G's detached output)."""
+        write_lr(state.optimizer, self.lr_fn, state.step)
+        losses, fake = self._gan_step(state, d_state, batch,
+                                      pool_fakes=pool_fakes)
+        state.step += 1
+        return state, d_state, losses, fake
+
+    def train_steps_scan_gan(self, state: RefineState, d_state: GanState,
+                             pool, buffers, n_steps: int,
+                             generator: Optional[torch.Generator] = None):
+        """``n_steps`` update pairs as the JAX package's
+        ``train_steps_scan_gan`` runs them: on the card one CUDA-graph
+        replay a step (the patch cut, G's forward, the pool's query, D's
+        update, G's update, both Adams on the device), on the CPU the same
+        body eagerly, or with ``graphs`` None on the card. ``pool``
+        (``new_pool``) carries over between chunks. Returns (state,
+        d_state, pool, the last step's losses)."""
+        losses = run_steps(
+            self.graphs, ("gan",),
+            lambda: (list(state.net.parameters()) + list(state.net.buffers())
+                     + state.optimizer.state_tensors()
+                     + list(d_state.net.parameters())
+                     + list(d_state.net.buffers())
+                     + d_state.optimizer.state_tensors()
+                     + list(pool.values()) + list(buffers.values())),
+            lambda: self._gan_step(
+                state, d_state, self.sample_patch_batch(buffers, generator),
+                pool=pool, generator=generator)[0],
+            n_steps, generator,
+            lr_writer(state.optimizer, self.lr_fn, state.step))
+        state.step += n_steps
+        return state, d_state, pool, losses
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -4,7 +4,7 @@
     python -m nerfsr_torch.profile_slice --train [--steps 10] [--top 25]
     python -m nerfsr_torch.profile_slice --train --preset parity
     python -m nerfsr_torch.profile_slice --refine [--refine_network
-        maxpoolingmodel]
+        maxpoolingmodel | --refine_as_gan]
     python -m nerfsr_torch.profile_slice --train --eager [--host_top 30]
 
 Serving (default): renders 504x378 NeRF-SR x2 views (``--fast_preset
@@ -15,7 +15,9 @@ a seed-0 student on a teacher scene the port renders itself (2 views,
 ``--batch_size 512`` LR pixels, 2048 HR rays a step) for ``--steps``
 steps after 3 warm-up steps. ``--refine``: the refine stage's step
 (``scripts/train_llff_refine.sh``: 32 patches of 64 px, the UNet at ngf 64
-or ``--refine_network``, l1) on 20 random 504x378 views, with cuDNN's
+or ``--refine_network``, l1; with ``--refine_as_gan`` the GAN's update
+pair, D at ndf 64 and the fake pool) on 20 random 504x378 views, with
+cuDNN's
 deterministic algorithms as ``train_refine`` runs it, in f32 as
 ``chip_smoke.py`` runs it (``--allow_tf32``: TF32 convolutions,
 PyTorch's default for cuDNN). Each runs the graphed route, as the engine
@@ -104,7 +106,8 @@ def _refine(args):
     opt = default_options("train", model="refine",
                           dataset_mode="llff_refine", img_wh=HR_WH,
                           batch_size=32, refine_with_l1=True,
-                          refine_network=args.refine_network)
+                          refine_network=args.refine_network,
+                          refine_as_gan=args.refine_as_gan)
     system = create_model(opt, device="cuda")
     rng = np.random.RandomState(0)
     w, h = HR_WH
@@ -114,7 +117,15 @@ def _refine(args):
         "bboxes": np.tile(np.array([0, 0, w, h], np.int32), (20, 1))})
     state = system.create_state(seed=0, steps_per_epoch=1000)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    steps = system.train_steps if args.eager else system.train_steps_scan
+    if args.eager:
+        system.graphs = None
+    if args.refine_as_gan:
+        gan = (system.create_gan_state(0), system.new_pool())
+
+        def steps(state, buffers, n, gen):
+            system.train_steps_scan_gan(state, *gan, buffers, n, gen)
+    else:
+        steps = system.train_steps_scan
     steps(state, buffers, 3, gen)
 
     def run():
@@ -130,6 +141,8 @@ def main(argv=None):
                     help="profile the refine stage's training steps")
     ap.add_argument("--refine_network", default="unetgenerator",
                     choices=["unetgenerator", "maxpoolingmodel"])
+    ap.add_argument("--refine_as_gan", action="store_true",
+                    help="--refine: the GAN's update pair")
     ap.add_argument("--allow_tf32", action="store_true",
                     help="--refine: TF32 convolutions")
     ap.add_argument("--views", type=int, default=2)

@@ -18,7 +18,7 @@ from nerfsr_torch.engine import train
 def main(argv=None):
     opt = parse_options("train", argv)
     print(save_options(opt))
-    train(opt, warmup_mode="train_crop" if opt.train_crop else None)
+    return train(opt, warmup_mode="train_crop" if opt.train_crop else None)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ def main(argv=None):
     print(save_options(opt))
     warmup = "train_crop" if opt.dataset_mode.startswith("blender") \
         else None
-    train(opt, warmup_mode=warmup, warmup_iters=WARMUP_ITERS)
+    return train(opt, warmup_mode=warmup, warmup_iters=WARMUP_ITERS)
 
 
 if __name__ == "__main__":

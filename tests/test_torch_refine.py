@@ -600,7 +600,7 @@ def test_train_resume_test_through_the_entry_points(scene, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(refine_as_gan=True), "refine_as_gan.*item 5")])
+    (dict(model="template"), "template.*item 6")])
 def test_refine_refuses_unported_options(scene, tmp_path, flags, match):
     opt, _ = _refine_opts(scene, checkpoints_dir=str(tmp_path),
                           summary_dir=str(tmp_path), **flags)

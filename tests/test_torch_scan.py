@@ -6,9 +6,9 @@ the card replays as CUDA graphs (``nerfsr_torch/graphs.py``):
   injected against the JAX package's ``train_steps_scan`` (NeRF-SR x2 on
   ``--fast_preset llff`` with the pad anneal ending inside the chunk and
   on ``parity``, and vanilla NeRF);
-- each system's chunk body reads nothing back to the host (what a
+- each NeRF system's chunk body reads nothing back to the host (what a
   capture forbids), with ``Tensor.item`` and the other reads made to
-  raise;
+  raise (the refine system's: ``tests/test_torch_scan_refine.py``);
 - the learning rate and the resample pad as device tensors, the device
   step after uneven chunks, the chunks against the eager per-step loops
   and the eval body against a chunk loop (bit for bit), and a checkpoint
@@ -259,34 +259,6 @@ def test_nerf_chunk_reads_nothing_back(case, no_host_reads):
     assert all(torch.isfinite(v) for v in losses.values())
 
 
-def _refine(tmp_path=None, **extra):
-    kw = dict(model="refine", dataset_mode="llff_refine", img_wh=(32, 24),
-              batch_size=4, patch_len=16, num_downs=4, ngf=8,
-              refine_with_l1=True, refine_with_grad=True, with_gt_patch=True,
-              n_epochs=3, n_epochs_decay=1)
-    kw.update(extra)
-    system = create_model(default_options("train", **kw), device="cpu")
-    rng = np.random.RandomState(0)
-    views = rng.rand(5, 24, 32, 3).astype(np.float32) * 2 - 1
-    buffers = system.upload_buffers({
-        "sr_imgs": views, "gt_imgs": views[::-1].copy(), "gt_img": views[0],
-        "bboxes": np.tile(np.array([2, 1, 30, 23], np.int32), (5, 1))})
-    return system, buffers
-
-
-@pytest.mark.parametrize("network", ["unetgenerator", "maxpoolingmodel"])
-def test_refine_chunk_reads_nothing_back(network, no_host_reads):
-    """One refine chunk (patches cut on the device, the network with its
-    batch statistics, Adam) with every host read made to raise."""
-    system, buffers = _refine(refine_network=network)
-    state = system.create_state(0, steps_per_epoch=2)
-    gen = torch.Generator().manual_seed(3)
-    with no_host_reads():
-        state, losses = system.train_steps_scan(state, buffers, 3, gen)
-    assert state.step == 3
-    assert all(torch.isfinite(v) for v in losses.values())
-
-
 def test_eval_body_reads_nothing_back(no_host_reads):
     """The one-image eval body (every chunk of a view, NDC rays from the
     pose) with every host read made to raise."""
@@ -401,32 +373,6 @@ def test_nerf_chunk_equals_the_eager_loop(case):
             assert torch.equal(a.optimizer.state[p][key],
                                b.optimizer.state[q][key])
     assert la.keys() == lb.keys()
-    for k in la:
-        assert torch.equal(la[k], lb[k]), k
-
-
-@pytest.mark.parametrize("network", ["unetgenerator", "maxpoolingmodel"])
-def test_refine_chunk_equals_the_eager_loop(network):
-    """The refine chunk equals its per-step loop bit for bit: the network,
-    its batch statistics, the moments and the last step's losses, across
-    an epoch's end (the learning rate moves)."""
-    runs = []
-    for scan in (True, False):
-        system, buffers = _refine(refine_network=network)
-        state = system.create_state(0, steps_per_epoch=2)
-        gen = torch.Generator().manual_seed(5)
-        run = system.train_steps_scan if scan else system.train_steps
-        state, losses = run(state, buffers, 5, gen)
-        runs.append((state, losses))
-    (a, la), (b, lb) = runs
-    assert a.step == b.step == 5
-    sa, sb = a.net.state_dict(), b.net.state_dict()
-    for k in sa:
-        assert torch.equal(sa[k], sb[k]), k
-    for p, q in zip(a.net.parameters(), b.net.parameters()):
-        for key in ("exp_avg", "exp_avg_sq", "step"):
-            assert torch.equal(a.optimizer.state[p][key],
-                               b.optimizer.state[q][key])
     for k in la:
         assert torch.equal(la[k], lb[k]), k
 
