@@ -133,7 +133,23 @@
    bit, the launch counts of training and test equal, the test PNGs
    byte for byte; a graphed chunk's ms/step with the collectives and
    without; and ``--mesh_devices 2`` refused, naming the card count;
-12. prints a JSON line of details (also written to
+12. zoo: the rest of the network zoo on the engine phase's scene.
+   NeuTexMLP at full width (D8/W256, ``--mlp_network neutex_mlp``) in
+   NeRF-SR x2 with ``scripts/train_llff_downX_fast.sh``'s flags: its
+   layers take the module path (cuBLAS), not kernels C and E, so a step
+   runs A twice, B and D once. One step through the kernels against the
+   plain path (the training phase's bars), a graphed 20-step chunk
+   against the eager one bit for bit with exact launch counts (2 A, 1 B,
+   0 C, 1 D, 0 E a step) and both routes' ms/step, one engine epoch of
+   40 steps (exact launches, the val view's fine PSNR rising from the
+   seed's weights) and ``test`` from it (each HR panel equal to
+   ``render_eval_many``'s, serving ms/image at 504x378); the template
+   system trained through the engine with no ``--model`` (its mse
+   falling, no port kernel launched); ResnetGenerator (ngf 64, 9 blocks,
+   4x256x256) forward and backward on the card against the CPU in f32
+   with its ms, and the bilateral renderer, ``grad_loss``, ConvBlock and
+   Up2x against the CPU;
+13. prints a JSON line of details (also written to
    ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
    summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -957,7 +973,7 @@ def _grad_leaves(params):
     return [(name, p.grad) for name, p in params.named_parameters()]
 
 
-def step_vs_plain(dev, buffer):
+def step_vs_plain(dev, buffer, mlp_network="vanilla_mlp"):
     """One step's loss and gradients through the kernels and through the
     plain path on the card: same params, batch and draws, no
     randomization."""
@@ -965,7 +981,8 @@ def step_vs_plain(dev, buffer):
 
     out = {}
     for precision in ("mixed", "f32"):
-        opt = train_options(precision, randomized=False, noise_std=0.0)
+        opt = train_options(precision, randomized=False, noise_std=0.0,
+                            mlp_network=mlp_network)
         system = create_model(opt, device=dev)
         kernel_cfg = system.render_cfg
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -989,7 +1006,8 @@ def step_vs_plain(dev, buffer):
                                / b.double().norm().clamp_min(1e-30))
         worst = max(rels, key=rels.get)
         median = float(np.median(list(rels.values())))
-        print(f"[train] one step {precision}, kernels vs plain path: loss "
+        print(f"[train] one step {precision} ({mlp_network}), kernels vs "
+              f"plain path: loss "
               f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.2e}, bar {loss_bar}); "
               f"gradients max leaf norm-relative err {rels[worst]:.3e} "
               f"({worst}, bar {grad_bar}), median {median:.3e}")
@@ -2768,6 +2786,306 @@ def dist_phase(dev, card, work):
           f"{refused}; on {card}")
     return out
 
+
+# zoo phase: the rest of the network zoo at full width on the engine
+# phase's scene. NeuTexMLP (D8/W256) in NeRF-SR x2 with
+# scripts/train_llff_downX_fast.sh's flags plus --mlp_network neutex_mlp,
+# cut to one engine epoch of ENGINE_STEPS steps; the template system with
+# no --model; and the modules no path calls, card against CPU
+NEUTEX = ["--mlp_network", "neutex_mlp"]
+# NeuTex does not fit kernel C, so its layers take the module path (cuBLAS)
+# and its backward is autograd's: a step runs A twice, B and D once
+NEUTEX_STEP = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 0,
+               "composite_bwd": 1, "fused_mlp_bwd": 0}
+TEMPLATE_STEPS, TEMPLATE_EPOCHS = 50, 4
+# ResnetGenerator at pix2pix's width (ngf 64, 9 blocks) on 4 256x256
+# images in training mode, card (f32, TF32 off) against the CPU in f32
+# and in f64: the output (after tanh) against the CPU's f32 to
+# RESNET_OUT_ABS; each gradient leaf's distance to the f64 pass, over the
+# larger of the leaf's f64 norm and RESNET_LEAF_FLOOR of the largest
+# leaf's (a conv bias under a batch norm in training has a zero
+# gradient: rounding noise), at most the refine phase's
+# REFINE_F64_RATIO times the CPU's f32 distance plus REFINE_LEAF_FLOOR
+RESNET_SHAPE = (4, 256, 256, 3)
+RESNET_OUT_ABS, RESNET_LEAF_FLOOR = 1e-4, 1e-2
+# the small modules, card against CPU, f32: max abs error of the output
+# (grad_loss: relative, it grows as the fourth power of the gradients)
+ZOO_ABS, ZOO_GRAD_LOSS_REL = 1e-4, 1e-4
+
+
+def _zoo_modules_vs_cpu(dev, card):
+    """ResnetGenerator forward and backward on the card against the CPU
+    (f32, and f64 for the gradients' reference) with its ms for a forward
+    and backward; the bilateral renderer, grad_loss, ConvBlock and Up2x
+    on the card against the CPU, f32."""
+    from nerfsr_torch.core.rendering import bilateral_volumetric_rendering
+    from nerfsr_torch.models import networks
+    from nerfsr_torch.models.criterions import grad_loss
+
+    out = {}
+    gen = torch.Generator().manual_seed(5)
+    net = networks.ResnetGenerator(ngf=64, n_blocks=9, generator=gen).train()
+    x = torch.rand(RESNET_SHAPE, generator=gen) * 2 - 1
+    res = {}
+    for name, where, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("f64", "cpu", torch.float64)):
+        n = copy.deepcopy(net).to(where, dtype)
+        y = n(x.to(where, dtype))
+        y.square().mean().backward()
+        res[name] = (y.detach().cpu().double(),
+                     {k: p.grad.cpu().double()
+                      for k, p in n.named_parameters()})
+        del n, y
+    out_err = float((res["card"][0] - res["cpu"][0]).abs().max())
+    ref = res["f64"][1]
+    floor = RESNET_LEAF_FLOOR * max(float(g.norm()) for g in ref.values())
+
+    def dist(name, k):
+        return float((res[name][1][k] - ref[k]).norm()) / max(
+            float(ref[k].norm()), floor)
+    leaves = {k: (dist("card", k), dist("cpu", k)) for k in ref}
+    worst = max(leaves, key=lambda k: leaves[k][0] - REFINE_F64_RATIO
+                * leaves[k][1])
+    card_leaf, cpu_leaf = leaves[worst]
+    n = copy.deepcopy(net).to(dev)
+    xd = x.to(dev)
+    for _ in range(2):                    # cuDNN's algorithms, the pool
+        n(xd).square().mean().backward()
+    _sync(dev)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        n.zero_grad(set_to_none=True)
+        n(xd).square().mean().backward()
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"[zoo] ResnetGenerator ngf 64, 9 blocks, {RESNET_SHAPE[0]}x"
+          f"{RESNET_SHAPE[1]}x{RESNET_SHAPE[2]}, f32 (TF32 off), card vs "
+          f"CPU: output max abs err {out_err:.2e} (bar {RESNET_OUT_ABS}); "
+          f"gradient leaf {worst} {card_leaf:.2e} from the f64 pass, the "
+          f"CPU's f32 {cpu_leaf:.2e} (bar {REFINE_F64_RATIO}x + "
+          f"{REFINE_LEAF_FLOOR}; the card's worst leaf "
+          f"{max(v[0] for v in leaves.values()):.2e}); forward + backward "
+          f"{ms:.2f} ms on {card}")
+    if out_err > RESNET_OUT_ABS or \
+            card_leaf > REFINE_F64_RATIO * cpu_leaf + REFINE_LEAF_FLOOR:
+        fail("ResnetGenerator: the card and the CPU disagree")
+    out["resnet_generator"] = dict(
+        out_max_abs=out_err, worst_leaf=worst,
+        worst_leaf_card_vs_f64=card_leaf, worst_leaf_cpu_vs_f64=cpu_leaf,
+        max_card_vs_f64=max(v[0] for v in leaves.values()),
+        max_cpu_vs_f64=max(v[1] for v in leaves.values()), fwd_bwd_ms=ms)
+    del n, xd, res
+    _empty_cache(dev)
+
+    def both(fn, *args):
+        got = fn(*[a.to(dev) for a in args])
+        want = fn(*args)
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        return max(float((g.cpu() - w).abs().max())
+                   for g, w in zip(got, want)), want
+
+    n_rays, s = 4096, 64
+    rgb = torch.rand((n_rays, s, 3), generator=gen)
+    neighbors = (rgb.repeat(5, 1, 1) + 0.2 * torch.randn(
+        (5 * n_rays, s, 3), generator=gen)).clamp(0, 1)
+    sigma = torch.randn((n_rays, s), generator=gen) * 3
+    z = torch.sort(torch.rand((n_rays, s), generator=gen), -1)[0]
+    errs = {"bilateral": both(
+        lambda *a: bilateral_volumetric_rendering(*a, white_bkgd=True,
+                                                  gamma=0.1),
+        rgb, neighbors, sigma, z)[0]}
+    pred = torch.rand((4, 128, 128, 3), generator=gen)
+    target = torch.rand((4, 128, 128, 3), generator=gen)
+    err, want = both(grad_loss, pred, target)
+    errs["grad_loss_rel"] = err / abs(float(want[0]))
+    img = torch.rand((4, 64, 64, 32), generator=gen)
+    for name, mod in (("conv_block", networks.ConvBlock(
+            32, 64, 3, 1, 1, "batch", generator=gen)),
+            ("up2x", networks.Up2x(32, 64, "batch", generator=gen))):
+        mod.train()
+        card_mod = copy.deepcopy(mod).to(dev)
+        got = card_mod(img.to(dev))
+        errs[name] = float((got.cpu() - mod(img)).abs().detach().max())
+        errs[name + "_running_var"] = float(
+            (card_mod.BatchNorm_0.var.cpu() - mod.BatchNorm_0.var).abs()
+            .max())
+    print(f"[zoo] card vs CPU, f32: {errs} (bars: {ZOO_ABS} abs, grad_loss "
+          f"{ZOO_GRAD_LOSS_REL} relative)")
+    if errs.pop("grad_loss_rel") > ZOO_GRAD_LOSS_REL or \
+            max(errs.values()) > ZOO_ABS:
+        fail("zoo modules: the card and the CPU disagree")
+    out["modules_vs_cpu"] = errs
+    return out
+
+
+def _template_run(dev, work):
+    """The template through the engine with no --model: the mse the
+    engine logged falls, no port kernel runs."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+
+    argv = ["--name", "zoo_template", "--dataset_root", work, "--img_wh",
+            "8", "8", "--device", dev.type, "--checkpoints_dir",
+            os.path.join(work, "checkpoints"), "--summary_dir",
+            os.path.join(work, "runs"), "--val_freq", "0",
+            "--val_epoch_freq", "0", "--vis_epoch_freq", "0",
+            "--batch_size", "256", "--lr", "1e-2", "--n_epochs_decay", "0",
+            "--steps_per_epoch", str(TEMPLATE_STEPS), "--print_freq", "10",
+            "--n_epochs", str(TEMPLATE_EPOCHS)]
+    opt = parse_options("train", argv)
+    if opt.model != "template":
+        fail(f"no --model gave {opt.model}")
+    reset_counts()
+    t0 = time.perf_counter()
+    state = engine.train(opt)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = dict(COUNTS)
+    mses = []
+    with open(os.path.join(work, "runs", "zoo_template",
+                           "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["tag"] == "train/mse":
+                mses.append(rec["value"])
+    steps = TEMPLATE_STEPS * TEMPLATE_EPOCHS
+    print(f"[zoo] template (no --model) on {dev}: {state.step} steps in "
+          f"{seconds:.2f} s, mse {mses[0]:.4f} -> {mses[-1]:.4f}; launches "
+          f"{counts}")
+    if state.step != steps or len(mses) != steps // 10 or \
+            not np.isfinite(mses).all() or mses[-1] > 0.5 * mses[0]:
+        fail(f"template: step {state.step}, mse {mses}")
+    if any(counts.values()):
+        fail(f"template: port kernels launched {counts}")
+    return dict(steps=state.step, mse_first=mses[0], mse_last=mses[-1],
+                seconds=seconds)
+
+
+def zoo_phase(dev, card, work):
+    """NeuTexMLP in NeRF-SR x2 at full width: one step through the
+    kernels against the plain path, a graphed 20-step chunk against the
+    eager one (bit for bit, 2 A, 1 B, 0 C, 1 D, 0 E a step), one engine
+    epoch (fine PSNR rising) and test (PNGs equal to
+    ``render_eval_many``'s, serving ms/image); the template with no
+    --model; the unused modules card against CPU."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.models.mlp import NeuTexMLP
+    from nerfsr_torch.utils import png
+
+    t_phase = time.perf_counter()
+    out = {}
+    scene = os.path.join(work, "scene")
+    argv = ["--name", "zoo_neutex", "--n_epochs", "1", *NEUTEX]
+    opt = parse_options("train", engine_argv(scene, work, "train", *argv))
+    buffer = _upload_buffer(create_dataset(opt, "train"), dev)
+    out["step_vs_plain"] = step_vs_plain(dev, buffer, "neutex_mlp")
+
+    def make():
+        system = create_model(train_options("mixed",
+                                            mlp_network="neutex_mlp"),
+                              device=dev)
+        if system.render_cfg.use_fused_mlp or not isinstance(
+                system.init_params(0)["fine"], NeuTexMLP):
+            fail("--mlp_network neutex_mlp did not build NeuTexMLP off "
+                 "kernel C")
+        return system
+    res = chunk_vs_eager(dev, make, buffer, counts=NEUTEX_STEP)
+    print(f"[zoo] NeuTex x2 llff mixed: a {GRAPH_STEPS}-step graphed chunk "
+          f"equals the eager chunk in {res['tensors_equal']} tensors bit for "
+          f"bit, launches a step {NEUTEX_STEP}; "
+          f"{res['graphed_ms_per_step']:.2f} ms/step graphed, "
+          f"{res['eager_ms_per_step']:.2f} eager; capture "
+          f"{res['capture_s']:.2f} s, graph pool "
+          f"{res['graph_pool_mib']:.0f} MiB; on {card}")
+    out["chunk"] = res
+    del buffer
+    _empty_cache(dev)
+
+    # one engine epoch, from the seed's weights: the val view's fine PSNR
+    # before and after
+    probe = create_model(opt, device=dev)
+    val_ds = create_dataset(opt, "val")
+    before = engine.validate(opt, probe, probe.create_state(
+        seed=opt.seed, steps_per_epoch=ENGINE_STEPS).params, val_ds)
+    del probe
+    timings = {}
+    reset_counts()
+    with _ChunkLog() as log:
+        state = engine.train(opt, timings=timings)
+    _sync(dev)
+    if set(log.routes()) != {"train_steps_scan"}:
+        fail(f"zoo engine chunks: {log.chunks}")
+    w, h = HR_WH
+    chunks = -(-(w * h) // 4096)
+    image = {"invert_cdf": 2 * chunks, "composite_fwd": chunks}
+    # the epoch's validation renders the val view twice (device metrics,
+    # then the read-back strips)
+    want = {k: ENGINE_STEPS * v + 2 * image.get(k, 0)
+            for k, v in NEUTEX_STEP.items()}
+    if dict(COUNTS) != want or state.step != ENGINE_STEPS:
+        fail(f"zoo engine: launches {dict(COUNTS)}, expected {want}; step "
+             f"{state.step}")
+    after = _val_metrics(work, "zoo_neutex", ENGINE_STEPS)
+    ms_step = timings["epoch_s"][1] / ENGINE_STEPS * 1e3
+    print(f"[zoo] NeuTex engine epoch: {ENGINE_STEPS} steps, "
+          f"{ms_step:.2f} ms/step (engine, host clock to the chunk's loss "
+          f"read); val fine_psnr {before['fine_psnr']:.3f} -> "
+          f"{after['fine_psnr']:.3f} dB; launches {want}")
+    if not after["fine_psnr"] > before["fine_psnr"]:
+        fail("zoo engine: the fine PSNR did not rise")
+
+    topt = parse_options("test", engine_argv(
+        scene, work, "test", "--name", "zoo_neutex", "--test_split",
+        "test_train", "--load_epoch", "1", *NEUTEX))
+    test_t = {}
+    reset_counts()
+    out_dir = engine.test(topt, timings=test_t)
+    want = {k: ENGINE_VIEWS * image.get(k, 0) for k in NEUTEX_STEP}
+    if dict(COUNTS) != want:
+        fail(f"zoo test: launches {dict(COUNTS)}, expected {want}")
+    system = create_model(topt, device=dev)
+    dataset = create_dataset(topt, "test_train")
+    list(system.render_eval_many(state.params, dataset, [0],
+                                 quantize_rgb=True))      # the capture
+    _sync(dev)
+    t0 = time.perf_counter()
+    renders = list(system.render_eval_many(
+        state.params, dataset, range(ENGINE_VIEWS), quantize_rgb=True))
+    _sync(dev)
+    serve_ms = (time.perf_counter() - t0) / ENGINE_VIEWS * 1e3
+    for i, r in enumerate(renders):
+        panel = png.read_rgb(os.path.join(out_dir,
+                                          f"{i}-fine-ori.png"))[:, :w]
+        if not np.array_equal(panel, r["fine_rgb_ori"].reshape(h, w, 3)):
+            fail(f"zoo: {i}-fine-ori.png differs from render_eval_many's")
+    test_ms = test_t["seconds"] / test_t["views"] * 1e3
+    print(f"[zoo] NeuTex serving: {ENGINE_VIEWS} views {w}x{h}, "
+          f"{serve_ms:.1f} ms/image (render_eval_many, one replay an "
+          f"image), test {test_ms:.1f} ms/image with the writes; "
+          f"{ENGINE_VIEWS} test panels equal render_eval_many's; launches "
+          f"an image {image}; on {card}")
+    out["engine"] = dict(ms_per_step=ms_step, psnr_before=before,
+                         psnr_after=after, serve_ms_per_image=serve_ms,
+                         test_ms_per_image=test_ms,
+                         launches_per_step=NEUTEX_STEP,
+                         launches_per_image=image)
+    del system, state, renders
+    _empty_cache(dev)
+    out["template"] = _template_run(dev, work)
+    out.update(_zoo_modules_vs_cpu(dev, card))
+    out.update(phase_s=time.perf_counter() - t_phase, card=card)
+    print(f"[zoo] phase done in {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2817,6 +3135,7 @@ def main():
         aux_out["phase_s"] = time.perf_counter() - t0
         refine_gan_out = refine_gan_phase(dev, card, work)
         dist_out = dist_phase(dev, card, work)
+        zoo_out = zoo_phase(dev, card, work)
 
     # launches: the timed training window (graph replays), which runs all
     # five kernels
@@ -2871,6 +3190,7 @@ def main():
                                  "aux": aux_out,
                                  "refine_gan": refine_gan_out,
                                  "dist": dist_out,
+                                 "zoo": zoo_out,
                                  "card": card}})
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         f.write(detail + "\n")

@@ -7,5 +7,11 @@ of ``models/nerf_system.py`` takes Adam steps, through five CUDA kernels
 written for Hopper (``kernels/``, sources in ``csrc/``). The refine
 stage (``ops/warp.py``, ``data/refine.py``, ``models/networks.py``,
 ``models/refine_system.py``) refines its renders with a CNN on cuDNN.
-The package imports torch and numpy only.
+The rest of the JAX package's zoo is here too: NeuTexMLP
+(``models/mlp.py``), the template system (``models/template_system.py``,
+``data/template.py``), the bilateral renderer, ``grad_loss``, the
+Resnet/ConvBlock/Up2x networks, the pix2pix transforms
+(``data/transforms.py``) and the reference checkpoint converter
+(``convert_reference_ckpt.py``). The package imports torch and numpy
+only.
 """

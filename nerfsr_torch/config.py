@@ -16,6 +16,10 @@ versions on the CPU, as ``JAX_PLATFORMS=cpu`` does for the JAX package.
 The JAX package's TPU-only flags (``--use_pallas*``, ``--pallas_mlp_bwd``,
 ``--pallas_interpret``, ``--compilation_cache_dir``) are accepted and
 ignored: on CUDA the kernels run wherever their JAX counterparts could.
+So are its compat no-ops (``--accelerator``, ``--num_threads``,
+``--eval_batch_size``, ``--point_chunk``, ``--embedding``, ``--with_sr``,
+``--n_layers_D``, ``--profile_port``) and ``--verbose``; ``--suffix``
+renames ``--name`` as it does there, so every JAX command line parses.
 The auxiliary training paths' flags (``--with_ref`` with
 ``--ref_freq``/``--ref_idx``/``--all_ref``, ``--patch_size`` with the
 depth-Laplacian and VGG weights, ``--with_netD`` with the GAN's,
@@ -69,6 +73,8 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
         allow_abbrev=False)
 
     # ---- base options ----
+    p.add_argument("--accelerator", type=str, default="dp",
+                   choices=["dp", "ddp"], help="accepted and ignored")
     p.add_argument("--name", type=str, required=True)
     p.add_argument("--checkpoints_dir", type=str, default="./checkpoints")
     p.add_argument("--ckpt_backend", type=str, default="msgpack",
@@ -85,6 +91,12 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--dataset_mode", type=str, default="template")
     p.add_argument("--dataset_root", type=str, required=True)
     p.add_argument("--sisr_path", type=str, default=None)
+    p.add_argument("--num_threads", type=int, default=4,
+                   help="accepted and ignored: batches are drawn on the "
+                        "device")
+    p.add_argument("--eval_batch_size", type=int, default=1,
+                   help="accepted and ignored: eval renders whole images "
+                        "in --ray_chunk chunks")
     p.add_argument("--max_dataset_size", type=float, default=float("inf"))
     p.add_argument("--img_wh", type=int, nargs=2, required=True)
     p.add_argument("--use_pixel_centers", type=str2bool, default=True)
@@ -92,8 +104,17 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--phase", type=str, default=phase,
                    choices=["train", "test", "infer"])
     p.add_argument("--load_epoch", type=str, default="latest")
+    p.add_argument("--verbose", action="store_true",
+                   help="accepted and ignored (the JAX package's NaN "
+                        "guard, jax_debug_nans)")
+    p.add_argument("--suffix", default="", type=str,
+                   help="appended to --name as _{suffix}, formatted with "
+                        "the options ({model}_{downscale})")
     p.add_argument("--ray_chunk", type=int, default=4096,
                    help="eval ray chunk")
+    p.add_argument("--point_chunk", type=int, default=2048 * 128,
+                   help="accepted and ignored: the MLP batch is never "
+                        "split")
 
     if phase == "train":
         p.add_argument("--print_freq", type=int, default=10)
@@ -120,7 +141,11 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--n_epochs", type=int, default=20)
 
     # ---- nerf model options ----
-    p.add_argument("--mlp_network", type=str, default="vanilla_mlp")
+    p.add_argument("--mlp_network", type=str, default="vanilla_mlp",
+                   help="vanilla_mlp, or neutex_mlp (a two-layer, "
+                        "full-width direction branch)")
+    p.add_argument("--embedding", type=str, default="positional_encoding",
+                   choices=["positional_encoding"])
     p.add_argument("--N_coarse", type=int, default=64)
     p.add_argument("--N_importance", type=int, default=64)
     p.add_argument("--lindisp", action="store_true")
@@ -191,6 +216,9 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--ds_method", type=str, default="lanc",
                    choices=["avg", "lanc"])
     p.add_argument("--include_var", action="store_true")
+    p.add_argument("--with_sr", action="store_true",
+                   help="accepted and ignored (SISR supervision follows "
+                        "--sisr_path)")
     p.add_argument("--scan_steps", type=int, default=20,
                    help="steps per train_steps call of the training "
                         "engine; losses are read once per chunk")
@@ -214,6 +242,9 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--with_netD", action="store_true")
     p.add_argument("--dis_network", type=str, default="nlayerdiscriminator")
     p.add_argument("--ndf_dis", type=int, default=64)
+    p.add_argument("--n_layers_D", type=int, default=3,
+                   help="accepted and ignored: the discriminator's depth "
+                        "follows --patch_len")
     p.add_argument("--lambda_gan", type=float, default=0.005)
     p.add_argument("--use_grad", action="store_true")
     p.add_argument("--gan_lr", type=float, default=5e-4)
@@ -284,6 +315,9 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
                    choices=["xla", "pallas"])
     p.add_argument("--pallas_interpret", action="store_true")
     p.add_argument("--compilation_cache_dir", type=str, default="")
+    p.add_argument("--profile_port", type=int, default=0,
+                   help="accepted and ignored (a jax.profiler server port "
+                        "in the JAX package)")
 
     # ---- data parallelism (nerfsr_torch/parallel/mesh.py) ----
     p.add_argument("--mesh_devices", type=int, default=0,
@@ -369,6 +403,8 @@ def parse_options(phase: str, argv=None):
     opt.isTrain = phase == "train"
     opt.isTest = phase == "test"
     opt.isInfer = phase == "infer"
+    if opt.suffix:
+        opt.name = opt.name + "_" + opt.suffix.format(**vars(opt))
     return opt
 
 

@@ -3,7 +3,9 @@
 Port of ``nerfsr_tpu/core/rendering.py``: deltas with a 1e10 terminal
 interval, ``alpha = 1 - exp(-delta * act(sigma))``, exclusive cumulative
 transmittance with eps=1e-10, composited rgb/depth/opacity and the
-white-background blend.
+white-background blend; and ``bilateral_volumetric_rendering``, the
+compositor that first blends each sample's colour with its five
+neighbour rays' (no caller in either package).
 
 ``volumetric_rendering`` is the plain version of the composite kernel
 (``nerfsr_torch/kernels/composite.py``); ``compute_weights`` also serves
@@ -79,6 +81,37 @@ def volumetric_rendering(rgb: torch.Tensor, sigma: torch.Tensor,
     opacity (...), weights (..., S).
     """
     weights = compute_weights(sigma, z_vals, activation)
+    comp_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth = torch.sum(weights * z_vals, dim=-1)
+    opacity = torch.sum(weights, dim=-1)
+    if white_bkgd:
+        comp_rgb = comp_rgb + (1.0 - opacity[..., None])
+    return comp_rgb, depth, opacity, weights
+
+
+def bilateral_volumetric_rendering(rgb: torch.Tensor,
+                                   neighbor_rgbs: torch.Tensor,
+                                   sigma: torch.Tensor, z_vals: torch.Tensor,
+                                   white_bkgd: bool,
+                                   activation: str = "relu",
+                                   gamma: float = 1.0,
+                                   weight_thresh: float = 1e-2):
+    """``volumetric_rendering`` after a bilateral blend: where a sample's
+    weight is at least ``weight_thresh``, its colour becomes
+    ``(rgb + sum_k w_k n_k) / (1 + sum_k w_k)`` over the five neighbour
+    rays' colours ``n_k`` at that sample, ``w_k = exp(-|rgb - n_k|^2 /
+    gamma)``; elsewhere it stays.
+
+    rgb (N, S, 3); neighbor_rgbs (5·N, S, 3), the five neighbours stacked
+    along the first axis; sigma and z_vals (N, S). Returns comp_rgb
+    (N, 3), depth (N,), opacity (N,), weights (N, S)."""
+    weights = compute_weights(sigma, z_vals, activation)
+    neighbors = neighbor_rgbs.reshape((5,) + tuple(rgb.shape))
+    w_k = torch.exp(-torch.sum((rgb[None] - neighbors) ** 2, dim=-1)
+                    / gamma)
+    blended = (rgb + torch.sum(neighbors * w_k[..., None], dim=0)) \
+        / (1.0 + torch.sum(w_k, dim=0))[..., None]
+    rgb = torch.where((weights >= weight_thresh)[..., None], blended, rgb)
     comp_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
     depth = torch.sum(weights * z_vals, dim=-1)
     opacity = torch.sum(weights, dim=-1)

@@ -70,6 +70,11 @@ validation and render (the systems split the rows), reads a resume, and
 takes rank 0's state; only the master writes checkpoints, metrics,
 visuals and test artifacts (the others' metrics writer is a null sink).
 
+The template system (``--model template``, both configs' default) has
+a loop of its own (``_train_template``), as the JAX engine runs it: one
+step at a time, no render, its validations raising where the JAX
+engine's do.
+
 Paths the port does not cover yet raise ``NotImplementedError`` naming
 their ``ROADMAP.md`` item (``nerfsr_torch.models.UNPORTED``).
 """
@@ -85,6 +90,7 @@ import torch
 
 from nerfsr_torch.data import create_dataset
 from nerfsr_torch.models import create_model, refuse_unported
+from nerfsr_torch.models.template_system import TemplateSystem
 from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils import checkpoint as ckpt
 from nerfsr_torch.utils.visualizer import (MetricsWriter, NullMetricsWriter,
@@ -95,7 +101,6 @@ def _refuse_unported(opt):
     """Raise for what the port does not cover yet (ROADMAP.md queue 1 item
     6), and for a world the cards cannot hold."""
     refuse_unported(opt)
-    ckpt.check_backend(opt)
     mesh.check_world(opt)
 
 
@@ -183,21 +188,14 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
     if mesh.spawns(opt):
         return mesh.spawn(train, opt, warmup_mode, warmup_iters)
     system = setup(opt)
+    if isinstance(system, TemplateSystem):
+        return _train_template(opt, system)
     writer = _make_writer(opt)
 
     train_ds = create_dataset(opt, opt.train_split)
     buffer_np = train_ds.ray_buffer()
     n_rays = len(buffer_np["rgbs"])
-    if opt.steps_per_epoch:
-        steps_per_epoch = opt.steps_per_epoch
-    elif opt.keep_last:
-        steps_per_epoch = max(1, int(np.ceil(n_rays / opt.batch_size)))
-    else:
-        steps_per_epoch = max(1, n_rays // opt.batch_size)
-    if np.isfinite(opt.max_dataset_size):
-        steps_per_epoch = min(
-            steps_per_epoch,
-            max(1, int(opt.max_dataset_size) // opt.batch_size))
+    steps_per_epoch = _steps_per_epoch(opt, n_rays)
     print(f"[train] {n_rays} rays, {steps_per_epoch} steps/epoch, "
           f"{opt.n_epochs} epochs, device {system.device}")
     aux = _Aux(opt, system, train_ds)
@@ -299,6 +297,77 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
                                prefix=f"{opt.val_epoch_split}/")
             print(f"[{opt.val_epoch_split} e{epoch}] {_fmt(metrics)}")
 
+    writer.close()
+    return state
+
+
+def _steps_per_epoch(opt, n_rays: int) -> int:
+    """``--steps_per_epoch``, else the buffer's rays over the batch (the
+    last partial batch counted with ``--keep_last``), capped by
+    ``--max_dataset_size``."""
+    if opt.steps_per_epoch:
+        steps = opt.steps_per_epoch
+    elif opt.keep_last:
+        steps = max(1, int(np.ceil(n_rays / opt.batch_size)))
+    else:
+        steps = max(1, n_rays // opt.batch_size)
+    if np.isfinite(opt.max_dataset_size):
+        steps = min(steps, max(1, int(opt.max_dataset_size)
+                               // opt.batch_size))
+    return steps
+
+
+def _train_template(opt, system):
+    """The template's loop, as the JAX engine runs that system: a step at
+    a time from the uploaded pairs (its rows drawn from the card's
+    generator seeded from (seed, step)), the losses written every
+    ``--log_every`` (else ``--print_freq``) steps, a checkpoint every
+    ``--save_epoch_freq`` epochs. The template renders nothing, so the
+    validations reach no render: a ``--val_freq`` or ``--val_epoch_freq``
+    validation raises ``AttributeError`` where the JAX engine's does (at
+    the first of them, after that epoch's checkpoint), and the
+    ``--vis_epoch_freq`` render is skipped with a message, as there."""
+    writer = _make_writer(opt)
+    train_ds = create_dataset(opt, opt.train_split)
+    buffer = _upload(train_ds.ray_buffer(), system.device)
+    steps_per_epoch = _steps_per_epoch(opt, len(train_ds))
+    print(f"[train] template: {len(train_ds)} pairs, {steps_per_epoch} "
+          f"steps/epoch, {opt.n_epochs} epochs, device {system.device}")
+    val_ds = create_dataset(opt, opt.val_split)
+    log_every = opt.log_every or opt.print_freq
+    state = system.create_state(seed=opt.seed,
+                                steps_per_epoch=steps_per_epoch)
+    start_epoch = ckpt.resume_if_requested(opt, state)
+    if start_epoch:
+        print(f"[train] resumed from epoch {start_epoch} at step "
+              f"{state.step}")
+    ckpt.init_weights_from(opt, state)
+    gen = torch.Generator(device=system.device)
+    for epoch in range(start_epoch + 1, opt.n_epochs + 1):
+        t_epoch = time.perf_counter()
+        for _ in range(steps_per_epoch):
+            _seed_chunk(gen, opt.seed, state.step)
+            state, losses = system.train_step_from_buffer(state, buffer, gen)
+            step = state.step
+            if log_every > 0 and step % log_every == 0:
+                scal = _read(losses)
+                writer.add_scalars(scal, step, prefix="train/")
+                print(f"[e{epoch} s{step}] {_fmt(scal)}")
+            if opt.val_freq > 0 and step % opt.val_freq == 0:
+                _validate_iter(opt, system, state, val_ds, writer, epoch, 1,
+                               step)
+        print(f"[train] epoch {epoch} done in "
+              f"{time.perf_counter() - t_epoch:.1f}s")
+        if ((opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0)
+                or epoch == opt.n_epochs) and mesh.is_master():
+            print(f"[train] saved {ckpt.save_checkpoint(opt, state, epoch)}")
+        if opt.val_epoch_freq and (epoch % opt.val_epoch_freq == 0
+                                   or epoch == opt.n_epochs):
+            validate(opt, system, state.params, val_ds,
+                     out_dir=_vis_dir(opt, epoch, "val"))
+        if opt.vis_epoch_freq and epoch % opt.vis_epoch_freq == 0:
+            print(f"[train] vis_epoch render skipped: the template renders "
+                  f"no {opt.val_epoch_split} view")
     writer.close()
     return state
 

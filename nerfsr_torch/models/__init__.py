@@ -7,10 +7,8 @@ _MODELS = {}
 # the options no module of the port covers yet, each with its ROADMAP.md
 # item: (test of opt, the option, the item)
 UNPORTED = (
-    (lambda opt: opt.model == "template", "--model template",
-     "6, the template system"),
-    (lambda opt: opt.mlp_network == "neutex_mlp",
-     "--mlp_network neutex_mlp", "6, NeuTexMLP"),
+    (lambda opt: opt.ckpt_backend == "orbax", "--ckpt_backend orbax",
+     "6, the orbax checkpoint backend"),
 )
 
 
@@ -36,10 +34,10 @@ def register_model(name):
 def create_model(opt, device=None):
     """Build the system ``opt.model`` names, on ``device`` (default cuda;
     raises without a card unless ``device="cpu"``)."""
-    refuse_unported(opt)
     # importing the modules registers them
     from nerfsr_torch.models import (nerf_downx_system,  # noqa: F401
-                                     nerf_system, refine_system)
+                                     nerf_system, refine_system,
+                                     template_system)
     if opt.model not in _MODELS:
         raise KeyError(f"model {opt.model!r} is not ported yet; ported: "
                        f"{sorted(_MODELS)}")

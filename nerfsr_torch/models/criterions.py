@@ -3,12 +3,12 @@
 Port of ``nerfsr_tpu/models/criterions.py``: ``psnr``, ``_outer_mass`` and
 ``interlevel_loss`` (the proposal histogram bound of ``--fast_sampling``),
 ``ssim``, the refine stage's ``l1``, ``image_gradients`` and
-``gradient_loss`` (NHWC images), and the auxiliary training paths'
-losses: ``tv_loss`` (``--reg_patch``), ``laplacian_loss`` and
-``bilateral_laplacian_loss`` (patch mode's depth smoothness), ``gan_loss``
-in its three modes with ``wgan_gradient_penalty`` (``--with_netD``), and
-``VGGPerceptualLoss`` (patch mode, ``--refine_with_vgg``) with
-``write_synthetic_vgg_npz``.
+``gradient_loss`` (NHWC images), the unused ``grad_loss``, and the
+auxiliary training paths' losses: ``tv_loss`` (``--reg_patch``),
+``laplacian_loss`` and ``bilateral_laplacian_loss`` (patch mode's depth
+smoothness), ``gan_loss`` in its three modes with
+``wgan_gradient_penalty`` (``--with_netD``), and ``VGGPerceptualLoss``
+(patch mode, ``--refine_with_vgg``) with ``write_synthetic_vgg_npz``.
 The JAX package counts histogram edges by an all-pairs comparison; on
 sorted edges that count is ``torch.searchsorted`` (``right=True`` for
 ``<=``, ``right=False`` for ``<``), which gives the same indices at ties.
@@ -57,6 +57,26 @@ def gradient_loss(pred, target):
     tdy, tdx = image_gradients(target)
     return (torch.mean(torch.abs(pdx - tdx))
             + torch.mean(torch.abs(pdy - tdy))) / 2
+
+
+def grad_loss(pred, target):
+    """The Sobel-magnitude loss over (N, H, W, C) images, with the JAX
+    package's (and its source's) three quirks kept: the y kernel is the
+    x kernel, the target's term applies that kernel twice, and the
+    reduction is the squared mean, ``mean(gi - gt) ** 2``. One output
+    channel sums the Sobel response over the input channels, VALID
+    padding. It grows as the fourth power of the gradients."""
+    sobel_x = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0],
+                            [-1.0, 0.0, 1.0]], dtype=pred.dtype,
+                           device=pred.device)
+    k = sobel_x[None, None].repeat(1, pred.shape[-1], 1, 1)
+
+    def conv_sq(img):
+        return F.conv2d(img.permute(0, 3, 1, 2), k) ** 2
+
+    # y's term is x's (the same kernel), on both sides
+    gi, gt = conv_sq(pred), conv_sq(target)
+    return torch.mean((gi + gi) - (gt + gt)) ** 2
 
 
 def _outer_mass(t_q, t_env, w_env):

@@ -1,10 +1,11 @@
 """The NeRF MLPs as ``nn.Module``s.
 
-Port of ``nerfsr_tpu/models/mlp.py`` (``VanillaMLP``, ``ProposalMLP`` and
-the ``_kernel_init`` choices). Layer names are the flax ones
-(``xyz_encoding_{i}``, ``xyz_encoding_final``, ``sigma``, ``dir_encoding``,
-``rgb``; ``layer_{i}`` in the proposal net), so ``nerfsr_torch/weights.py``
-maps a JAX param tree onto them one to one.
+Port of ``nerfsr_tpu/models/mlp.py`` (``VanillaMLP``, ``ProposalMLP``,
+``NeuTexMLP`` and the ``_kernel_init`` choices). Layer names are the flax
+ones (``xyz_encoding_{i}``, ``xyz_encoding_final``, ``sigma``,
+``dir_encoding``, ``rgb``; ``dir_encoding_1``/``_2`` in NeuTex's
+direction branch; ``layer_{i}`` in the proposal net), so
+``nerfsr_torch/weights.py`` maps a JAX param tree onto them one to one.
 
 ``compute_dtype`` bfloat16 follows flax ``Dense(dtype=bf16)``: inputs,
 weights and bias in bf16, output in bf16; sigma and rgb come out in f32.
@@ -69,7 +70,7 @@ def kernel_init(name: str, shape, gain: float = 0.02,
 
 
 class _DenseStack(nn.Module):
-    """Shared flax-Dense semantics of the two MLPs."""
+    """Shared flax-Dense semantics of the MLPs."""
 
     compute_dtype: torch.dtype
 
@@ -94,7 +95,47 @@ class _DenseStack(nn.Module):
         return self
 
 
-class VanillaMLP(_DenseStack):
+class _NeRFMLP(_DenseStack):
+    """The trunk that both NeRF MLPs share: ``depth`` layers of ``width``
+    with the encoded input concatenated back before each skip layer, the
+    sigma head off it, ``xyz_encoding_final`` and the rgb head's
+    activation."""
+
+    def __init__(self, depth: int, width: int, skips: Sequence[int],
+                 color_activation: str, c_pos: int,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.depth, self.width = depth, width
+        self.skips = tuple(skips)
+        self.color_activation = color_activation
+        self.compute_dtype = compute_dtype
+        in_dim = c_pos
+        for i in range(depth):
+            if i in self.skips and i > 0:
+                in_dim = c_pos + width
+            setattr(self, f"xyz_encoding_{i + 1}", nn.Linear(in_dim, width))
+            in_dim = width
+        self.sigma = nn.Linear(width, 1)
+        self.xyz_encoding_final = nn.Linear(width, width)
+
+    def _trunk(self, xyz_emb: torch.Tensor):
+        """(the trunk's features in the compute dtype, raw sigma in f32)."""
+        x = xyz_emb.to(self.compute_dtype)
+        inp = x
+        for i in range(self.depth):
+            if i in self.skips and i > 0:
+                x = torch.cat([inp, x], dim=-1)
+            x = torch.relu(self._dense(f"xyz_encoding_{i + 1}", x))
+        return x, self._dense("sigma", x).float()[..., 0]
+
+    def _rgb(self, h: torch.Tensor) -> torch.Tensor:
+        rgb = self._dense("rgb", h).float()
+        if self.color_activation == "sigmoid":
+            rgb = torch.sigmoid(rgb)
+        return rgb
+
+
+class VanillaMLP(_NeRFMLP):
     """8-layer NeRF MLP: D-layer trunk of width W with a skip concat, a
     sigma head off the trunk, and an rgb branch of width W/2 conditioned
     on the view direction. ``stop_grad`` detaches the feature/direction
@@ -107,21 +148,10 @@ class VanillaMLP(_DenseStack):
                  dim_rgb: int = 3, color_activation: str = "sigmoid",
                  c_pos: int = 63, c_dir: int = 27,
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.depth, self.width = depth, width
-        self.skips = tuple(skips)
+        super().__init__(depth, width, skips, color_activation, c_pos,
+                         compute_dtype)
         self.use_dir = use_dir
         self.stop_grad = stop_grad
-        self.color_activation = color_activation
-        self.compute_dtype = compute_dtype
-        in_dim = c_pos
-        for i in range(depth):
-            if i in self.skips and i > 0:
-                in_dim = c_pos + width
-            setattr(self, f"xyz_encoding_{i + 1}", nn.Linear(in_dim, width))
-            in_dim = width
-        self.sigma = nn.Linear(width, 1)
-        self.xyz_encoding_final = nn.Linear(width, width)
         self.dir_encoding = nn.Linear(width + (c_dir if use_dir else 0),
                                       width // 2)
         self.rgb = nn.Linear(width // 2, dim_rgb)
@@ -131,28 +161,18 @@ class VanillaMLP(_DenseStack):
                 sigma_only: bool = False):
         """xyz_emb (..., C_pos), dir_emb (..., C_dir) -> rgb (..., dim_rgb)
         and raw sigma (...), both f32."""
-        cd = self.compute_dtype
-        x = xyz_emb.to(cd)
-        inp = x
-        for i in range(self.depth):
-            if i in self.skips and i > 0:
-                x = torch.cat([inp, x], dim=-1)
-            x = torch.relu(self._dense(f"xyz_encoding_{i + 1}", x))
-        sigma = self._dense("sigma", x).float()[..., 0]
+        x, sigma = self._trunk(xyz_emb)
         if sigma_only:
             return None, sigma
         feat = self._dense("xyz_encoding_final", x)
         if self.use_dir:
             if dir_emb is None:
                 raise ValueError("use_dir=True but dir_emb is None")
-            feat = torch.cat([feat, dir_emb.to(cd)], dim=-1)
+            feat = torch.cat([feat, dir_emb.to(self.compute_dtype)], dim=-1)
         if self.stop_grad:      # --stop_grad: rgb trains the colour head
             feat = feat.detach()
-        h = torch.relu(self._dense("dir_encoding", feat))
-        rgb = self._dense("rgb", h).float()
-        if self.color_activation == "sigmoid":
-            rgb = torch.sigmoid(rgb)
-        return rgb, sigma
+        return self._rgb(torch.relu(self._dense("dir_encoding", feat))), \
+            sigma
 
 
 class ProposalMLP(_DenseStack):
@@ -176,3 +196,34 @@ class ProposalMLP(_DenseStack):
         for i in range(self.depth):
             x = torch.relu(self._dense(f"layer_{i}", x))
         return self._dense("sigma", x).float()[..., 0]
+
+
+class NeuTexMLP(_NeRFMLP):
+    """VanillaMLP's trunk and sigma head with a deeper direction branch:
+    two full-width layers (W + C_dir -> W -> W) before the rgb head, where
+    VanillaMLP has one half-width layer. The branch always takes the view
+    direction (no ``use_dir``), and there is no ``stop_grad``."""
+
+    def __init__(self, depth: int = 8, width: int = 256,
+                 skips: Sequence[int] = (4,), dim_rgb: int = 3,
+                 color_activation: str = "sigmoid",
+                 c_pos: int = 63, c_dir: int = 27,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(depth, width, skips, color_activation, c_pos,
+                         compute_dtype)
+        self.dir_encoding_1 = nn.Linear(width + c_dir, width)
+        self.dir_encoding_2 = nn.Linear(width, width)
+        self.rgb = nn.Linear(width, dim_rgb)
+
+    def forward(self, xyz_emb: torch.Tensor, dir_emb: torch.Tensor,
+                sigma_only: bool = False):
+        """xyz_emb (..., C_pos), dir_emb (..., C_dir) -> rgb (..., dim_rgb)
+        and raw sigma (...), both f32."""
+        x, sigma = self._trunk(xyz_emb)
+        if sigma_only:
+            return None, sigma
+        h = torch.cat([self._dense("xyz_encoding_final", x),
+                       dir_emb.to(self.compute_dtype)], dim=-1)
+        h = torch.relu(self._dense("dir_encoding_1", h))
+        h = torch.relu(self._dense("dir_encoding_2", h))
+        return self._rgb(h), sigma

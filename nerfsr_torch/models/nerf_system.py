@@ -64,11 +64,11 @@ from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
 from nerfsr_torch.graphs import GraphCache, run_steps
 from nerfsr_torch.kernels import sampling as ksampling
-from nerfsr_torch.models import refuse_unported, register_model
+from nerfsr_torch.models import register_model
 from nerfsr_torch.models.criterions import interlevel_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
 from nerfsr_torch.models.criterions import ssim as ssim_fn
-from nerfsr_torch.models.mlp import ProposalMLP, VanillaMLP
+from nerfsr_torch.models.mlp import NeuTexMLP, ProposalMLP, VanillaMLP
 from nerfsr_torch.models.render import (RenderConfig, render_rays,
                                         render_rays_fast)
 from nerfsr_torch.parallel import mesh
@@ -112,7 +112,11 @@ class NeRFSystem:
     def __init__(self, opt, device=None):
         self.opt = opt
         self.device = resolve_device(device)
-        refuse_unported(opt)
+        if opt.mlp_network == "neutex_mlp" and opt.no_dir:
+            # the JAX package fails at NeuTexMLP's first call instead
+            raise ValueError("--mlp_network neutex_mlp conditions its colour "
+                             "on the view direction: it cannot take "
+                             "--no_dir")
         self.compute_dtype = _compute_dtype(opt.precision)
         cfg = RenderConfig(
             n_coarse=opt.N_coarse,
@@ -200,16 +204,21 @@ class NeRFSystem:
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
-    def _vanilla_mlp(self):
+    def _main_mlp(self):
+        """The big network of each level: ``--mlp_network`` vanilla_mlp or
+        neutex_mlp (which takes the module path, not kernels C and E)."""
         opt = self.opt
-        return VanillaMLP(
+        kw = dict(
             depth=opt.D, width=opt.W, skips=tuple(opt.skips),
-            use_dir=not opt.no_dir, stop_grad=opt.stop_grad,
             dim_rgb=opt.dim_rgb,
             color_activation=opt.color_activation,
             c_pos=posenc_channels(opt.dim_pos, opt.deg_pos, not opt.no_xyz),
             c_dir=posenc_channels(opt.dim_dir, opt.deg_dir, not opt.no_xyz),
             compute_dtype=self.compute_dtype)
+        if opt.mlp_network == "neutex_mlp":
+            return NeuTexMLP(**kw)
+        return VanillaMLP(use_dir=not opt.no_dir, stop_grad=opt.stop_grad,
+                          **kw)
 
     def init_params(self, seed: int = 0) -> nn.ModuleDict:
         """Fresh networks drawn from ``seed`` (prop+fine under fast
@@ -224,12 +233,12 @@ class NeRFSystem:
                                          self.render_cfg.deg_prop,
                                          not opt.no_xyz),
                     compute_dtype=self.compute_dtype),
-                "fine": self._vanilla_mlp(),
+                "fine": self._main_mlp(),
             }
         else:
-            nets = {"coarse": self._vanilla_mlp()}
+            nets = {"coarse": self._main_mlp()}
             if opt.N_importance > 0:
-                nets["fine"] = self._vanilla_mlp()
+                nets["fine"] = self._main_mlp()
         for net in nets.values():
             net.reset_parameters(opt.init_type, opt.init_gain, gen)
         return nn.ModuleDict(nets).to(self.device).eval()

@@ -6,7 +6,9 @@ up, ``--learn_residual`` adding the input rgb) and ``MaxPoolingModel``
 (the shared multi-scale ``VNPCATEncoder`` for the SR patch and each
 reference patch, a max over the candidates at each scale, and the
 ``VNPCATDecoder``; ``use_ref=False`` decodes from the SR features
-alone), and the GAN's ``NLayerDiscriminator`` with ``create_discriminator``
+alone), the pix2pix ``ResnetGenerator`` with its ``ResnetBlock`` and
+the ``ConvBlock`` and ``Up2x`` helpers (no shipped script uses these
+four), and the GAN's ``NLayerDiscriminator`` with ``create_discriminator``
 (``--dis_network``, ``--ndf_dis``, ``--patch_len``) and its spectral
 normalization (``SpectralConv``, flax's ``nn.SpectralNorm``). The
 modules take and return NHWC tensors, as the JAX modules do, and run
@@ -188,6 +190,134 @@ class UnetGenerator(nn.Module):
         if self.learn_residual:
             out = x[:, :3] + out
         return _nhwc(out)
+
+
+def reflect_pad(x, n: int):
+    """``n`` pixels of reflection on each side of NCHW's spatial axes."""
+    return F.pad(x, (n, n, n, n), mode="reflect")
+
+
+class ConvTranspose3x3Same(nn.ConvTranspose2d):
+    """flax's ``ConvTranspose((3, 3), strides=(2, 2), padding="SAME")``:
+    the output is twice the input's size. flax pads the dilated input by
+    (2, 1); the transposed convolution pads it by (2, 2) and its last row
+    and column are dropped. The kernel is laid out (in, out, kh, kw) with
+    both spatial axes flipped against flax's, as ``weights.py`` maps a
+    transposed convolution."""
+
+    def __init__(self, cin, cout, gen):
+        super().__init__(cin, cout, 3, 2, 0)
+        xavier_normal_(self.weight, cin * 9, cout * 9, gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return super().forward(x)[:, :, :-1, :-1]
+
+
+class ResnetBlock(nn.Module):
+    """x + (reflect pad, 3x3 conv, norm, relu, reflect pad, 3x3 conv,
+    norm)(x), NHWC in and out (``block``: NCHW), with flax's names
+    (``Conv_0``, ``_Norm_0``, ...)."""
+
+    def __init__(self, features: int, norm: str = "batch",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator()
+        self.Conv_0 = conv(features, features, 3, 1, 0, True, gen)
+        self._Norm_0 = _Norm(norm, features)
+        self.Conv_1 = conv(features, features, 3, 1, 0, True, gen)
+        self._Norm_1 = _Norm(norm, features)
+
+    def block(self, x):
+        h = F.relu(self._Norm_0(self.Conv_0(reflect_pad(x, 1))))
+        return x + self._Norm_1(self.Conv_1(reflect_pad(h, 1)))
+
+    def forward(self, x_nhwc):
+        return _nhwc(self.block(_nchw(x_nhwc)))
+
+
+class ResnetGenerator(nn.Module):
+    """The pix2pix Resnet translator, NHWC in and out: a reflect-padded 7x7
+    stem, two stride-2 3x3 convolutions down, ``n_blocks`` residual
+    blocks at 4 ngf, two stride-2 transposed convolutions up, a
+    reflect-padded 7x7 convolution and tanh; norm and relu after the stem
+    and each down and up step. Module names are flax's (``Conv_{i}``,
+    ``_Norm_{i}``, ``ResnetBlock_{i}``, ``ConvTranspose_{i}``)."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3,
+                 ngf: int = 64, n_blocks: int = 6, norm: str = "batch",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator()
+        self.n_blocks = n_blocks
+        self.Conv_0 = conv(input_nc, ngf, 7, 1, 0, True, gen)
+        self._Norm_0 = _Norm(norm, ngf)
+        for i in range(2):
+            cin = ngf * 2 ** i
+            self.add_module(f"Conv_{i + 1}", conv(cin, 2 * cin, 3, 2, 1,
+                                                  True, gen))
+            self.add_module(f"_Norm_{i + 1}", _Norm(norm, 2 * cin))
+        for i in range(n_blocks):
+            self.add_module(f"ResnetBlock_{i}",
+                            ResnetBlock(4 * ngf, norm, gen))
+        for i in range(2):
+            cin = ngf * 2 ** (2 - i)
+            self.add_module(f"ConvTranspose_{i}",
+                            ConvTranspose3x3Same(cin, cin // 2, gen))
+            self.add_module(f"_Norm_{i + 3}", _Norm(norm, cin // 2))
+        self.Conv_3 = conv(ngf, output_nc, 7, 1, 0, True, gen)
+
+    def forward(self, x_nhwc):
+        h = F.relu(self._Norm_0(self.Conv_0(reflect_pad(_nchw(x_nhwc), 3))))
+        for i in (1, 2):
+            h = F.relu(getattr(self, f"_Norm_{i}")(
+                getattr(self, f"Conv_{i}")(h)))
+        for i in range(self.n_blocks):
+            h = getattr(self, f"ResnetBlock_{i}").block(h)
+        for i in range(2):
+            h = F.relu(getattr(self, f"_Norm_{i + 3}")(
+                getattr(self, f"ConvTranspose_{i}")(h)))
+        return _nhwc(torch.tanh(self.Conv_3(reflect_pad(h, 3))))
+
+
+class ConvBlock(nn.Module):
+    """Conv, batch norm when ``normalization`` is ``"batch"``, relu; NHWC
+    in and out, flax's names (``Conv_0``, ``BatchNorm_0``)."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 3,
+                 strides: int = 1, padding: int = 0,
+                 normalization: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator()
+        self.Conv_0 = conv(cin, features, kernel_size, strides, padding,
+                           True, gen)
+        if normalization == "batch":
+            self.BatchNorm_0 = BatchNorm(features)
+
+    def _tail(self, h):
+        if hasattr(self, "BatchNorm_0"):
+            h = self.BatchNorm_0(h)
+        return _nhwc(F.relu(h))
+
+    def forward(self, x_nhwc):
+        return self._tail(self.Conv_0(_nchw(x_nhwc)))
+
+
+class Up2x(ConvBlock):
+    """Bilinear 2x upsampling (half-pixel centres, edge samples clamped:
+    ``jax.image.resize``'s "bilinear" at an exact 2x), reflect pad, 3x3
+    conv, batch norm when asked, relu; NHWC in and out."""
+
+    def __init__(self, cin: int, features: int,
+                 normalization: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cin, features, 3, 1, 0, normalization, generator)
+
+    def forward(self, x_nhwc):
+        x = F.interpolate(_nchw(x_nhwc), scale_factor=2, mode="bilinear",
+                          align_corners=False)
+        return self._tail(self.Conv_0(reflect_pad(x, 1)))
 
 
 class VNPCATEncoder(nn.Module):

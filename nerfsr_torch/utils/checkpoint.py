@@ -18,7 +18,10 @@ and ``nu`` are ``{}``. Kernels are transposed into ``Linear.weight`` as
 ``exp_avg``/``exp_avg_sq`` with the same transform, Adam's ``count``
 becomes each parameter's ``step`` (an f64 tensor on the parameter's
 device, where the update reads it), and ``TrainState.step`` the step.
-The refine stage's ``RefineState`` is ``{"step", "params",
+The template's ``TemplateState`` is the JAX template's ``TrainState``:
+its ``params`` are flax's ``{"params": {"Dense_0", "Dense_1"}}`` and its
+chain is always ``{"0": adam, "1": schedule}``. The refine stage's
+``RefineState`` is ``{"step", "params",
 "batch_stats", "opt_state": {"0": adam, "1": schedule}}``, its
 variables and moments in flax's layout (``weights.variable_leaves``:
 convolutions HWIO, transposed ones (kh, kw, in, out) flipped).
@@ -40,7 +43,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerfsr_torch.models import refuse_unported
 from nerfsr_torch.models.refine_system import RefineState
+from nerfsr_torch.models.template_system import TemplateState
 from nerfsr_torch.utils import msgpack
 from nerfsr_torch.weights import (flatten_tree, from_flax_layout,
                                   from_jax_layout, load_variables,
@@ -58,11 +63,9 @@ def _path(opt, epoch, name=None):
 
 
 def check_backend(opt):
-    """Only the msgpack backend is ported."""
-    if opt.ckpt_backend != "msgpack":
-        raise NotImplementedError(
-            f"--ckpt_backend {opt.ckpt_backend} is not ported: the port "
-            "reads and writes msgpack checkpoints only")
+    """Only the msgpack backend is ported: ``--ckpt_backend orbax`` raises,
+    naming its ROADMAP.md item (``nerfsr_torch.models.UNPORTED``)."""
+    refuse_unported(opt)
 
 
 def frozen_paths(opt, params: nn.ModuleDict) -> set:
@@ -144,15 +147,29 @@ def _load_refine_state_dict(state, sd: Dict[str, Any], params_only: bool):
     return state
 
 
+def _layout(opt, state):
+    """(leaves, frozen paths, chain keys, masked) of a training state: the
+    (JAX path, parameter, is a kernel) leaves, the ``--fix_layers``
+    paths, the optimizer chain's entries with Adam's and the schedule's,
+    and whether ``optax.masked`` wraps the chain. The template's chain is
+    always Adam then the schedule."""
+    if isinstance(state, TemplateState):
+        return list(state.params.leaves()), set(), (["0", "1"], "0", "1"), \
+            False
+    return (list(param_leaves(state.params)),
+            frozen_paths(opt, state.params), _chain_keys(opt),
+            bool(getattr(opt, "fix_layers", None)))
+
+
 def state_dict(opt, state) -> Dict[str, Any]:
     """The JAX ``TrainState`` state dict of ``state`` (host arrays); of a
     ``RefineState``, the JAX ``RefineState``'s."""
     if isinstance(state, RefineState):
         return _refine_state_dict(state)
-    frozen = frozen_paths(opt, state.params)
+    leaves, frozen, (keys, adam, sched), masked = _layout(opt, state)
     count = np.asarray(state.step, np.int32)
     params, mu, nu = {}, {}, {}
-    for path, p, is_kernel in param_leaves(state.params):
+    for path, p, is_kernel in leaves:
         tree_set(params, path, to_jax_layout(p, is_kernel))
         if path in frozen:
             tree_set(mu, path, {})
@@ -163,13 +180,11 @@ def state_dict(opt, state) -> Dict[str, Any]:
             tree_set(tree, path, to_jax_layout(moments[key], is_kernel)
                      if key in moments else np.zeros_like(
                          to_jax_layout(p, is_kernel)))
-    keys, adam, sched = _chain_keys(opt)
     chain = {k: {} for k in keys}
     chain[adam] = {"count": count, "mu": _sorted_tree(mu),
                    "nu": _sorted_tree(nu)}
     chain[sched] = {"count": count}
-    opt_state = {"inner_state": chain} if getattr(opt, "fix_layers", None) \
-        else chain
+    opt_state = {"inner_state": chain} if masked else chain
     return {"step": count, "params": _sorted_tree(params),
             "opt_state": opt_state}
 
@@ -184,27 +199,27 @@ def load_state_dict(opt, state, sd: Dict[str, Any],
     statistics too."""
     if isinstance(state, RefineState):
         return _load_refine_state_dict(state, sd, params_only)
+    leaves, frozen, (keys, adam_key, sched_key), masked = _layout(opt,
+                                                                 state)
     params_sd = sd["params"]
-    port = {path for path, _, _ in param_leaves(state.params)}
+    port = {path for path, _, _ in leaves}
     saved = set(flatten_tree(params_sd))
     if port != saved:
         raise KeyError(f"parameter leaves differ: only in the port "
                        f"{sorted(port - saved)}, only in the checkpoint "
                        f"{sorted(saved - port)}")
-    for path, p, is_kernel in param_leaves(state.params):
+    for path, p, is_kernel in leaves:
         p.copy_(from_jax_layout(tree_get(params_sd, path, "params"), p,
                                 is_kernel, path))
     state.step = int(sd["step"])
     if params_only:
         return state
-    fix_layers = getattr(opt, "fix_layers", None)
     chain = sd["opt_state"]
-    if ("inner_state" in chain) != bool(fix_layers):
+    if ("inner_state" in chain) != masked:
         raise ValueError("the checkpoint's optimizer state was saved "
                          f"{'with' if 'inner_state' in chain else 'without'}"
                          " --fix_layers; pass the same flag to load it")
     chain = chain.get("inner_state", chain)
-    keys, adam_key, sched_key = _chain_keys(opt)
     if sorted(chain) != keys:
         raise ValueError(f"optimizer chain entries {sorted(chain)}, expected "
                          f"{keys} (--grad_clip_val decides the clip entry)")
@@ -213,10 +228,9 @@ def load_state_dict(opt, state, sd: Dict[str, Any],
     counts = {step, int(adam["count"]), int(chain[sched_key]["count"])}
     if len(counts) != 1:
         raise ValueError(f"step and optimizer counts disagree: {counts}")
-    frozen = frozen_paths(opt, state.params)
     trainable = {p for group in state.optimizer.param_groups
                  for p in group["params"]}
-    for path, p, is_kernel in param_leaves(state.params):
+    for path, p, is_kernel in leaves:
         if path in frozen:
             continue
         if p not in trainable:
@@ -346,7 +360,7 @@ def init_weights_from(opt, state):
     other = flatten_tree(read_checkpoint(
         _path(opt, epoch or "latest", name))["params"])
     pattern = re.compile(opt.init_weights_keys)
-    for path, p, is_kernel in param_leaves(state.params):
+    for path, p, is_kernel in _layout(opt, state)[0]:
         arr = other.get(path)
         if arr is None or not pattern.search(path):
             continue

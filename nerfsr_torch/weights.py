@@ -6,14 +6,16 @@ Input: the JAX param tree as nested dicts of numpy arrays, e.g.
 ``kernel`` is (in, out); it loads transposed into ``Linear.weight``
 (out, in). The layer names are those of
 ``tools/convert_reference_ckpt.py`` (``xyz_encoding_{i}``,
-``xyz_encoding_final``, ``sigma``, ``dir_encoding``, ``rgb``), which the
-port's ``VanillaMLP`` and ``ProposalMLP`` use as attribute names.
+``xyz_encoding_final``, ``sigma``, ``dir_encoding``, ``rgb``; NeuTex's
+``dir_encoding_1`` and ``dir_encoding_2``), which the port's
+``VanillaMLP``, ``NeuTexMLP`` and ``ProposalMLP`` use as attribute names.
 ``export_params`` is the inverse of ``load_jax_params``; ``param_leaves``
 names each parameter by its JAX tree path (``fine/params/rgb/kernel``),
 which checkpoints and the ``--fix_layers``/``--init_weights_keys``
 regexes read.
 
-The refine networks (``models/networks.py``) cross with their flax
+The CNNs (``models/networks.py``: the refine networks and the unused
+Resnet/ConvBlock/Up2x) cross with their flax
 variables, ``{"params", "batch_stats"}``: ``variable_leaves`` names each
 tensor by its flax path, ``export_variables`` and ``load_variables`` map
 the whole tree (convolutions HWIO <-> OIHW; transposed convolutions

@@ -277,7 +277,6 @@ def test_kernel_a_bin_cap_does_not_bind_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(mlp_network="neutex_mlp"), "neutex_mlp.*item 6"),
     (dict(ckpt_backend="orbax"), "orbax")])
 def test_engine_refuses_unported_paths(tmp_path, flags, match):
     opt = default_options("train", **_kw(str(tmp_path), tmp_path,

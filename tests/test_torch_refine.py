@@ -600,14 +600,14 @@ def test_train_resume_test_through_the_entry_points(scene, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (dict(model="template"), "template.*item 6")])
+    (dict(ckpt_backend="orbax"), "orbax.*item 6")])
 def test_refine_refuses_unported_options(scene, tmp_path, flags, match):
     opt, _ = _refine_opts(scene, checkpoints_dir=str(tmp_path),
                           summary_dir=str(tmp_path), **flags)
     with pytest.raises(NotImplementedError, match=match):
         engine.train_refine(opt)
     with pytest.raises(NotImplementedError, match=match):
-        create_model(opt, device="cpu")
+        engine.test_refine(opt)
 
 
 def test_input_nc_must_describe_the_stacked_input():

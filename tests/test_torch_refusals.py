@@ -1,43 +1,13 @@
-"""What the port still refuses, and how: each option that no module of
-the port covers yet raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (queue 1 item 6), from the system's constructor and
-through the entry points; a data-parallel world that the visible cards
-cannot hold raises, naming the count."""
+"""What the port still refuses, and how: a data-parallel world that the
+visible cards cannot hold raises, naming the count. (The one option no
+module covers, ``--ckpt_backend orbax``, is refused by name in
+``tests/test_torch_ckpt.py``, ``tests/test_torch_engine.py`` and
+``tests/test_torch_refine.py``.)"""
 
 import pytest
 
 from nerfsr_torch import engine
-from nerfsr_torch import train as train_entry
 from nerfsr_torch.config import default_options
-from nerfsr_torch.models import create_model
-from nerfsr_torch.models.nerf_system import NeRFSystem
-
-
-def test_neutex_mlp_refuses_naming_item_6(tmp_path):
-    opt = default_options("train", model="nerf", dataset_mode="llff",
-                          mlp_network="neutex_mlp", device="cpu",
-                          checkpoints_dir=str(tmp_path))
-    for build in (lambda: create_model(opt, device="cpu"),
-                  lambda: NeRFSystem(opt, device="cpu"),
-                  lambda: engine.train(opt)):
-        with pytest.raises(NotImplementedError,
-                           match=r"--mlp_network neutex_mlp .*item 6"):
-            build()
-
-
-def test_template_model_refuses_naming_item_6(tmp_path):
-    """Both configs default ``--model`` to ``template``: a command line
-    without ``--model`` names the item rather than a missing key."""
-    opt = default_options("train", device="cpu")
-    assert opt.model == "template"
-    with pytest.raises(NotImplementedError,
-                       match=r"--model template .*item 6"):
-        create_model(opt, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"--model template .*item 6"):
-        train_entry.main(["--name", "t", "--dataset_root", str(tmp_path),
-                          "--img_wh", "8", "8", "--device", "cpu",
-                          "--checkpoints_dir", str(tmp_path)])
 
 
 def test_a_world_beyond_the_cards_raises_naming_the_count(monkeypatch):
