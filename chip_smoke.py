@@ -149,7 +149,24 @@
    4x256x256) forward and backward on the card against the CPU in f32
    with its ms, and the bilateral renderer, ``grad_loss``, ConvBlock and
    Up2x against the CPU;
-13. prints a JSON line of details (also written to
+13. ckpt: the orbax checkpoint backend on a machine with no orbax,
+   tensorstore or zstandard. Builds the host zstd decoder
+   (``nerfsr_torch/csrc_host/``) with the host's C compiler and decodes
+   the JAX-written fixture ``tests/data/orbax_jax_fixture/`` (Huffman
+   and FSE blocks) to the sha256 digests stored beside it, loading its
+   TrainState; runs the engine phase's training with ``--ckpt_backend
+   orbax`` (2 epochs and a ``--continue_train`` to a third, exact launch
+   counts) against the msgpack run's epoch 3 (every parameter, moment
+   and the step bit for bit; the four directories there and no
+   temporary one) and ``test`` from the orbax epoch (its PNGs equal the
+   msgpack run's byte for byte); switches backends (a newer msgpack
+   epoch wins the resume scan, a torn ``latest_state.msgpack`` gives way
+   to ``latest_state.orbax``); and saves ``train_llff_refine.sh``'s
+   refine state (UNet ngf 64, 6 downs, ~351 MB with drawn moments and
+   statistics) through orbax and restores it into a fresh state bit for
+   bit, printing the save's return, commit and restore times (host
+   clock) beside the card's name and power limit;
+14. prints a JSON line of details (also written to
    ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
    summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -3086,6 +3103,228 @@ def zoo_phase(dev, card, work):
     return out
 
 
+# ckpt phase: the orbax checkpoint backend (--ckpt_backend orbax) on the
+# card's machine, which has no orbax, tensorstore or zstandard
+FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_jax_fixture")
+CKPT_FILES = ["1_state.orbax", "2_state.orbax", "3_state.orbax",
+              "latest_state.orbax"]
+
+
+def _fixture_check(dev):
+    """The committed JAX-written fixture decoded by the host decoder (its
+    Huffman and FSE paths) to the digests stored beside it, and its
+    TrainState loaded into a port state on the card."""
+    import hashlib
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.utils import checkpoint as ckpt
+    from nerfsr_torch.utils import orbax, zstd
+    from nerfsr_torch.weights import flatten_tree
+
+    t0 = time.perf_counter()
+    so = zstd.build()
+    zstd.lib()
+    build_s = time.perf_counter() - t0
+    with open(FIXTURE + ".json") as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    sd = orbax.restore(FIXTURE)
+    read_s = time.perf_counter() - t0
+    arrays = {k.replace("/", "."): v for k, v in flatten_tree(sd).items()
+              if not isinstance(v, dict)}
+    if sorted(arrays) != sorted(want["leaves"]):
+        fail(f"the fixture's leaves differ: {set(arrays) ^ set(want['leaves'])}")
+    for k, a in arrays.items():
+        w = want["leaves"][k]
+        if (a.dtype.str, list(a.shape)) != (w["dtype"], w["shape"]) or \
+                hashlib.sha256(a.tobytes()).hexdigest() != w["sha256"]:
+            fail(f"fixture leaf {k} decodes to other bytes")
+    opt = default_options("train", **dict(
+        want["options"], img_wh=tuple(want["options"]["img_wh"])))
+    state = create_model(opt, device=dev).create_state(0, 4)
+    ckpt.load_state_dict(opt, state, sd["train_state"])
+    if state.step != want["steps"]:
+        fail(f"the fixture's TrainState loaded at step {state.step}")
+    print(f"[ckpt] host decoder built with the host C compiler in "
+          f"{build_s:.2f} s ({os.path.basename(str(so))}); the JAX-written "
+          f"fixture's {len(arrays)} arrays decoded to their sha256 in "
+          f"{read_s * 1e3:.1f} ms, and its TrainState loaded on the card")
+    return {"decoder_build_s": build_s, "fixture_arrays": len(arrays),
+            "fixture_read_ms": read_s * 1e3}
+
+
+def _orbax_engine(dev, card, work):
+    """The engine phase's run with --ckpt_backend orbax: 2 epochs, a
+    resume to a third, against the msgpack run's epoch 3 bit for bit;
+    test from the orbax epoch against the msgpack run's PNGs."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.utils import checkpoint as ckpt
+
+    scene = os.path.join(work, "scene")
+    orbax_flags = ["--name", "engine_orbax", "--ckpt_backend", "orbax"]
+
+    def argv(phase, *extra):
+        return engine_argv(scene, work, phase, *orbax_flags, *extra)
+
+    reset_counts()
+    with _ChunkLog() as log:
+        engine.train(parse_options("train", argv("train", "--n_epochs",
+                                                 "2")))
+        third = engine.train(parse_options("train", argv(
+            "train", "--n_epochs", "3", "--continue_train")))
+    torch.cuda.synchronize()
+    if set(log.routes()) != {"train_steps_scan"}:
+        fail(f"the orbax runs' chunks: {log.chunks}")
+    # 120 steps; validation at epochs 2 and 3 renders the val view twice
+    _launches_per(dict(COUNTS), 3 * ENGINE_STEPS, 4)
+    d = os.path.join(work, "checkpoints", "engine_orbax")
+    saved = sorted(f for f in os.listdir(d) if "_state" in f)
+    if saved != CKPT_FILES:          # a temporary directory would show here
+        fail(f"the orbax run's checkpoints: {saved}")
+    # the msgpack run's epoch 3 (engine phase: 2 epochs and a resume)
+    mopt = parse_options("train", engine_argv(scene, work, "train"))
+    ref = create_model(mopt, device=dev).create_state(
+        seed=0, steps_per_epoch=ENGINE_STEPS)
+    ckpt.load_checkpoint(mopt, ref, epoch=3)
+    got, want = _state_tensors(third), _state_tensors(ref)
+    if got.keys() != want.keys() or third.step != ref.step:
+        fail("the orbax run's state has other leaves or step")
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            fail(f"orbax run {k} differs from the msgpack run's")
+    # its epoch 3 directory read back into a fresh state
+    oopt = parse_options("train", argv("train"))
+    back = create_model(oopt, device=dev).create_state(
+        seed=5, steps_per_epoch=ENGINE_STEPS)
+    ckpt.load_checkpoint(oopt, back, epoch=3)
+    for k, v in _state_tensors(back).items():
+        if not torch.equal(v, want[k]):
+            fail(f"3_state.orbax's {k} differs from the msgpack run's")
+    print(f"[ckpt] engine with --ckpt_backend orbax: 2 epochs and a resume "
+          f"to 3 ({3 * ENGINE_STEPS} steps as graph replays, exact "
+          f"launches); {len(want)} parameter and Adam tensors and the step "
+          f"equal the msgpack run's bit for bit; {CKPT_FILES} present, no "
+          "temporary directory left")
+
+    # test from the orbax epoch: the PNGs of the msgpack run's test
+    reset_counts()
+    out_dir = engine.test(parse_options("test", argv(
+        "test", "--test_split", "test_train", "--load_epoch", "3")))
+    _launches_per(dict(COUNTS), 0, ENGINE_VIEWS)
+    ref_dir = os.path.join(work, "results", "engine", "test_train_3")
+    pngs = [f.format(i=i) for i in range(ENGINE_VIEWS) for f in ENGINE_FILES
+            if f.endswith(".png")]
+    for name in pngs:
+        with open(os.path.join(ref_dir, name), "rb") as a, \
+                open(os.path.join(out_dir, name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"test from 3_state.orbax: {name} differs from the "
+                     "msgpack run's")
+    print(f"[ckpt] test from 3_state.orbax: its {len(pngs)} PNGs equal "
+          "the msgpack run's byte for byte")
+
+    # switching backends: a newer msgpack epoch wins the scan; a torn
+    # latest_state.msgpack gives way to its orbax sibling
+    mswitch = parse_options("train", argv("train", "--ckpt_backend",
+                                          "msgpack"))
+    newer = create_model(mswitch, device=dev).create_state(
+        seed=7, steps_per_epoch=ENGINE_STEPS)
+    newer.step = 4 * ENGINE_STEPS
+    ckpt.save_checkpoint(mswitch, newer, 4)
+    oopt.continue_train = True
+    probe = create_model(oopt, device=dev).create_state(
+        seed=5, steps_per_epoch=ENGINE_STEPS)
+    if ckpt.resume_if_requested(oopt, probe) != 4 or \
+            probe.step != 4 * ENGINE_STEPS:
+        fail("a newer msgpack epoch did not win the orbax run's resume")
+    with open(os.path.join(d, "latest_state.msgpack"), "wb") as f:
+        f.write(b"torn")
+    ckpt.load_checkpoint(mswitch, probe, epoch="latest")
+    if probe.step != 3 * ENGINE_STEPS or not all(
+            torch.equal(v, want[k])
+            for k, v in _state_tensors(probe).items()):
+        fail("a torn latest_state.msgpack did not give way to "
+             "latest_state.orbax")
+    print("[ckpt] backend switch: msgpack epoch 4 wins the resume scan "
+          "over orbax epoch 3; a torn latest_state.msgpack gives way to "
+          "latest_state.orbax (epoch 3's state)")
+    return {"orbax_files": CKPT_FILES, "test_pngs_equal": len(pngs)}
+
+
+def _refine_state_round_trip(dev, card, work):
+    """train_llff_refine.sh's UNet (ngf 64, 6 downs) with drawn moments and
+    statistics, saved through orbax and restored into a fresh state bit
+    for bit, with the save's, commit's and restore's host times."""
+    from nerfsr_torch.config import parse_options
+    from nerfsr_torch.models import create_model
+    from nerfsr_torch.utils import checkpoint as ckpt
+
+    scene = os.path.join(work, "scene")
+    syn = os.path.join(work, "results", "engine", "test_train_3")
+    opt = parse_options("train", refine_argv(
+        scene, syn, work, "ckpt_refine", "train", "--ckpt_backend", "orbax"))
+    system = create_model(opt, device=dev)
+    state = system.create_state(seed=0, steps_per_epoch=REFINE_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    state.step = 7
+    with torch.no_grad():
+        for name, b in state.net.named_buffers():
+            if b.is_floating_point():
+                b.copy_(torch.rand(b.shape, generator=gen, device=dev))
+        for p in state.net.parameters():
+            state.optimizer.state[p] = {
+                "step": torch.tensor(7.0, dtype=torch.float64, device=dev),
+                "exp_avg": torch.randn(p.shape, generator=gen,
+                                       device=dev) * 1e-3,
+                "exp_avg_sq": torch.rand(p.shape, generator=gen,
+                                         device=dev) * 1e-6}
+    n_params = sum(p.numel() for p in state.net.parameters())
+    want = {k: v.detach().clone() for k, v in _refine_tensors(state).items()}
+    mb = sum(v.numel() * v.element_size() for k, v in want.items()
+             if not k.endswith("/step")) / 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(opt, state, 1)
+    t_return = time.perf_counter() - t0
+    ckpt.wait_for_saves()
+    t_commit = time.perf_counter() - t0 - t_return
+    on_disk = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(path) for f in fs) / 1e6
+    fresh = system.create_state(seed=3, steps_per_epoch=REFINE_STEPS)
+    t0 = time.perf_counter()
+    ckpt.load_checkpoint(opt, fresh, epoch=1)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    got = _refine_tensors(fresh)
+    if got.keys() != want.keys() or fresh.step != 7:
+        fail("the restored refine state has other tensors or step")
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            fail(f"the restored refine state's {k} differs")
+    print(f"[ckpt] refine state (UNet ngf {opt.ngf}, {opt.num_downs} downs: "
+          f"{n_params:,} "
+          f"parameters; with statistics and Adam moments {mb:.1f} MB, "
+          f"{on_disk:.1f} MB a directory): save returned in {t_return:.3f} s "
+          f"(state copied to the host), committed {t_commit:.3f} s later "
+          f"(the background write of {{1,latest}}_state.orbax), restored "
+          f"bit for bit in {t_restore:.3f} s ({mb / t_restore:.0f} MB/s); "
+          f"host times on the card's machine, {card}")
+    return {"refine_params": n_params, "refine_state_mb": mb,
+            "refine_dir_mb": on_disk, "save_return_s": t_return,
+            "commit_s": t_commit, "restore_s": t_restore,
+            "restore_mb_per_s": mb / t_restore, "card": card}
+
+
+def ckpt_phase(dev, card, work):
+    out = _fixture_check(dev)
+    out.update(_orbax_engine(dev, card, work))
+    out.update(_refine_state_round_trip(dev, card, work))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3136,6 +3375,9 @@ def main():
         refine_gan_out = refine_gan_phase(dev, card, work)
         dist_out = dist_phase(dev, card, work)
         zoo_out = zoo_phase(dev, card, work)
+        t0 = time.perf_counter()
+        ckpt_out = ckpt_phase(dev, card, work)
+        ckpt_out["phase_s"] = time.perf_counter() - t0
 
     # launches: the timed training window (graph replays), which runs all
     # five kernels
@@ -3191,6 +3433,7 @@ def main():
                                  "refine_gan": refine_gan_out,
                                  "dist": dist_out,
                                  "zoo": zoo_out,
+                                 "ckpt": ckpt_out,
                                  "card": card}})
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         f.write(detail + "\n")

@@ -79,8 +79,10 @@ def build_parser(phase: str) -> argparse.ArgumentParser:
     p.add_argument("--checkpoints_dir", type=str, default="./checkpoints")
     p.add_argument("--ckpt_backend", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="msgpack: atomic single-file checkpoints (the "
-                        "port's only backend; orbax is refused)")
+                   help="msgpack: atomic single-file checkpoints; orbax: "
+                        "orbax checkpoint directories written on a "
+                        "background thread (msgpack under more than one "
+                        "process)")
     p.add_argument("--summary_dir", type=str, default="./runs")
     p.add_argument("--seed", type=int, default=99)
     p.add_argument("--device", type=str, default="cuda",

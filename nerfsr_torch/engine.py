@@ -75,8 +75,10 @@ a loop of its own (``_train_template``), as the JAX engine runs it: one
 step at a time, no render, its validations raising where the JAX
 engine's do.
 
-Paths the port does not cover yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item (``nerfsr_torch.models.UNPORTED``).
+Checkpoints (``nerfsr_torch/utils/checkpoint.py``) are msgpack files or,
+with ``--ckpt_backend orbax``, orbax directories written on a background
+thread; each training loop waits for the last save before it returns,
+as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ import numpy as np
 import torch
 
 from nerfsr_torch.data import create_dataset
-from nerfsr_torch.models import create_model, refuse_unported
+from nerfsr_torch.models import create_model
 from nerfsr_torch.models.template_system import TemplateSystem
 from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils import checkpoint as ckpt
@@ -97,18 +99,11 @@ from nerfsr_torch.utils.visualizer import (MetricsWriter, NullMetricsWriter,
                                            Visualizee, save_visuals)
 
 
-def _refuse_unported(opt):
-    """Raise for what the port does not cover yet (ROADMAP.md queue 1 item
-    6), and for a world the cards cannot hold."""
-    refuse_unported(opt)
-    mesh.check_world(opt)
-
-
 def setup(opt):
-    """Refuse what is not ported, join the process group when
+    """Refuse a world the cards cannot hold, join the process group when
     ``--num_processes`` asks for one (the rank's card becomes the device),
     seed, and build the system."""
-    _refuse_unported(opt)
+    mesh.check_world(opt)
     device = opt.device
     if opt.num_processes:
         device = mesh.init_distributed(opt.coordinator, opt.num_processes,
@@ -297,6 +292,7 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
                                prefix=f"{opt.val_epoch_split}/")
             print(f"[{opt.val_epoch_split} e{epoch}] {_fmt(metrics)}")
 
+    ckpt.wait_for_saves()       # the background (orbax) writes commit
     writer.close()
     return state
 
@@ -368,6 +364,7 @@ def _train_template(opt, system):
         if opt.vis_epoch_freq and epoch % opt.vis_epoch_freq == 0:
             print(f"[train] vis_epoch render skipped: the template renders "
                   f"no {opt.val_epoch_split} view")
+    ckpt.wait_for_saves()       # the background (orbax) writes commit
     writer.close()
     return state
 
@@ -739,6 +736,7 @@ def train_refine(opt, timings=None):
             writer.add_scalars(agg, state.step, prefix="val/")
             save_visuals(visuals, _vis_dir(opt, epoch, "val"))
             print(f"[refine val e{epoch}] {_fmt(agg)}")
+    ckpt.wait_for_saves()       # the background (orbax) writes commit
     writer.close()
     return state
 

@@ -4,25 +4,6 @@ from __future__ import annotations
 
 _MODELS = {}
 
-# the options no module of the port covers yet, each with its ROADMAP.md
-# item: (test of opt, the option, the item)
-UNPORTED = (
-    (lambda opt: opt.ckpt_backend == "orbax", "--ckpt_backend orbax",
-     "6, the orbax checkpoint backend"),
-)
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
-def refuse_unported(opt):
-    """Raise for an option that is not ported yet, naming its item."""
-    for hit, what, item in UNPORTED:
-        if hit(opt):
-            raise unported(what, item)
-
 
 def register_model(name):
     def deco(cls):

@@ -1,9 +1,9 @@
 """Checkpoint and resume, in the JAX package's file layout.
 
-Port of ``nerfsr_tpu/utils/checkpoint.py``. A checkpoint is one msgpack
-blob (``nerfsr_torch/utils/msgpack.py``) of the state dict that
-``flax.serialization.to_bytes`` writes for the JAX ``TrainState``, so
-either package reads the other's files::
+Port of ``nerfsr_tpu/utils/checkpoint.py``. A checkpoint holds the state
+dict that ``flax.serialization.to_bytes`` writes for the JAX
+``TrainState`` (as a msgpack blob, ``nerfsr_torch/utils/msgpack.py``, or
+an orbax directory), so either package reads the other's files::
 
     {"step": int32, "params": {net: {"params": {layer: {bias, kernel}}}},
      "opt_state": {"0": {}?,                       # --grad_clip_val's clip
@@ -26,11 +26,26 @@ chain is always ``{"0": adam, "1": schedule}``. The refine stage's
 variables and moments in flax's layout (``weights.variable_leaves``:
 convolutions HWIO, transposed ones (kh, kw, in, out) flipped).
 
-Files are ``{checkpoints_dir}/{name}/{epoch}_state.msgpack`` plus
-``latest_state.msgpack``, each written to a temporary file, fsynced and
-moved into place. Resume tries the newest epoch first and falls back to
-an older one only when a file fails to parse (a torn file is skipped).
-``--ckpt_backend orbax`` is refused by name.
+Two backends, as in the JAX package (``--ckpt_backend``):
+
+- ``msgpack``: ``{checkpoints_dir}/{name}/{epoch}_state.msgpack`` plus
+  ``latest_state.msgpack``, each written to a temporary file, fsynced and
+  moved into place;
+- ``orbax``: the directories ``{epoch}_state.orbax/`` and
+  ``latest_state.orbax/`` of orbax's ``StandardCheckpointer``
+  (``nerfsr_torch/utils/orbax.py``), the state copied to the host at the
+  save and written on a background thread; ``wait_for_saves`` waits for
+  it, and every load does first. Under a process group of more than one
+  rank (``--num_processes`` > 1) it writes msgpack instead and says so
+  once, as the JAX package does on a multi-controller run.
+
+Reads follow the files on disk, so a run resumes across a switch of
+backend: the resume scan takes epochs of both, the configured backend's
+file of an epoch is read first and the other's when only it exists, and
+a torn msgpack file gives way to its orbax sibling. Resume tries the
+newest epoch first and falls back to an older one only when its
+checkpoint fails to read (a torn file is skipped); a torn ``latest``
+falls back to the newest intact epoch.
 """
 
 from __future__ import annotations
@@ -43,10 +58,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerfsr_torch.models import refuse_unported
 from nerfsr_torch.models.refine_system import RefineState
 from nerfsr_torch.models.template_system import TemplateState
-from nerfsr_torch.utils import msgpack
+from nerfsr_torch.utils import msgpack, orbax
 from nerfsr_torch.weights import (flatten_tree, from_flax_layout,
                                   from_jax_layout, load_variables,
                                   param_leaves, to_flax_layout,
@@ -62,10 +76,22 @@ def _path(opt, epoch, name=None):
     return os.path.join(_ckpt_dir(opt, name), f"{epoch}_state.msgpack")
 
 
-def check_backend(opt):
-    """Only the msgpack backend is ported: ``--ckpt_backend orbax`` raises,
-    naming its ROADMAP.md item (``nerfsr_torch.models.UNPORTED``)."""
-    refuse_unported(opt)
+def _orbax_path(opt, epoch, name=None):
+    return os.path.abspath(os.path.join(_ckpt_dir(opt, name),
+                                        f"{epoch}_state.orbax"))
+
+
+def _use_orbax(opt) -> bool:
+    return getattr(opt, "ckpt_backend", "msgpack") == "orbax"
+
+
+_WARNED_MULTIPROCESS = False
+
+
+def wait_for_saves() -> None:
+    """Wait for the background (orbax) save and re-raise its error; a
+    no-op when none is in flight."""
+    orbax.wait_for_saves()
 
 
 def frozen_paths(opt, params: nn.ModuleDict) -> set:
@@ -261,11 +287,25 @@ def _atomic_write(path: str, blob: bytes) -> None:
 
 
 def save_checkpoint(opt, state, epoch) -> str:
-    """Write ``{epoch}_state.msgpack`` and refresh ``latest_state.msgpack``
-    (both atomic). Returns the epoch file's path."""
-    check_backend(opt)
+    """Write epoch ``epoch`` and refresh ``latest`` in the configured
+    backend: msgpack files (both atomic), or orbax directories written on
+    a background thread from a copy taken now. Returns the epoch's
+    path."""
     os.makedirs(_ckpt_dir(opt), exist_ok=True)
-    blob = msgpack.packb(state_dict(opt, state))
+    sd = state_dict(opt, state)
+    if _use_orbax(opt):
+        if (getattr(opt, "num_processes", 0) or 1) > 1:
+            global _WARNED_MULTIPROCESS
+            if not _WARNED_MULTIPROCESS:
+                _WARNED_MULTIPROCESS = True
+                print("[checkpoint] --ckpt_backend orbax falls back to "
+                      "msgpack on multi-controller runs (master-only saves "
+                      "would deadlock orbax's cross-process barriers)")
+        else:
+            path = _orbax_path(opt, epoch)
+            orbax.save_async([path, _orbax_path(opt, "latest")], sd)
+            return path
+    blob = msgpack.packb(sd)
     path = _path(opt, epoch)
     _atomic_write(path, blob)
     _atomic_write(_path(opt, "latest"), blob)
@@ -273,15 +313,20 @@ def save_checkpoint(opt, state, epoch) -> str:
 
 
 def read_checkpoint(path: str) -> Dict[str, Any]:
-    """Parse one checkpoint file into its state dict; a torn or foreign
-    file raises ``ValueError``, a missing one ``OSError``."""
-    if not os.path.exists(path) and os.path.isdir(
-            path[:-len(".msgpack")] + ".orbax"):
-        raise NotImplementedError(
-            f"{path[:-len('.msgpack')]}.orbax is an orbax checkpoint; "
-            "the port reads msgpack checkpoints only")
-    with open(path, "rb") as f:
-        sd = msgpack.unpackb(f.read())
+    """Parse one checkpoint (a msgpack file or an orbax directory) into its
+    state dict; a torn or foreign one raises ``ValueError``, a missing one
+    ``OSError``."""
+    if path.endswith(".orbax"):
+        if not os.path.isdir(path):
+            raise FileNotFoundError(path)
+        try:
+            sd = orbax.restore(path)
+        except (OSError, ValueError, LookupError) as e:
+            raise ValueError(f"{path}: unreadable orbax checkpoint ({e})") \
+                from e
+    else:
+        with open(path, "rb") as f:
+            sd = msgpack.unpackb(f.read())
     if not isinstance(sd, dict) or set(sd) - {"batch_stats"} != {
             "step", "params", "opt_state"}:
         raise ValueError(f"{path} is not a TrainState or RefineState "
@@ -289,22 +334,41 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
     return sd
 
 
+def _read_epoch(opt, epoch, name=None) -> Dict[str, Any]:
+    """The checkpoint of ``epoch`` (of this experiment or of ``name``): the
+    configured backend's if it exists, else the other's; a torn msgpack
+    file gives way to its orbax sibling."""
+    mp, op = _path(opt, epoch, name), _orbax_path(opt, epoch, name)
+    order = (op, mp) if _use_orbax(opt) else (mp, op)
+    found = [p for p in order if os.path.exists(p)]
+    if not found:
+        raise FileNotFoundError(order[0])
+    try:
+        return read_checkpoint(found[0])
+    except ValueError:
+        if len(found) == 2 and found[0] == mp:
+            return read_checkpoint(op)
+        raise
+
+
 def _epochs(opt):
     d = _ckpt_dir(opt)
     if not os.path.isdir(d):
         return []
-    found = [re.match(r"(\d+)_state\.msgpack$", fn) for fn in os.listdir(d)]
-    return sorted((int(m.group(1)) for m in found if m), reverse=True)
+    found = [re.match(r"(\d+)_state\.(msgpack|orbax)$", fn)
+             for fn in os.listdir(d)]
+    return sorted({int(m.group(1)) for m in found if m}, reverse=True)
 
 
 def newest_checkpoint(opt) -> Optional[Tuple[int, Dict[str, Any]]]:
-    """(epoch, state dict) of the newest epoch file that parses: the
-    newest is read first, and an older one only when it fails."""
+    """(epoch, state dict) of the newest epoch, of either backend, whose
+    checkpoint reads: the newest is read first, and an older one only
+    when it fails."""
     for epoch in _epochs(opt):
         try:
-            return epoch, read_checkpoint(_path(opt, epoch))
+            return epoch, _read_epoch(opt, epoch)
         except ValueError as e:
-            print(f"[checkpoint] skipping {_path(opt, epoch)}: {e}")
+            print(f"[checkpoint] skipping epoch {epoch}: {e}")
     return None
 
 
@@ -315,10 +379,10 @@ def load_checkpoint(opt, state, epoch=None, name=None,
     ``params_only`` (test and infer) the optimizer state is not read. A
     torn ``latest`` of this experiment falls back to the newest intact
     epoch."""
-    check_backend(opt)
+    wait_for_saves()
     epoch = epoch if epoch is not None else opt.load_epoch
     try:
-        sd = read_checkpoint(_path(opt, epoch, name))
+        sd = _read_epoch(opt, epoch, name)
     except ValueError:
         if str(epoch) != "latest" or name is not None:
             raise
@@ -332,14 +396,14 @@ def load_checkpoint(opt, state, epoch=None, name=None,
 
 def resume_if_requested(opt, state) -> int:
     """``--continue_train``: load ``--load_epoch`` (an epoch number, or
-    ``latest`` for the newest intact epoch file) into ``state`` and return
+    ``latest`` for the newest intact epoch) into ``state`` and return
     that epoch; 0 when not resuming or nothing is saved."""
     if not opt.continue_train:
         return 0
-    check_backend(opt)
+    wait_for_saves()
     if str(opt.load_epoch) != "latest":
         epoch = int(opt.load_epoch)
-        sd = read_checkpoint(_path(opt, epoch))
+        sd = _read_epoch(opt, epoch)
     else:
         found = newest_checkpoint(opt)
         if found is None:
@@ -352,13 +416,14 @@ def resume_if_requested(opt, state) -> int:
 @torch.no_grad()
 def init_weights_from(opt, state):
     """``--init_weights name:epoch``: copy the parameters of another
-    experiment's checkpoint whose paths match ``--init_weights_keys`` and
-    whose shapes agree; the optimizer state is left as it is."""
+    experiment's checkpoint (either backend) whose paths match
+    ``--init_weights_keys`` and whose shapes agree; the optimizer state
+    is left as it is."""
     if not opt.init_weights:
         return state
+    wait_for_saves()
     name, _, epoch = opt.init_weights.partition(":")
-    other = flatten_tree(read_checkpoint(
-        _path(opt, epoch or "latest", name))["params"])
+    other = flatten_tree(_read_epoch(opt, epoch or "latest", name)["params"])
     pattern = re.compile(opt.init_weights_keys)
     for path, p, is_kernel in _layout(opt, state)[0]:
         arr = other.get(path)

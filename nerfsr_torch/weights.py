@@ -61,14 +61,15 @@ def to_jax_layout(t: torch.Tensor, is_kernel: bool) -> np.ndarray:
 def from_jax_layout(arr, like: torch.Tensor, is_kernel: bool, what: str
                     ) -> torch.Tensor:
     """Inverse of ``to_jax_layout`` onto ``like``'s shape, dtype and
-    device; the shape must match."""
+    device; the shape must match. The result owns its memory (a copy),
+    so an in-place update of it (Adam's moments) leaves ``arr`` alone."""
     arr = np.asarray(arr, np.float32)
     if is_kernel:
         arr = arr.T
     if arr.shape != tuple(like.shape):
         raise ValueError(f"{what}: shape {arr.shape} (port layout), "
                          f"expected {tuple(like.shape)}")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(
+    return torch.from_numpy(np.array(arr, order="C")).to(
         device=like.device, dtype=like.dtype)
 
 

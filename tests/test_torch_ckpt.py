@@ -6,7 +6,8 @@
 - a JAX checkpoint loaded into the port, and one more step of each side
   on the same batch; a port checkpoint loaded by the JAX package;
 - resume semantics: torn files, ``--init_weights``, ``--fix_layers``,
-  ``--ckpt_backend orbax``.
+  and a ``--ckpt_backend orbax`` round trip (the orbax format itself is
+  ``tests/test_torch_orbax.py``'s).
 """
 
 import os
@@ -354,18 +355,30 @@ def test_fix_layers_train_steps_keep_frozen_leaves(tmp_path):
                              plain, epoch=1)
 
 
-def test_orbax_backend_is_refused(tmp_path):
+def test_orbax_backend_saves_resumes_and_reads_under_msgpack(tmp_path):
     opt, system, state = _port(tmp_path, ckpt_backend="orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ckpt.save_checkpoint(opt, state, 1)
+    state = _step(system, state, 0)
+    path = ckpt.save_checkpoint(opt, state, 1)
+    ckpt.wait_for_saves()
+    assert path.endswith("1_state.orbax") and os.path.isdir(path)
+    assert sorted(os.listdir(os.path.join(str(tmp_path), "ck"))) == [
+        "1_state.orbax", "latest_state.orbax"]
     opt.continue_train = True
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ckpt.resume_if_requested(opt, state)
-    # a JAX orbax directory, read with the msgpack backend
+    _, _, resumed = _port(tmp_path)
+    assert ckpt.resume_if_requested(opt, resumed) == 1 and resumed.step == 1
+    for (_, p, _), (_, q, _) in zip(param_leaves(resumed.params),
+                                    param_leaves(state.params)):
+        assert torch.equal(p, q)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(resumed.optimizer.state[p][key],
+                               state.optimizer.state[q][key])
+    # the orbax directory, read with the msgpack backend configured
     opt.ckpt_backend = "msgpack"
-    os.makedirs(os.path.join(str(tmp_path), "ck", "1_state.orbax"))
-    with pytest.raises(NotImplementedError, match="orbax checkpoint"):
-        ckpt.load_checkpoint(opt, state, epoch=1)
+    _, _, again = _port(tmp_path)
+    ckpt.load_checkpoint(opt, again, epoch=1)
+    for (_, p, _), (_, q, _) in zip(param_leaves(again.params),
+                                    param_leaves(state.params)):
+        assert torch.equal(p, q)
 
 
 def _paths(tree):

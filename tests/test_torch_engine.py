@@ -1,6 +1,6 @@
 """The port's engine on the CPU: against the JAX engine from one JAX
-checkpoint, resume, ``--stop_grad``, the refusals, the entry points, and
-the import rule.
+checkpoint, resume (msgpack and orbax checkpoints), ``--stop_grad``, the
+entry points, and the import rule.
 """
 
 import ast
@@ -276,13 +276,33 @@ def test_kernel_a_bin_cap_does_not_bind_on_the_cpu():
     assert np.isfinite(out["fine_rgb"]).all()
 
 
-@pytest.mark.parametrize("flags,match", [
-    (dict(ckpt_backend="orbax"), "orbax")])
-def test_engine_refuses_unported_paths(tmp_path, flags, match):
-    opt = default_options("train", **_kw(str(tmp_path), tmp_path,
-                                         device="cpu", **flags))
-    with pytest.raises(NotImplementedError, match=match):
-        engine.train(opt)
+def test_engine_trains_resumes_and_tests_with_orbax(scene, tmp_path):
+    """``--ckpt_backend orbax``: two epochs saved each; epoch 2's
+    directories removed; a ``--continue_train`` from epoch 1 ends equal to
+    the unbroken run bit for bit; ``test`` from the orbax epoch."""
+    kw = dict(batch_size=32, steps_per_epoch=3, scan_steps=3, n_epochs=2,
+              save_epoch_freq=1, val_epoch_freq=0, val_freq=0, D=2, W=16,
+              device="cpu", ckpt_backend="orbax")
+    whole = engine.train(default_options("train", **_kw(scene, tmp_path,
+                                                        **kw)))
+    d = tmp_path / "ck" / "exp"
+    assert sorted(os.listdir(d)) == [
+        "1_state.orbax", "2_state.orbax", "latest_state.orbax"]
+    for name in ("2_state.orbax", "latest_state.orbax"):
+        shutil.rmtree(d / name)
+    resumed = engine.train(default_options("train", **_kw(
+        scene, tmp_path, continue_train=True, **kw)))
+    assert resumed.step == whole.step == 6
+    for a, b in zip(resumed.params.parameters(), whole.params.parameters()):
+        assert torch.equal(a, b)
+    assert sorted(os.listdir(d)) == [
+        "1_state.orbax", "2_state.orbax", "latest_state.orbax"]
+    topt = default_options("test", **_kw(
+        scene, tmp_path, D=2, W=16, device="cpu", ckpt_backend="orbax",
+        results_dir=str(tmp_path / "res"), test_split="test_train",
+        load_epoch="2"))
+    out = engine.test(topt)
+    assert {"0-fine-ori.png", "3-fine-depth-ori.npz"} <= set(os.listdir(out))
 
 
 def test_train_crop_runs_the_warmup(scene, tmp_path):

@@ -30,7 +30,6 @@ from nerfsr_tpu.ops import warp as j_warp
 from nerfsr_tpu.utils import checkpoint as j_ckpt
 from nerfsr_tpu.utils.schedule import make_jax_lr_schedule
 
-from nerfsr_torch import engine
 from nerfsr_torch import test_refine as test_refine_entry
 from nerfsr_torch import train_refine as train_refine_entry
 from nerfsr_torch import warp as warp_entry
@@ -599,15 +598,39 @@ def test_train_resume_test_through_the_entry_points(scene, tmp_path):
             assert abs(m[k] - jm[k]) <= 1e-4 * max(1.0, abs(jm[k])), k
 
 
-@pytest.mark.parametrize("flags,match", [
-    (dict(ckpt_backend="orbax"), "orbax.*item 6")])
-def test_refine_refuses_unported_options(scene, tmp_path, flags, match):
-    opt, _ = _refine_opts(scene, checkpoints_dir=str(tmp_path),
-                          summary_dir=str(tmp_path), **flags)
-    with pytest.raises(NotImplementedError, match=match):
-        engine.train_refine(opt)
-    with pytest.raises(NotImplementedError, match=match):
-        engine.test_refine(opt)
+def test_refine_trains_and_tests_with_orbax(scene, tmp_path):
+    """``--ckpt_backend orbax`` through ``train_refine`` and
+    ``test_refine``: the epoch and ``latest`` directories, and the
+    stitched panels of the orbax epoch's network."""
+    common = ["--model", "refine", "--dataset_mode", "llff_refine",
+              "--dataset_root", str(scene / "scene"), "--img_wh", str(W),
+              str(H), "--syn_dataroot", str(scene / "syn"), "--device",
+              "cpu", "--checkpoints_dir", str(tmp_path / "ck"),
+              "--patch_len", "32", "--ngf", "8", "--num_downs", "5",
+              "--num_ref_patches", "2", "--ckpt_backend", "orbax",
+              "--name", "o"]
+    state = train_refine_entry.main(
+        common + ["--batch_size", "2", "--aug_num", "2", "--steps_per_epoch",
+                  "2", "--n_epochs", "1", "--n_epochs_decay", "0",
+                  "--refine_with_l1", "--val_epoch_freq", "0",
+                  "--summary_dir", str(tmp_path / "runs")])
+    assert sorted(f for f in os.listdir(tmp_path / "ck" / "o")
+                  if "state" in f) == ["1_state.orbax", "latest_state.orbax"]
+    out = test_refine_entry.main(common + [
+        "--results_dir", str(tmp_path / "res"), "--test_split",
+        "test_train", "--load_epoch", "1"])
+    opt, _ = _refine_opts(scene, checkpoints_dir=str(tmp_path / "ck"),
+                          name="o", num_ref_patches=2, ckpt_backend="orbax")
+    system = create_model(opt, device="cpu")
+    loaded = system.create_state(seed=3, steps_per_epoch=1)
+    ckpt.load_checkpoint(opt, loaded, epoch=1, params_only=True)
+    for a, b in zip(loaded.net.state_dict().values(),
+                    state.net.state_dict().values()):
+        assert torch.equal(a, b)
+    tiles = create_dataset(opt, "test_train").tiles_for_image(0)
+    refined, _, _ = system.refine_image(loaded, tiles)
+    strip = png.read_rgb(os.path.join(out, "0-sr-refine.png"))
+    assert np.array_equal(strip[:, W:2 * W], _to_uint8(refined, (-1, 1)))
 
 
 def test_input_nc_must_describe_the_stacked_input():

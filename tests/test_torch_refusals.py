@@ -1,8 +1,9 @@
 """What the port still refuses, and how: a data-parallel world that the
-visible cards cannot hold raises, naming the count. (The one option no
-module covers, ``--ckpt_backend orbax``, is refused by name in
-``tests/test_torch_ckpt.py``, ``tests/test_torch_engine.py`` and
-``tests/test_torch_refine.py``.)"""
+visible cards cannot hold raises, naming the count. Every option of the
+JAX package is ported: ``--ckpt_backend orbax``, the last, runs through
+the engine in ``tests/test_torch_engine.py`` and
+``tests/test_torch_refine.py`` and is held to orbax in
+``tests/test_torch_orbax.py``."""
 
 import pytest
 
