@@ -14,8 +14,9 @@
    times both (device time per call, ``nerfsr_torch/timing.py``): the
    forward kernels at the serving path's shapes (inverse CDF per call at
    each of its two (B, Q) pairs, composite with both activations and both
-   backgrounds, fused MLP in bf16 on the tensor cores and in f32 on
-   SIMT, beside the same bf16 forward as a chain of cuBLAS products), the
+   backgrounds, fused MLP in bf16 and in f32 (3xTF32) on the tensor
+   cores, beside the same bf16 forward as a chain of cuBLAS products;
+   first the tf32 layout probe, ``check_tf32_probe``), the
    backward kernels at the training path's (composite backward at
    N=2048 with every cotangent nonzero, both activations and both
    backgrounds, at S=16 (the llff step) and S=64 and 128 (the parity
@@ -26,7 +27,9 @@
    Then each kernel again at the shapes the datasets phase gives it
    first (``check_new_shapes``): A at 95 and 47 bins (Q 48), B at S = 48,
    64 and 128 and D at S = 48 with a white background, C and E in bf16 at
-   P = 131,072 and 262,144;
+   P = 131,072 and 262,144; and C and E in f32 at a ragged P near each
+   main-path shape and at P = 64 (``check_f32_shapes``). The f32 kernels
+   carry two bounds: 3xTF32 on the tensor cores (the bound) and SIMT;
 4. serving: renders three 504x378 NeRF-SR x2 views (``--fast_preset
    llff``, ``--precision mixed``, full-width D8/W256 MLP, random weights
    from a seed) through ``render_eval_many(..., quantize_rgb=True)``,
@@ -46,7 +49,11 @@
    parameter, moment and step count bit for bit, exact launch counts on
    both routes), each route's ms/step, the capture's time and memory; and
    the serving render, each view one replay, against the chunk loop bit
-   for bit, with both routes' ms/image;
+   for bit, with both routes' ms/image; then the f32 phase
+   (``f32_phase``): the llff chunk at ``--precision f32`` graphed against
+   eager (bit for bit, exact launch counts, ms/step) and the f32 serving
+   image graphed against the chunk loop (bit for bit, ms/image), whose
+   launches are the f32 kernels' entries in the kernels line;
 6. engine: renders the teacher (seed 1) at 504x378 on 8 centred spiral
    poses, writes them as a COLMAP scene (``nerfsr_torch/data/
    synthetic.py``) into a temporary directory, and drives
@@ -172,6 +179,11 @@
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
 It needs a CUDA card: without one it exits 1 and prints no result.
+
+    python3 chip_smoke.py --turns DIR
+
+times the kernels of the checkout at DIR against this tree's, in turns
+(``turns``): what a PR's parent and change give on one card.
 """
 
 from __future__ import annotations
@@ -195,7 +207,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # bound of each kernel is the larger of bytes / HBM rate and operations /
 # the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 494.7e12}
 
 # tolerances, each against the plain PyTorch version on the same card
 TOL_INVERT_CDF = 1e-4        # abs on z in [0, 1]: the CDF's f32 rounding
@@ -224,6 +236,9 @@ TOL_COMPOSITE_BWD = (1e-3, 1e-4)
 # and the kernel may be no further from the f64 rule than BWD_F64_RATIO
 # times the plain version is.
 TOL_MLP_BWD = {"f32": 1e-4, "bf16": 2e-2}
+# the f32 route's kernels C and E
+F32_SOURCES = ("nerfsr_torch/csrc/fused_mlp_tf32.cu",
+               "nerfsr_torch/csrc/fused_mlp_bwd_tf32.cu")
 BWD_F64_RATIO = 2.0
 # a chunk's fine rgb/depth through the kernels vs the plain path, as
 # (mean abs err, max abs err) bars. Kernel A's depths differ from the
@@ -447,30 +462,81 @@ def bf16_chain(flat, x0, dmb):
     return run
 
 
+def _bound_ms(flops, bytes_moved, key):
+    """The least time of ``flops`` operations and ``bytes_moved`` bytes:
+    operations at the peak rate of their type, bytes at the memory rate,
+    the larger. f32-accurate work on the tensor cores ("tf32") is 3xTF32:
+    three tf32 products for each f32 one."""
+    ops = 3.0 * flops / PEAK_FLOPS["tf32"] if key == "tf32" \
+        else flops / PEAK_FLOPS[key]
+    return max(ops, bytes_moved / HBM_BYTES_PER_S) * 1e3
+
+
 def mlp_fwd_bound(p, key):
     """(operations, bound ms) of kernel C over P points: the products at
     the peak rate of their type, or the inputs, weights and outputs over
-    the memory rate."""
+    the memory rate. ``key`` "f32" is the SIMT bound (67 TFLOP/s),
+    "tf32" the 3xTF32 one."""
     from nerfsr_torch.kernels import mlp as kmlp
     flops = 2.0 * kmlp.N_WEIGHTS * p
     bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
                    + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
                    + 4 * kmlp.N_BIASES)
-    return flops, max(flops / PEAK_FLOPS[key],
-                      bytes_moved / HBM_BYTES_PER_S) * 1e3
+    return flops, _bound_ms(flops, bytes_moved, key)
 
 
 def mlp_bwd_bound(p, key):
     """(operations, bound ms) of kernel E over P points, as
-    ``mlp_fwd_bound`` with E's multiply-adds and its gradient output."""
+    ``mlp_fwd_bound`` with E's multiply-adds and its gradient output; in
+    f32 ("f32", "tf32") with the f32 scratch written once and read once
+    (the bf16 scratch's features, ``kmlp.TC_ACT_WIDTH`` +
+    ``TC_GRAD_WIDTH`` values a point)."""
     from nerfsr_torch.kernels import mlp as kmlp
     flops = 2.0 * E_MACS_PER_POINT * p
     bytes_moved = (4 * p * (kmlp.C_POS + kmlp.C_DIR + 3 + 1)
                    + kmlp.N_WEIGHTS * (2 if key == "bf16" else 4)
                    + 4 * kmlp.N_BIASES
                    + 4 * (kmlp.N_WEIGHTS + kmlp.N_BIASES))
-    return flops, max(flops / PEAK_FLOPS[key],
-                      bytes_moved / HBM_BYTES_PER_S) * 1e3
+    if key != "bf16":
+        bytes_moved += 2 * 4 * p * (kmlp.TC_ACT_WIDTH + kmlp.TC_GRAD_WIDTH)
+    return flops, _bound_ms(flops, bytes_moved, key)
+
+
+def check_tf32_probe(dev):
+    """The tf32 wgmma layouts the f32 kernels rely on (csrc/tf32_probe.cu):
+    A and B from shared memory, A from registers in the kernels' placement
+    and in the hardware's, exactly on small integers; 3xTF32 against the
+    f64 product; what the tensor cores do with f32 bits below tf32's. Its
+    own generator: the other checks' inputs stay as they were."""
+    from nerfsr_torch.kernels import mlp as kmlp
+    gen = torch.Generator().manual_seed(14)
+    a = torch.randint(-4, 5, (64, 32), generator=gen).float()
+    b = torch.randint(-4, 5, (32, 256), generator=gen).float()
+    for mode in (0, 1, 2):
+        got = kmlp.tf32_probe(a.to(dev), b.to(dev), mode).cpu()
+        if not torch.equal(got, a @ b):
+            fail(f"tf32 probe mode {mode} ({kmlp.TF32_PROBE_MODES[mode]}): "
+                 f"off by {float((got - a @ b).abs().max())}")
+    a = torch.randn((64, 32), generator=gen)
+    b = torch.randn((32, 256), generator=gen)
+    ref = a.double() @ b.double()
+    scale = float(ref.abs().max())
+    err3 = float((kmlp.tf32_probe(a.to(dev), b.to(dev), 3).cpu().double()
+                  - ref).abs().max()) / scale
+    trunc = [(x.view(torch.int32) & -0x2000).view(torch.float32).double()
+             for x in (a, b)]
+    raw = kmlp.tf32_probe(a.to(dev), b.to(dev), 4).cpu().double()
+    err_trunc = float((raw - trunc[0] @ trunc[1]).abs().max()) / scale
+    err_rna = float((raw - kmlp.tf32_round(a).double()
+                     @ kmlp.tf32_round(b).double()).abs().max()) / scale
+    print(f"[tf32 probe] layouts exact (smem; registers, kernels' and "
+          f"hardware's placement); 3xTF32 vs f64 {err3:.2e} of the largest "
+          f"value; raw f32 operands: {err_trunc:.2e} from truncated tf32, "
+          f"{err_rna:.2e} from rounded")
+    if err3 > 1e-6 or err_trunc > 1e-5:
+        fail("tf32 probe: 3xTF32 or the truncation off")
+    return {"3xtf32_vs_f64": err3, "raw_vs_truncated": err_trunc,
+            "raw_vs_rounded": err_rna}
 
 
 def check_fused_mlp(dev, gen):
@@ -500,10 +566,14 @@ def check_fused_mlp(dev, gen):
                          iters=10)
             plain_ms = time_ms(
                 lambda: kmlp.fused_mlp_plain(flat, x0, dmb, dtype), iters=10)
-            flops, bound = mlp_fwd_bound(p, key)
+            flops, bound = mlp_fwd_bound(p, "tf32" if key == "f32" else key)
             out[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": "operations",
                         "tflops": flops / ms / 1e9}
+            if key == "f32":
+                out[key]["bound_simt_ms"] = mlp_fwd_bound(p, "f32")[1]
+                print(f"[kernel C] f32 bounds: 3xTF32 {bound:.3f} ms, SIMT "
+                      f"{out[key]['bound_simt_ms']:.3f} ms")
             if key == "bf16":
                 chain = bf16_chain(flat, x0, dmb)
                 out[key]["cublas_chain_ms"] = time_ms(chain, iters=10)
@@ -616,6 +686,9 @@ def check_fused_mlp_bwd(dev, gen):
             if rel > TOL_MLP_BWD[key]:
                 fail(f"fused_mlp_bwd {key}: leaf norm-relative error "
                            f"{rel:.3e} > {TOL_MLP_BWD[key]}")
+            if key == "f32" and kernel_vs_f64 > TOL_MLP_BWD[key]:
+                fail(f"fused_mlp_bwd f32: {kernel_vs_f64:.3e} from the f64 "
+                     f"rule, over {TOL_MLP_BWD[key]}")
             if key == "bf16" and kernel_vs_f64 > BWD_F64_RATIO * plain_vs_f64:
                 fail(f"fused_mlp_bwd bf16: {kernel_vs_f64:.3e} from "
                            f"the f64 rule, over {BWD_F64_RATIO} x the plain "
@@ -627,7 +700,7 @@ def check_fused_mlp_bwd(dev, gen):
                                                     gsig, dtype), iters=10)
             plain_ms = time_ms(lambda: kmlp.fused_mlp_bwd_plain(
                 flat, x0, dmb, grgb, gsig, dtype), iters=10)
-            flops, bound = mlp_bwd_bound(p, key)
+            flops, bound = mlp_bwd_bound(p, "tf32" if key == "f32" else key)
             out[key] = {"max_abs_err": abs_err, "max_leaf_rel_err": rel,
                         "plain_vs_f64_rel": plain_vs_f64,
                         "kernel_vs_f64_rel": kernel_vs_f64,
@@ -639,6 +712,10 @@ def check_fused_mlp_bwd(dev, gen):
                                                        gsig, dtype))}
             print(f"[kernel E] {key} per launch (profiler, ms): "
                   f"{out[key]['launch_ms']}")
+            if key == "f32":
+                out[key]["bound_simt_ms"] = mlp_bwd_bound(p, "f32")[1]
+                print(f"[kernel E] f32 bounds: 3xTF32 {bound:.3f} ms, SIMT "
+                      f"{out[key]['bound_simt_ms']:.3f} ms")
             print(f"[kernel E] fused_mlp_bwd {key} P={p}: max leaf "
                   f"norm-relative err {rel:.3e} (bar {TOL_MLP_BWD[key]}), "
                   f"max abs err {abs_err:.3e}; {ms:.3f} ms "
@@ -767,6 +844,50 @@ def check_new_shapes(dev, gen):
                kernel_vs_f64_rel=kernel_vs_f64)
         del flat, x0, dmb, grgb, gsig, got, ref
         torch.cuda.empty_cache()
+    return out
+
+
+# the f32 route's edge cases: a ragged P (not a multiple of any block's
+# points) near each main-path shape, and the aux TV update's P = 64
+F32_SHAPES = {"C": (65536 + 37, 64), "E": (32768 + 37, 64)}
+
+
+@torch.no_grad()
+def check_f32_shapes(dev, gen):
+    """Kernels C and E in f32 against their plain versions at the ragged
+    and tiny P of ``F32_SHAPES``: C at TOL_MLP_F32, E at TOL_MLP_BWD["f32"]
+    a leaf against the plain version and against the f64 rule."""
+    from nerfsr_torch.kernels import mlp as kmlp
+    f32 = torch.float32
+    out = {"C": [], "E": []}
+    for p in F32_SHAPES["C"]:
+        flat, x0, dmb, _, _ = _mlp_case(p, gen, dev)
+        rgb, sigma = kmlp.fused_mlp_fwd(flat, x0, dmb, f32)
+        rgb_r, sigma_r = kmlp.fused_mlp_plain(flat, x0, dmb, f32)
+        err = max(max_err(rgb, rgb_r, *TOL_MLP_F32, f"fused_mlp f32 P={p}"),
+                  max_err(sigma, sigma_r, *TOL_MLP_F32,
+                          f"fused_mlp f32 P={p} sigma"))
+        out["C"].append({"p": p, "max_abs_err": err})
+        print(f"[f32 shapes] kernel C P={p}: max abs err {err:.3e} (rtol, "
+              f"atol {TOL_MLP_F32})")
+    for p in F32_SHAPES["E"]:
+        flat, x0, dmb, grgb, gsig = _mlp_case(p, gen, dev)
+        got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, f32)
+        ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, f32)
+        ref64 = kmlp.fused_mlp_bwd_plain(
+            tuple(t.double() for t in flat), x0.double(), dmb.double(),
+            grgb.double(), gsig.double(), f32)
+        rel, abs_err = leaf_errors(got, ref)
+        rel64 = leaf_errors(got, ref64)[0]
+        if rel > TOL_MLP_BWD["f32"] or rel64 > TOL_MLP_BWD["f32"]:
+            fail(f"fused_mlp_bwd f32 P={p}: leaf err {rel:.3e} against the "
+                 f"plain version, {rel64:.3e} against the f64 rule (bar "
+                 f"{TOL_MLP_BWD['f32']})")
+        out["E"].append({"p": p, "max_leaf_rel_err": rel,
+                         "kernel_vs_f64_rel": rel64, "max_abs_err": abs_err})
+        print(f"[f32 shapes] kernel E P={p}: max leaf norm-relative err "
+              f"{rel:.3e}, {rel64:.3e} from the f64 rule (bar "
+              f"{TOL_MLP_BWD['f32']})")
     return out
 
 
@@ -1174,6 +1295,7 @@ def chunk_vs_eager(dev, make_system, buffers, steps=GRAPH_STEPS,
                 k: v * steps for k, v in counts.items()}:
             fail(f"{route} chunk: launch counts {dict(COUNTS)}, a step "
                  f"{counts}")
+        out[f"{route}_launches"] = dict(COUNTS)
         runs[route] = state
         gen.manual_seed(1)
         t0 = time.perf_counter()
@@ -1193,10 +1315,10 @@ def chunk_vs_eager(dev, make_system, buffers, steps=GRAPH_STEPS,
     return out
 
 
-def eval_vs_eager(dev, card):
-    """NeRF-SR x2 serving: each view one graph replay against the chunk
-    loop (the same system's eager route) on the same weights, bit for
-    bit, and both routes' ms/image."""
+def eval_vs_eager(dev, card, precision="mixed"):
+    """NeRF-SR x2 serving in ``precision``: each view one graph replay
+    against the chunk loop (the same system's eager route) on the same
+    weights, bit for bit, and both routes' ms/image."""
     from nerfsr_torch.config import default_options
     from nerfsr_torch.data.views import LLFFDownXViews
     from nerfsr_torch.kernels import COUNTS, reset_counts
@@ -1205,7 +1327,7 @@ def eval_vs_eager(dev, card):
     opt = default_options("test", model="nerf_downX",
                           dataset_mode="llff_downX", fast_preset="llff",
                           img_wh=HR_WH, downscale=DOWNSCALE,
-                          precision="mixed")
+                          precision=precision)
     views = LLFFDownXViews.spiral(FOCAL, HR_WH, DOWNSCALE, N_VIEWS + 1)
     chunks = -(-(HR_WH[0] * HR_WH[1]) // 4096)
     out, renders = {}, {}
@@ -1244,7 +1366,8 @@ def eval_vs_eager(dev, card):
             if not np.array_equal(a[k], b[k]):
                 fail(f"eval {k}: the graph replay differs from the chunk "
                      "loop")
-    print(f"[graphs] eval: {N_VIEWS} views {HR_WH[0]}x{HR_WH[1]}, one "
+    print(f"[graphs] eval {precision}: {N_VIEWS} views "
+          f"{HR_WH[0]}x{HR_WH[1]}, one "
           f"replay of {chunks} chunks each, equal to the chunk loop bit for "
           f"bit; {out['graphed_ms_per_image']:.1f} ms/image graphed, "
           f"{out['eager_ms_per_image']:.1f} eager; capture "
@@ -1271,6 +1394,26 @@ def graphs_phase(dev, card, buffer):
         out[preset] = res
     out["eval"] = eval_vs_eager(dev, card)
     return out
+
+
+def f32_phase(dev, card, buffer):
+    """The f32 route end to end (``--precision f32``, kernels C and E in
+    f32): the llff step as a 20-step graphed chunk against the eager
+    chunk from the same seed (bit for bit, exact launch counts on both
+    routes, each route's ms/step), and the serving image at 504x378 as
+    graph replays against the chunk loop (bit for bit, ms/image). The
+    counts are set to 0 before each route and read after it: the graphed
+    chunk's are the f32 kernels' launches on this path."""
+    from nerfsr_torch.models import create_model
+    res = chunk_vs_eager(
+        dev, lambda: create_model(train_options("f32"), device=dev), buffer,
+        counts=FAST[0])
+    print(f"[f32] llff f32: a {GRAPH_STEPS}-step graphed chunk equals the "
+          f"eager chunk in {res['tensors_equal']} tensors bit for bit; "
+          f"{res['graphed_ms_per_step']:.2f} ms/step graphed, "
+          f"{res['eager_ms_per_step']:.2f} eager; launches "
+          f"{res['graphed_launches']}; on {card}")
+    return {"llff": res, "eval": eval_vs_eager(dev, card, "f32")}
 
 
 # engine phase (scripts/train_llff_downX_fast.sh at full width; cut to a
@@ -3325,6 +3468,62 @@ def ckpt_phase(dev, card, work):
     return out
 
 
+def turn_worker(tree, out_json):
+    """One turn of ``--turns``: this file's checks on the kernels of the
+    checkout at ``tree`` (its ``nerfsr_torch`` first on the path): C and
+    E timed beside their plain versions, the graphs phase (llff and
+    parity in mixed precision, the mixed image) and the f32 phase."""
+    sys.path.insert(0, tree)
+    from nerfsr_torch.kernels import _lib
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _lib.lib()
+    gen = torch.Generator().manual_seed(0)
+    out = {"tree": tree, "card": card, "C": check_fused_mlp(dev, gen),
+           "E": check_fused_mlp_bwd(dev, gen)}
+    buffer = teacher_buffer(dev)
+    out["graphs"] = graphs_phase(dev, card, buffer)
+    out["f32"] = f32_phase(dev, card, buffer)
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+
+
+def turns(other):
+    """``python3 chip_smoke.py --turns DIR``: the kernels of the checkout
+    at DIR (the parent's, unpacked by ``git archive``) against this
+    tree's on one card, in turns DIR, this, this, DIR, each turn a
+    process of its own (``turn_worker``): C and E in f32 and bf16, the
+    mixed and f32 steps and images. Writes
+    ``chiprun_out/chip_smoke_turns.json`` and prints one line a turn."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    runs = []
+    for i, tree in enumerate((other, ROOT, ROOT, other)):
+        out_json = os.path.join(OUT_DIR, f"chip_smoke_turn{i}.json")
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--turn-worker", os.path.abspath(tree),
+                              out_json], timeout=1200)
+        if res.returncode:
+            fail(f"turn {i} ({tree}) exited {res.returncode}")
+        with open(out_json) as f:
+            run = json.load(f)
+        runs.append(run)
+        c, e, g, f32 = run["C"], run["E"], run["graphs"], run["f32"]
+        print(f"[turns] {i} {'this' if tree == ROOT else 'other'}: C f32 "
+              f"{c['f32']['ms']:.3f} ms, E f32 {e['f32']['ms']:.3f} "
+              f"{e['f32']['launch_ms']}; C bf16 {c['bf16']['ms']:.3f}, E "
+              f"bf16 {e['bf16']['ms']:.3f}; mixed llff "
+              f"{g['llff']['graphed_ms_per_step']:.2f}, parity "
+              f"{g['parity']['graphed_ms_per_step']:.2f} ms/step, image "
+              f"{g['eval']['graphed_ms_per_image']:.1f} ms; f32 llff "
+              f"{f32['llff']['graphed_ms_per_step']:.2f} ms/step, image "
+              f"{f32['eval']['graphed_ms_per_image']:.1f} ms; {run['card']}",
+              flush=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_turns.json"), "w") as f:
+        json.dump(runs, f)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3352,14 +3551,17 @@ def main():
     gen = torch.Generator().manual_seed(0)
     a = check_invert_cdf(dev, gen)
     b = check_composite(dev, gen)
+    probe = check_tf32_probe(dev)
     c = check_fused_mlp(dev, gen)
     d = check_composite_bwd(dev, gen)
     e = check_fused_mlp_bwd(dev, gen)
     new_shapes = check_new_shapes(dev, gen)
     new_shapes["aux"] = check_aux_shapes(dev, gen)
+    new_shapes["f32"] = check_f32_shapes(dev, gen)
     serve_counts, ms_img, rays_s, slice_err = slice_phase(dev, card)
     counts, train, buffer = train_phase(dev, card)
     graphs_out = graphs_phase(dev, card, buffer)
+    f32_out = f32_phase(dev, card, buffer)
     del buffer
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="nerfsr_smoke_") as work:
@@ -3380,7 +3582,8 @@ def main():
         ckpt_out["phase_s"] = time.perf_counter() - t0
 
     # launches: the timed training window (graph replays), which runs all
-    # five kernels
+    # five kernels; the f32 route's, the f32 phase's graphed chunk
+    f32_launches = f32_out["llff"]["graphed_launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     ops = "nerfsr_tpu/ops/experimental/"
     kernels = [
@@ -3406,6 +3609,15 @@ def main():
              replaces=ops + "pallas_mlp.py:433",
              launches=counts["fused_mlp_bwd"],
              **{k: e["bf16"][k] for k in keys}),
+        # the f32 route: launches from the f32 phase's graphed chunk
+        dict(name="fused_mlp_fwd_f32", route="cuda", source=F32_SOURCES[0],
+             replaces=ops + "pallas_mlp.py:183",
+             launches=f32_launches["fused_mlp_fwd"],
+             **{k: c["f32"][k] for k in keys}),
+        dict(name="fused_mlp_bwd_f32", route="cuda", source=F32_SOURCES[1],
+             replaces=ops + "pallas_mlp.py:433",
+             launches=f32_launches["fused_mlp_bwd"],
+             **{k: e["f32"][k] for k in keys}),
     ]
     for k in kernels:
         k["library_ms"] = None
@@ -3414,6 +3626,7 @@ def main():
                                  "registers_a_b_d": regs,
                                  "composite_bwd_shapes": d["shapes"],
                                  "fused_mlp_f32": c["f32"],
+                                 "tf32_probe": probe,
                                  "fused_mlp_bf16_tflops":
                                      c["bf16"]["tflops"],
                                  "fused_mlp_bf16_cublas_chain_ms":
@@ -3425,6 +3638,7 @@ def main():
                                            "launches": serve_counts},
                                  "train": train,
                                  "graphs": graphs_out,
+                                 "f32": f32_out,
                                  "engine": engine_out,
                                  "new_shapes": new_shapes,
                                  "datasets": datasets_out,
@@ -3446,4 +3660,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--turns"]:
+        turns(sys.argv[2])
+    elif sys.argv[1:2] == ["--turn-worker"]:
+        turn_worker(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel _bwd_kernel_v3 of
 // nerfsr_tpu/ops/experimental/pallas_mlp.py (_bwd, bwd_mode="pallas") for
-// compute dtype bf16; the f32 path keeps fused_mlp_bwd.cu's SIMT kernels.
-// The numerics rule is fused_mlp_bwd.cu's: kernel C's bf16 recompute,
+// compute dtype bf16; the f32 route is fused_mlp_bwd_tf32.cu.
+// The numerics rule is kernels/mlp.py's: kernel C's bf16 recompute,
 // every backpropagated gradient rounded to bf16 after its ReLU mask, the
 // sigma cotangent in f32, every weight and bias gradient summed in f32.
 //

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel _fwd_kernel of
 // nerfsr_tpu/ops/experimental/pallas_mlp.py (_fwd, in fused_nerf_mlp) for
-// compute dtype bf16; the f32 path keeps fused_mlp.cu's SIMT kernel. The
-// math and the numerics rule are fused_mlp.cu's: bf16 inputs, weights and
+// compute dtype bf16; the f32 route is fused_mlp_tf32.cu. The math is
+// _fwd_pass's, the numerics rule kernels/mlp.py's: bf16 inputs, weights and
 // activations; products accumulated in f32 (wgmma's f32 accumulator);
 // biases added in f32; sigma and rgb_pre in f32.
 //

@@ -7,7 +7,8 @@ such as the Blender ``train_crop``, for the first ``warmup_iters``
 steps), and each epoch runs in chunks that end every ``--scan_steps``
 steps of the epoch, at its end and at the end of the warm-up; their
 losses are read back once per chunk and written every ``--log_every``
-(else ``--print_freq``) steps with ``rays_per_sec``. As in the JAX
+(else ``--print_freq``) steps with ``rays_per_sec`` and, from 0.1 up, the
+achieved matmul ``tflops`` (``utils/devbench.py``). As in the JAX
 engine, a chunk is ``system.train_steps_scan`` (on the card one
 CUDA-graph replay a step) when ``--scan_steps`` > 1 and the chunk draws
 from the training buffer, and the eager ``system.train_steps`` with
@@ -95,6 +96,7 @@ from nerfsr_torch.models import create_model
 from nerfsr_torch.models.template_system import TemplateSystem
 from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils import checkpoint as ckpt
+from nerfsr_torch.utils.devbench import train_matmul_flops_per_ray
 from nerfsr_torch.utils.visualizer import (MetricsWriter, NullMetricsWriter,
                                            Visualizee, save_visuals)
 
@@ -225,6 +227,9 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
 
     gen = torch.Generator(device=system.device)
     rays_per_batch = _rays_per_batch(opt, buffer_np)
+    # analytic matmul FLOPs a ray, for the achieved-TFLOP/s scalar
+    flops_per_ray = train_matmul_flops_per_ray(system.render_cfg,
+                                               state.params)
     # the cadence counter: main steps, from the step the run started at
     step = state.step
     last_log_step, last_log_time = step, time.time()
@@ -258,6 +263,9 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
                 now = time.time()
                 scal["rays_per_sec"] = ((step - last_log_step) * rays_per_batch
                                         / max(now - last_log_time, 1e-9))
+                tf = scal["rays_per_sec"] * flops_per_ray / 1e12
+                if tf >= 0.1:     # achieved matmul TFLOP/s, as JAX logs it
+                    scal["tflops"] = round(tf, 1)
                 last_log_step, last_log_time = step, now
                 writer.add_scalars(scal, step, prefix="train/")
                 print(f"[e{epoch} s{step}] {_fmt(scal)}")

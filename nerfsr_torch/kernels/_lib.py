@@ -33,8 +33,9 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp.cu",
-           "fused_mlp_bwd.cu", "fused_mlp_tc.cu", "fused_mlp_bwd_tc.cu")
+SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp_tc.cu",
+           "fused_mlp_bwd_tc.cu", "fused_mlp_tf32.cu", "fused_mlp_bwd_tf32.cu",
+           "tf32_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,16 +56,9 @@ _SIGNATURES = {
     # rgb, sigma, z, comp, depth, opacity, weights, n, s, softplus,
     # white_bkgd, stream
     "nerfsr_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x0, dmb, w, b, rgb, sigma, n_points, stream
-    "nerfsr_fused_mlp_fwd": [_P] * 6 + [_I, _P],
     # rgb, sigma, z, gc, gd, go, gw, grgb, gsigma, gz, n, s, softplus,
     # white_bkgd, stream
     "nerfsr_composite_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
-    # x0, dmb, grgb, gsigma, w, wt, b, acts, grads, partial, out,
-    # n_points, stream
-    "nerfsr_fused_mlp_bwd": [_P] * 11 + [_I, _P],
-    # -> act_width, grad_width, splits, total
-    "nerfsr_fused_mlp_bwd_layout": [_IP, _IP, _IP, _IP],
     # x0, dmb, wimg, b, heads, rgb, sigma, n_points, stream
     "nerfsr_fused_mlp_fwd_tc": [_P] * 7 + [_I, _P],
     # x0, dmb, grgb, gsigma, wimg, wimg_bwd, b, heads, acts, grads,
@@ -76,6 +70,17 @@ _SIGNATURES = {
     "nerfsr_fused_mlp_bwd_tc_layout": [_IP, _IP, _IP, _IP],
     # x, wimg, d, stream
     "nerfsr_tc_probe": [_P, _P, _P, _P],
+    # x0, dmb, wimg, b, heads, rgb, sigma, n_points, stream
+    "nerfsr_fused_mlp_fwd_tf32": [_P] * 7 + [_I, _P],
+    # x0, dmb, grgb, gsigma, w, wimg_bwd, b, heads, acts, grads, partial,
+    # out, n_points, stream
+    "nerfsr_fused_mlp_bwd_tf32": [_P] * 12 + [_I, _P],
+    # -> fwd_image_bytes, bwd_image_bytes, head_floats
+    "nerfsr_fused_mlp_tf32_layout": [_IP, _IP, _IP],
+    # -> act_width, grad_width, splits, total
+    "nerfsr_fused_mlp_bwd_tf32_layout": [_IP, _IP, _IP, _IP],
+    # a, aimg, bimg, bsmall, d, mode, stream
+    "nerfsr_tf32_probe": [_P] * 5 + [_I, _P],
     # blocks, threads, stream: the empty kernel (launch floor)
     "nerfsr_empty_kernel": [_I, _I, _P],
 }

@@ -1,6 +1,6 @@
 """Kernels C and E: fused NeRF MLP forward and backward
 (``csrc/fused_mlp_tc.cu``, ``csrc/fused_mlp_bwd_tc.cu`` in bf16;
-``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu`` in f32).
+``csrc/fused_mlp_tf32.cu``, ``csrc/fused_mlp_bwd_tf32.cu`` in f32).
 
 Twin of ``nerfsr_tpu/ops/experimental/pallas_mlp.py``: ``fused_nerf_mlp``'s
 forward (``_fwd`` / ``_fwd_pass``, kernel C) and its custom VJP's
@@ -24,9 +24,11 @@ x0, dmb): forward kernel C, backward kernel E. It returns no gradient for
 x0 and dmb, the JAX contract (their gradients are zero: sample points
 come from detached depths). A CPU tensor takes the plain versions; a
 CUDA tensor launches the kernels or raises. The compute dtype picks the
-kernels: bfloat16 runs the tensor-core kernels (``csrc/fused_mlp_tc.cu``,
-``csrc/fused_mlp_bwd_tc.cu``), float32 the SIMT ones (``csrc/fused_mlp.cu``,
-``csrc/fused_mlp_bwd.cu``).
+kernels, all on the tensor cores: bfloat16 runs ``csrc/fused_mlp_tc.cu``
+and ``csrc/fused_mlp_bwd_tc.cu``; float32 runs ``csrc/fused_mlp_tf32.cu``
+and ``csrc/fused_mlp_bwd_tf32.cu``, whose products are 3xTF32 (each
+operand split into a tf32 big part and a tf32 small part, three tf32
+products summed in f32: within ~2^-22 of the f32 product term by term).
 
 The packed weights are cached on the parameters' identity and version
 counters (``packed``): serving packs once for all chunks of all views,
@@ -67,10 +69,7 @@ _IN_DIMS = ([C_POS] + [W] * (SKIP - 1) + [C_POS + W] + [W] * (D - SKIP - 1)
 _OUT_DIMS = [W] * D + [W, 1, W_HALF, 3]
 N_WEIGHTS = sum(i * o for i, o in zip(_IN_DIMS, _OUT_DIMS))   # 593,408
 N_BIASES = sum(_OUT_DIMS)                                      # 2,436
-# kernel E's scratch (csrc/fused_mlp_bwd.cu), f32: one row per point of
-# every layer's input activation and of every layer's output gradient,
-# and E_SPLITS partial sums of the packed gradients
-ACT_WIDTH = 8 * W + C_POS + W + C_DIR + W_HALF                 # 2,522
+# kernel E's partial sums of the packed gradients (both routes)
 E_SPLITS = 16
 
 # The bf16 tensor-core kernels (csrc/mlp_tc.cuh). Weights go in as
@@ -89,6 +88,23 @@ TC_HEADS = W + W_HALF * 3       # f32: w_sig, then w_rgb (128, 3)
 # gh0 .. gh7 | gfeat | gg | grgb_pre (8)
 TC_ACT_WIDTH = 8 * W + TC_X0 + W + TC_DMB + W_HALF             # 2,528
 TC_GRAD_WIDTH = 8 * W + W + W_HALF + 8                         # 2,440
+
+# The f32 tensor-core kernels (csrc/mlp_tf32.cuh), 3xTF32. Weights go in
+# as chunks of 16 reduction rows, each a big image then a small image of
+# B (N, 16) K-major in 8 x 4 core matrices, [N/8][4][8][4], with the
+# reduction rows of every group of 8 in TF32_K_ORDER (the hardware reads a
+# register fragment's k-slot l % 4 + 4 h from the value at reduction index
+# 2 (l % 4) + h: csrc/wgmma.cuh).
+TF32_CHUNK = 16
+TF32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+TF32_FWD_IMAGE = 2 * TC_FWD_IMAGE        # f32 values: big and small
+TF32_BWD_IMAGE = 2 * 34 * TC_CHUNK * W
+# kernel E's f32 scratch (csrc/fused_mlp_bwd_tf32.cu): the bf16 rows'
+# features, in f32, feature-major in tiles of 32 points; rows rounded up
+# to E1's 128-point blocks
+F32_ACT_WIDTH = TC_ACT_WIDTH
+F32_GRAD_WIDTH = TC_GRAD_WIDTH
+F32_BLOCK_POINTS = 128
 
 
 def flatten_params(mlp) -> tuple:
@@ -182,19 +198,21 @@ def tc_bwd_chunks(kernels):
 _image_index: dict = {}
 
 
-def _tc_index(chunks_fn, device) -> torch.Tensor:
+def _tc_index(chunks_fn, device, image_fn=None) -> torch.Tensor:
     """Where each value of a weight image comes from: an index into the
     kernels' transposes (each ``(out, in)`` row-major) back to back in
     PARAM_NAMES order, then one zero (the padding rows). Built once per
-    image and device by running the chunk packer on the indices."""
-    key = (chunks_fn, device)
+    image and device by running the chunk packer (and ``image_fn``, by
+    default ``tc_chunk_image``) on the indices."""
+    image_fn = image_fn or tc_chunk_image
+    key = (chunks_fn, device, image_fn)
     if key not in _image_index:
         src = torch.arange(1, N_WEIGHTS + 1, dtype=torch.float64)
         kernels, o = [], 0
         for i, n in zip(_IN_DIMS, _OUT_DIMS):
             kernels.append(src[o:o + i * n].view(n, i).t())
             o += i * n
-        idx = torch.cat([tc_chunk_image(c) for c in chunks_fn(kernels)])
+        idx = torch.cat([image_fn(c) for c in chunks_fn(kernels)])
         idx = idx.long() - 1
         idx[idx < 0] = N_WEIGHTS
         _image_index[key] = idx.to(device)
@@ -224,12 +242,91 @@ def pack_tc_bwd(params_flat):
     return _tc_image(params_flat, tc_bwd_chunks)
 
 
-def pack_params(params_flat):
-    """The f32 SIMT kernel C's two buffers: every kernel (in, out)
-    row-major back to back, and every bias, in PARAM_NAMES order."""
-    kernels = torch.cat([k.reshape(-1) for k in params_flat[0::2]])
-    biases = torch.cat([b.reshape(-1) for b in params_flat[1::2]])
-    return kernels.float().contiguous(), biases.float().contiguous()
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest tf32 value (10 mantissa bits), ties away from
+    zero: ``cvt.rna.tf32.f32``."""
+    b = t.float().contiguous().view(torch.int32)
+    mag = ((b & 0x7FFFFFFF) + 0x1000) & -0x2000
+    return (mag | (b & -0x80000000)).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """(big, small): big = tf32(t), small = tf32(t - big), the kernels'
+    split; big + small is within 2^-22 |t| of t."""
+    big = tf32_round(t)
+    return big, tf32_round(t.float() - big)
+
+
+def tf32_chunk_image(b: torch.Tensor, ordered: bool = True) -> torch.Tensor:
+    """B (N, K) -> its tf32 wgmma image: K-major 8 x 4 core matrices,
+    [N/8][K/4][8][4], flat; with ``ordered``, the reduction rows of every
+    group of 8 in TF32_K_ORDER first."""
+    n, k = b.shape
+    if ordered:
+        b = b.reshape(n, k // 8, 8)[..., list(TF32_K_ORDER)].reshape(n, k)
+    return b.reshape(n // 8, 8, k // 4, 4).permute(0, 2, 1, 3).reshape(-1)
+
+
+def tf32_fwd_chunks(kernels):
+    """The f32 forward image's chunks as B (N, 16), in the kernel's
+    consumption order (csrc/mlp_tf32.cuh): the chunks of
+    ``tc_fwd_chunks``, cut into 16 reduction rows."""
+    return [c[:, k:k + TF32_CHUNK] for c in tc_fwd_chunks(kernels)
+            for k in range(0, c.shape[1], TF32_CHUNK)]
+
+
+def tf32_bwd_chunks(kernels):
+    """The f32 backward image's chunks as B (N, 16) = W[h rows, 16 outputs],
+    in the kernel's order (``tc_bwd_chunks``'s)."""
+    return [c[:, k:k + TF32_CHUNK] for c in tc_bwd_chunks(kernels)
+            for k in range(0, c.shape[1], TF32_CHUNK)]
+
+
+def _tf32_index(chunks_fn, device) -> torch.Tensor:
+    """Where each value of an f32 image comes from: ``_tc_index``'s index
+    over the tf32 chunk images, each chunk's span followed by itself
+    shifted into the small parts (``_tf32_image``'s source is the kernels'
+    big parts, their zero, then their small parts and zero). Built once
+    per image and device."""
+    key = ("tf32", chunks_fn, device)
+    if key not in _image_index:
+        idx = _tc_index(chunks_fn, device, tf32_chunk_image)
+        sizes = [c.numel() for c in chunks_fn(
+            [torch.empty((i, o), device="meta")
+             for i, o in zip(_IN_DIMS, _OUT_DIMS)])]
+        spans = idx.split(sizes)
+        _image_index[key] = torch.cat(
+            [part for span in spans for part in (span, span + N_WEIGHTS + 1)])
+    return _image_index[key]
+
+
+def _tf32_image(params_flat, chunks_fn) -> torch.Tensor:
+    """An f32 weight image: the kernels' transposes split into big and
+    small parts, then one gather (``_tf32_index``)."""
+    src = torch.cat([k.t().reshape(-1) for k in params_flat[0::2]]
+                    + [params_flat[0].new_zeros(1)]).float()
+    big, small = tf32_split(src)
+    return torch.cat([big, small])[_tf32_index(chunks_fn, src.device)]
+
+
+def pack_tf32(params_flat):
+    """Kernel C's f32 buffers: the forward weight image (f32 big and small
+    chunks), the packed f32 biases and the f32 head weights (w_sig, then
+    w_rgb)."""
+    biases = torch.cat([b.reshape(-1) for b in params_flat[1::2]]).float()
+    heads = torch.cat([params_flat[2 * D + 2].reshape(-1),
+                       params_flat[2 * D + 6].reshape(-1)]).float()
+    return (_tf32_image(params_flat, tf32_fwd_chunks), biases.contiguous(),
+            heads.contiguous())
+
+
+def pack_tf32_bwd(params_flat):
+    """Kernel E's f32 buffers beside ``pack_tf32``'s: the backward image
+    (the input-gradient products on the tensor cores) and every kernel
+    (in, out) row-major back to back in f32 (its forward recompute's SIMT
+    products)."""
+    return (_tf32_image(params_flat, tf32_bwd_chunks),
+            torch.cat([k.reshape(-1) for k in params_flat[0::2]]).float())
 
 
 _CACHE_SLOTS = 4
@@ -242,7 +339,7 @@ def forget_packed():
 
 
 def packed(params_flat, kind: str):
-    """The packed buffers of ``kind`` ("tc", "tc_bwd", "simt", "simt_bwd")
+    """The packed buffers of ``kind`` ("tc", "tc_bwd", "tf32", "tf32_bwd")
     for these parameters, packed again only when a parameter is another
     tensor or its version counter moved. The entry holds the parameters
     (the bases of views such as ``weight.t()``), so their ids stay
@@ -259,10 +356,10 @@ def packed(params_flat, kind: str):
             value = pack_tc(params_flat)
         elif kind == "tc_bwd":
             value = pack_tc_bwd(params_flat)
-        elif kind == "simt":
-            value = pack_params(params_flat)
-        elif kind == "simt_bwd":
-            value = pack_bwd_params(params_flat)
+        elif kind == "tf32":
+            value = pack_tf32(params_flat)
+        elif kind == "tf32_bwd":
+            value = pack_tf32_bwd(params_flat)
         else:
             raise ValueError(f"packing kind {kind}")
     _cache[key] = (versions, bases, value)
@@ -287,36 +384,48 @@ def _check_tc_layout():
                            f"{want}")
 
 
+@functools.lru_cache(maxsize=None)
+def _check_tf32_layout():
+    """The f32 kernels' image and scratch sizes as the library reports
+    them (checked once per process)."""
+    vals = [ctypes.c_int() for _ in range(7)]
+    _lib.lib().nerfsr_fused_mlp_tf32_layout(*map(ctypes.byref, vals[:3]))
+    _lib.lib().nerfsr_fused_mlp_bwd_tf32_layout(
+        *map(ctypes.byref, vals[3:]))
+    got = tuple(v.value for v in vals)
+    want = (4 * TF32_FWD_IMAGE, 4 * TF32_BWD_IMAGE, TC_HEADS,
+            F32_ACT_WIDTH, F32_GRAD_WIDTH, E_SPLITS, N_WEIGHTS + N_BIASES)
+    if got != want:
+        raise RuntimeError(f"f32 tensor-core kernel layout {got}, expected "
+                           f"{want}")
+
+
 def _kernel_c(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
               compute_dtype):
     """Launch kernel C: x0 (P, 63), dmb (P, 27) f32 -> rgb (P, 3) f32,
-    sigma (P,) f32; the tensor-core kernel in bf16, the SIMT one in
-    f32."""
+    sigma (P,) f32; bf16 or, in f32, 3xTF32 on the tensor cores."""
     p, dev = x0.shape[0], x0.device
     _lib.check_cuda(x0, "x0", (p, C_POS))
     _lib.check_cuda(dmb, "dmb", (p, C_DIR), device=dev)
     rgb = torch.empty((p, 3), dtype=torch.float32, device=dev)
     sigma = torch.empty((p,), dtype=torch.float32, device=dev)
-    if compute_dtype == torch.bfloat16:
-        img, b, heads = packed(params_flat, "tc")
-        _lib.check_cuda(img, "weight image", (TC_FWD_IMAGE,),
-                        torch.bfloat16, device=dev)
-        _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
-        _lib.check_cuda(heads, "head weights", (TC_HEADS,), device=dev)
+    bf16 = compute_dtype == torch.bfloat16
+    img, b, heads = packed(params_flat, "tc" if bf16 else "tf32")
+    _lib.check_cuda(img, "weight image",
+                    (TC_FWD_IMAGE,) if bf16 else (TF32_FWD_IMAGE,),
+                    torch.bfloat16 if bf16 else torch.float32, device=dev)
+    _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
+    _lib.check_cuda(heads, "head weights", (TC_HEADS,), device=dev)
+    if bf16:
         _check_tc_layout()
-        with torch.cuda.device(dev):
-            err = _lib.lib().nerfsr_fused_mlp_fwd_tc(
-                x0.data_ptr(), dmb.data_ptr(), img.data_ptr(),
-                b.data_ptr(), heads.data_ptr(), rgb.data_ptr(),
-                sigma.data_ptr(), p, _lib.stream_ptr(x0))
     else:
-        w, b = packed(params_flat, "simt")
-        _lib.check_cuda(w, "packed weights", (N_WEIGHTS,), device=dev)
-        _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
-        with torch.cuda.device(dev):
-            err = _lib.lib().nerfsr_fused_mlp_fwd(
-                x0.data_ptr(), dmb.data_ptr(), w.data_ptr(), b.data_ptr(),
-                rgb.data_ptr(), sigma.data_ptr(), p, _lib.stream_ptr(x0))
+        _check_tf32_layout()
+    entry = _lib.lib().nerfsr_fused_mlp_fwd_tc if bf16 \
+        else _lib.lib().nerfsr_fused_mlp_fwd_tf32
+    with torch.cuda.device(dev):
+        err = entry(x0.data_ptr(), dmb.data_ptr(), img.data_ptr(),
+                    b.data_ptr(), heads.data_ptr(), rgb.data_ptr(),
+                    sigma.data_ptr(), p, _lib.stream_ptr(x0))
     _lib.check(err, "fused_mlp_fwd")
     _lib.COUNTS["fused_mlp_fwd"] += 1
     return rgb, sigma
@@ -338,6 +447,36 @@ def tc_probe(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = _lib.lib().nerfsr_tc_probe(x.data_ptr(), img.data_ptr(),
                                          d.data_ptr(), _lib.stream_ptr(x))
     _lib.check(err, "tc_probe")
+    return d
+
+
+TF32_PROBE_MODES = {0: "A and B from shared memory",
+                    1: "A from registers in the kernels' placement",
+                    2: "A from registers in the hardware's placement",
+                    3: "3xTF32, A from registers",
+                    4: "shared memory, raw f32 bits"}
+
+
+def tf32_probe(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """One 64 x 32 by 32 x 256 product through the tf32 wgmma pieces
+    (``csrc/tf32_probe.cu``): a (64, 32), b (32, 256) f32 on the card ->
+    (64, 256) f32, in ``mode`` (``TF32_PROBE_MODES``). Modes 0-2 read a
+    and b as tf32 (the hardware drops their low 13 bits: mode 4), mode 3
+    splits both (3xTF32). Pins the layouts on their own; no launch count
+    (not a main-path kernel)."""
+    _lib.check_cuda(a, "a", (64, 32))
+    _lib.check_cuda(b, "b", (32, W), device=a.device)
+    big, small = tf32_split(b) if mode == 3 else (b, torch.zeros_like(b))
+    ordered = mode in (1, 3)
+    aimg = tf32_chunk_image(a, ordered=False).contiguous()
+    bimg = tf32_chunk_image(big.t(), ordered).contiguous()
+    simg = tf32_chunk_image(small.t(), ordered).contiguous()
+    d = torch.empty((64, W), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _lib.lib().nerfsr_tf32_probe(
+            a.data_ptr(), aimg.data_ptr(), bimg.data_ptr(), simg.data_ptr(),
+            d.data_ptr(), mode, _lib.stream_ptr(a))
+    _lib.check(err, "tf32_probe")
     return d
 
 
@@ -388,17 +527,6 @@ def fused_mlp_bwd_plain(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
     return tuple(out)
 
 
-def pack_bwd_params(params_flat):
-    """The f32 SIMT kernel E's three buffers: the kernels row-major (in,
-    out) back to back, the same transposed to (out, in) at the same
-    offsets, and the biases."""
-    kernels = [k.float() for k in params_flat[0::2]]
-    w = torch.cat([k.reshape(-1) for k in kernels])
-    wt = torch.cat([k.t().reshape(-1) for k in kernels])
-    b = torch.cat([b.reshape(-1) for b in params_flat[1::2]]).float()
-    return w.contiguous(), wt.contiguous(), b.contiguous()
-
-
 def _unpack_grads(flat_grad):
     """Kernel E's packed output -> the flat (kernel, bias) tuple."""
     out, wo, bo = [], 0, N_WEIGHTS
@@ -408,18 +536,6 @@ def _unpack_grads(flat_grad):
         wo += i * o
         bo += o
     return tuple(out)
-
-
-@functools.lru_cache(maxsize=None)
-def _layout_ok():
-    """Kernel E's scratch layout as the library reports it (checked once
-    per process)."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    _lib.lib().nerfsr_fused_mlp_bwd_layout(*map(ctypes.byref, vals))
-    got = tuple(v.value for v in vals)
-    want = (ACT_WIDTH, N_BIASES, E_SPLITS, N_WEIGHTS + N_BIASES)
-    if got != want:
-        raise RuntimeError(f"kernel E scratch layout {got}, expected {want}")
 
 
 def fused_mlp_bwd(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
@@ -463,19 +579,26 @@ def fused_mlp_bwd(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
                 grads.data_ptr(), partial.data_ptr(), out.data_ptr(), p,
                 _lib.stream_ptr(x0))
     else:
-        w, wt, b = packed(params_flat, "simt_bwd")
-        for name, x in (("packed weights", w), ("transposed weights", wt)):
-            _lib.check_cuda(x, name, (N_WEIGHTS,), device=dev)
+        _, b, heads = packed(params_flat, "tf32")
+        img_bwd, w = packed(params_flat, "tf32_bwd")
+        _lib.check_cuda(img_bwd, "backward weight image",
+                        (TF32_BWD_IMAGE,), device=dev)
+        _lib.check_cuda(w, "packed weights", (N_WEIGHTS,), device=dev)
         _lib.check_cuda(b, "packed biases", (N_BIASES,), device=dev)
-        _layout_ok()
-        acts = torch.empty((p, ACT_WIDTH), dtype=torch.float32, device=dev)
-        grads = torch.empty((p, N_BIASES), dtype=torch.float32, device=dev)
+        _lib.check_cuda(heads, "head weights", (TC_HEADS,), device=dev)
+        _check_tf32_layout()
+        rows = -(-p // F32_BLOCK_POINTS) * F32_BLOCK_POINTS
+        acts = torch.empty((rows, F32_ACT_WIDTH), dtype=torch.float32,
+                           device=dev)
+        grads = torch.empty((rows, F32_GRAD_WIDTH), dtype=torch.float32,
+                            device=dev)
         with torch.cuda.device(dev):
-            err = _lib.lib().nerfsr_fused_mlp_bwd(
+            err = _lib.lib().nerfsr_fused_mlp_bwd_tf32(
                 x0.data_ptr(), dmb.data_ptr(), grgb.data_ptr(),
-                gsigma.data_ptr(), w.data_ptr(), wt.data_ptr(),
-                b.data_ptr(), acts.data_ptr(), grads.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), p, _lib.stream_ptr(x0))
+                gsigma.data_ptr(), w.data_ptr(), img_bwd.data_ptr(),
+                b.data_ptr(), heads.data_ptr(), acts.data_ptr(),
+                grads.data_ptr(), partial.data_ptr(), out.data_ptr(), p,
+                _lib.stream_ptr(x0))
     _lib.check(err, "fused_mlp_bwd")
     _lib.COUNTS["fused_mlp_bwd"] += 1
     return _unpack_grads(out)

@@ -78,7 +78,8 @@ def _logged(runs_dir, name):
         for line in f:
             rec = json.loads(line)
             if rec["tag"].startswith("train/") and \
-                    rec["tag"] != "train/rays_per_sec":
+                    rec["tag"] not in ("train/rays_per_sec",
+                                       "train/tflops"):
                 out[rec["tag"][6:]] = rec["value"]
     return out
 

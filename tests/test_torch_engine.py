@@ -159,7 +159,8 @@ def _train_lines(path, after_step):
         for line in f:
             rec = json.loads(line)
             if rec["tag"].startswith("train/") and \
-                    rec["tag"] != "train/rays_per_sec" and \
+                    rec["tag"] not in ("train/rays_per_sec",
+                                       "train/tflops") and \
                     rec["step"] > after_step:
                 out.append((rec["tag"], rec["value"], rec["step"]))
     return out

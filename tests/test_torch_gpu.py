@@ -303,6 +303,69 @@ def test_fused_mlp_tc_ragged(dev, p):
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+# kernel C's f32 bar (chip_smoke.py TOL_MLP_F32) and kernel E's, a leaf
+TOL_MLP_F32 = dict(rtol=1e-4, atol=2e-5)
+TOL_MLP_BWD_F32 = 1e-4
+
+
+def test_tf32_probe_layouts(dev):
+    """The tf32 wgmma pieces (csrc/tf32_probe.cu) against host products:
+    A and B from shared memory, A from registers in the kernels'
+    placement and in the hardware's, exactly on small integers; 3xTF32
+    within 1e-6 (of the largest value) of the f64 product; the tensor
+    cores truncate the bits below tf32's (mode 4)."""
+    gen = torch.Generator().manual_seed(7)
+    a = torch.randint(-4, 5, (64, 32), generator=gen).float()
+    b = torch.randint(-4, 5, (32, 256), generator=gen).float()
+    for mode in (0, 1, 2):
+        got = kmlp.tf32_probe(a.to(dev), b.to(dev), mode).cpu()
+        assert torch.equal(got, a @ b), kmlp.TF32_PROBE_MODES[mode]
+    a = torch.randn((64, 32), generator=gen)
+    b = torch.randn((32, 256), generator=gen)
+    ref = a.double() @ b.double()
+    got = kmlp.tf32_probe(a.to(dev), b.to(dev), 3).cpu().double()
+    assert float((got - ref).abs().max()) < 1e-6 * float(ref.abs().max())
+
+    def trunc(x):
+        return (x.view(torch.int32) & -0x2000).view(torch.float32).double()
+    raw = kmlp.tf32_probe(a.to(dev), b.to(dev), 4).cpu().double()
+    torch.testing.assert_close(raw, trunc(a) @ trunc(b), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [1, 63, 127, 129, 1000, 32768 + 37, 65536])
+def test_fused_mlp_tf32_shapes(dev, p):
+    """The f32 route (3xTF32) of kernels C and E against their plain
+    versions at ragged sizes and at the serving and step shapes (C at
+    P = 65,536 serves a chunk, E at 32,768 + 37 a ragged step): C at
+    TOL_MLP_F32, E at 1e-4 a leaf; E gives the same bits twice."""
+    gen = torch.Generator().manual_seed(9)
+    net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
+    pts = (torch.rand((p, 3), generator=gen) * 2 - 1).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((p, 3), generator=gen), dim=-1).to(dev)
+    grgb = (torch.randn((p, 3), generator=gen) * 1e-3).to(dev)
+    gsig = (torch.randn((p,), generator=gen) * 1e-3).to(dev)
+    f32 = torch.float32
+    with torch.no_grad():
+        flat = kmlp.flatten_params(net)
+        x0, dmb = kmlp.embed(pts, dirs)
+        reset_counts()
+        rgb, sigma = kmlp.fused_mlp_fwd(flat, x0, dmb, f32)
+        ref_rgb, ref_sigma = kmlp.fused_mlp_plain(flat, x0, dmb, f32)
+        torch.testing.assert_close(rgb, ref_rgb, **TOL_MLP_F32)
+        torch.testing.assert_close(sigma, ref_sigma, **TOL_MLP_F32)
+        if p > 40000:
+            return
+        got = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, f32)
+        again = kmlp.fused_mlp_bwd(flat, x0, dmb, grgb, gsig, f32)
+        torch.cuda.synchronize()
+        assert COUNTS["fused_mlp_fwd"] == 1 and COUNTS["fused_mlp_bwd"] == 2
+        ref = kmlp.fused_mlp_bwd_plain(flat, x0, dmb, grgb, gsig, f32)
+    assert max(_rel_errs(got, ref)) < TOL_MLP_BWD_F32
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
 # ---------------------------------------------------------------------
 # the engine on the card
 # ---------------------------------------------------------------------

@@ -7,11 +7,13 @@ The backward kernels' plain versions (D: ``composite_bwd_plain``, E:
 kernels in interpret mode, its XLA backward and torch autograd.
 
 Also checks what the CUDA kernels rely on and the CPU can reach: kernel
-C's packed weight layouts (the f32 buffers walked here exactly as
-``csrc/fused_mlp.cu`` walks them; the bf16 tensor-core image unpacked and
-walked in ``csrc/mlp_tc.cuh``'s chunk order), kernel E's bf16 image and
-scratch layout, the packing cache, that gradients flow through the
-wrappers' autograd Functions, and that the CPU path launches nothing.
+C's packed weight images (the f32 image walked here in
+``csrc/mlp_tf32.cuh``'s chunk order as 3xTF32 products; the bf16 image
+unpacked and walked in ``csrc/mlp_tc.cuh``'s), kernel E's bf16 image and
+both routes' scratch layout, the packing cache, that gradients flow
+through the wrappers' autograd Functions, and that the CPU path launches
+nothing. ``tests/test_torch_mlp_tf32.py`` holds the f32 route's split,
+images and products in more detail.
 """
 
 from types import SimpleNamespace
@@ -253,40 +255,54 @@ def test_fused_mlp_mixed_vs_both_jax_paths():
                                    atol=5e-2 * scale)
 
 
-def _forward_from_packed(w, b, x0, dmb):
-    """Kernel C's pointer walk over the packed buffers (f32 mode), in
-    numpy: trunk layers in order with the skip layer's x0 rows first,
-    then fin, sigma, the direction layer (feat rows, then dmb rows) and
-    rgb."""
-    W, C_POS, C_DIR = kmlp.W, kmlp.C_POS, kmlp.C_DIR
-    wo, bo = 0, 0
+def _forward_from_tf32_image(img, b, heads, x0, dmb):
+    """Kernel C's f32 walk over its image (csrc/mlp_tf32.cuh), in numpy:
+    chunks of 16 reduction rows, each a big then a small image of B (N,
+    16) in core-matrix order with the rows of every 8 in TF32_K_ORDER;
+    each product sums its chunks in consumption order as 3xTF32 (A's next
+    16 columns split into big and small); biases and heads in f32."""
+    W = kmlp.W
+    img = np.asarray(img, np.float64)
+    inv = np.argsort(kmlp.TF32_K_ORDER)
+    o = 0
 
-    def take(rows, cols):
-        nonlocal wo
-        m = w[wo:wo + rows * cols].reshape(rows, cols)
-        wo += rows * cols
-        return m
+    def chunk(n):
+        nonlocal o
+        parts = []
+        for _ in range(2):
+            c = img[o:o + n * 16].reshape(n // 8, 4, 8, 4)
+            parts.append(c.transpose(0, 2, 1, 3).reshape(n, 2, 8)[..., inv]
+                         .reshape(n, 16))
+            o += n * 16
+        return parts
 
-    def bias(n):
-        nonlocal bo
-        v = b[bo:bo + n]
-        bo += n
-        return v
+    def split(a):
+        big, small = kmlp.tf32_split(torch.from_numpy(a).float())
+        return big.double().numpy(), small.double().numpy()
 
-    h = np.maximum(x0 @ take(C_POS, W) + bias(W), 0)
-    for layer in range(1, kmlp.D):
-        if layer == kmlp.SKIP:
-            pre = x0 @ take(C_POS, W) + h @ take(W, W)
-        else:
-            pre = h @ take(W, W)
-        h = np.maximum(pre + bias(W), 0)
-    w_fin, b_fin = take(W, W), bias(W)
-    sigma = h @ take(W, 1)[:, 0] + bias(1)[0]
-    feat = h @ w_fin + b_fin
-    g = np.maximum(feat @ take(W, kmlp.W_HALF)
-                   + dmb @ take(C_DIR, kmlp.W_HALF) + bias(kmlp.W_HALF), 0)
-    rgb = 1 / (1 + np.exp(-(g @ take(kmlp.W_HALF, 3) + bias(3))))
-    assert wo == kmlp.N_WEIGHTS and bo == kmlp.N_BIASES
+    def prod(a, n_out):
+        acc = 0.0
+        for k0 in range(0, a.shape[1], 16):
+            bb, bs = chunk(n_out)
+            ab, as_ = split(a[:, k0:k0 + 16])
+            acc = acc + as_ @ bb.T + ab @ bs.T + ab @ bb.T
+        return acc
+
+    x = np.pad(x0, ((0, 0), (0, kmlp.TC_X0 - kmlp.C_POS)))
+    d = np.pad(dmb, ((0, 0), (0, kmlp.TC_DMB - kmlp.C_DIR)))
+    h = None
+    for layer in range(kmlp.D):
+        acc = prod(x, W) if layer in (0, kmlp.SKIP) else 0.0
+        if layer > 0:
+            acc = acc + prod(h, W)
+        h = np.maximum(acc + b[layer * W:(layer + 1) * W], 0)
+    bo = kmlp.D * W
+    feat = prod(h, W) + b[bo:bo + W]
+    sigma = h @ heads[:W] + b[bo + W]
+    g = np.maximum(prod(feat, kmlp.W_HALF) + prod(d, kmlp.W_HALF)
+                   + b[bo + W + 1:bo + W + 1 + kmlp.W_HALF], 0)
+    rgb = 1 / (1 + np.exp(-(g @ heads[W:].reshape(kmlp.W_HALF, 3) + b[-3:])))
+    assert o == img.size
     return rgb, sigma
 
 
@@ -353,20 +369,20 @@ def _forward_from_tc_image(img, b, heads, x0, dmb):
 
 
 def test_packed_layout_matches_kernel_walk():
-    """The SIMT kernel's packed buffers and the tensor-core kernel's
-    weight image, each walked in numpy as its kernel walks it, against
-    the plain forward; the image unpacks to every layer's bf16 kernel
-    exactly, padding rows zero."""
+    """The f32 kernel's weight image and the bf16 kernel's, each walked
+    in numpy as its kernel walks it, against the plain forward; the bf16
+    image unpacks to every layer's bf16 kernel exactly, padding rows
+    zero."""
     _, _, jflat = _flax_mlp(jnp.float32, seed=1)
     flat = _port_flat(jflat)
-    w, b = kmlp.pack_params(flat)
-    assert w.shape == (593408,) and b.shape == (2436,)
+    w, b, f32_heads = kmlp.pack_tf32(flat)
+    assert w.shape == (kmlp.TF32_FWD_IMAGE,) and b.shape == (2436,)
     pts, dirs = _points(32, 3)
     x0, dmb = kmlp.embed(t(pts), t(dirs))
-    rgb, sigma = _forward_from_packed(w.double().numpy(),
-                                      b.double().numpy(),
-                                      x0.double().numpy(),
-                                      dmb.double().numpy())
+    rgb, sigma = _forward_from_tf32_image(w.numpy(), b.double().numpy(),
+                                          f32_heads.double().numpy(),
+                                          x0.double().numpy(),
+                                          dmb.double().numpy())
     with torch.no_grad():
         ref_rgb, ref_sigma = kmlp.fused_mlp_plain(flat, x0, dmb)
     np.testing.assert_allclose(rgb, ref_rgb.numpy(), **MLP_F32_TOL)
@@ -437,7 +453,8 @@ def test_tc_bwd_image_unpacks_to_kernels():
 
 
 def test_tc_scratch_layout():
-    """Kernel E's bf16 scratch rows (csrc/fused_mlp_bwd_tc.cu): every
+    """Kernel E's scratch rows (csrc/fused_mlp_bwd_tc.cu, and in f32
+    csrc/fused_mlp_bwd_tf32.cu): every
     block 8-aligned (16-byte copies), the skip and direction inputs
     contiguous, the widths the wrapper allocates."""
     W, H = kmlp.W, kmlp.W_HALF
@@ -451,7 +468,8 @@ def test_tc_scratch_layout():
     # [x0 | a3] starts at 3 W; [feat | dmb] right after a7
     assert offs[3] == 3 * W and offs[4] - offs[3] == kmlp.TC_X0
     assert offs[10] - offs[9] == W
-    assert kmlp.TC_ACT_WIDTH > kmlp.ACT_WIDTH    # the f32 path's rows
+    # the f32 route's scratch holds the same features, in f32
+    assert (kmlp.F32_ACT_WIDTH, kmlp.F32_GRAD_WIDTH) == (2528, 2440)
     assert kmlp.TC_HEADS == W + 3 * H
 
 
