@@ -157,8 +157,8 @@
    with its ms, and the bilateral renderer, ``grad_loss``, ConvBlock and
    Up2x against the CPU;
 13. ckpt: the orbax checkpoint backend on a machine with no orbax,
-   tensorstore or zstandard. Builds the host zstd decoder
-   (``nerfsr_torch/csrc_host/``) with the host's C compiler and decodes
+   tensorstore or zstandard. Builds the host library (its zstd and JPEG
+   decoders, ``nerfsr_torch/csrc_host/``) with the host's C compiler and decodes
    the JAX-written fixture ``tests/data/orbax_jax_fixture/`` (Huffman
    and FSE blocks) to the sha256 digests stored beside it, loading its
    TrainState; runs the engine phase's training with ``--ckpt_backend
@@ -173,7 +173,19 @@
    statistics) through orbax and restores it into a fresh state bit for
    bit, printing the save's return, commit and restore times (host
    clock) beside the card's name and power limit;
-14. prints a JSON line of details (also written to
+14. jpeg: real LLFF scenes, whose ``images/`` are camera JPEGs, on a
+   machine with no PIL. Decodes every file of ``tests/data/jpeg_fixture/``
+   (4:4:4, 4:2:2, 4:2:0 and gray; baseline, extended and progressive;
+   restarts, EXIF, Adobe RGB; 1x1 to 4032x3024) with the host decoder to
+   the sha256 of PIL's pixels recorded beside it, holds ``load_image`` of
+   the fixture scene's eight 1008x756 views at 504x378 and its
+   ``LLFFDownXDataset`` buffer (``rgbs``, ``rgbs_ori``) to the JAX
+   package's digests, times on the host the decode of the 4032x3024 file
+   (median of 5) and of one view, the numpy Lanczos 4032x3024 ->
+   504x378 and the dataset's construction, and runs the engine phase's
+   training (full width, 40 graphed steps, exact launch counts, finite
+   state) and ``test`` (8 images, exact launch counts) on the JPEG scene;
+15. prints a JSON line of details (also written to
    ``chiprun_out/chip_smoke_detail.json``), the JSON line of kernel
    summaries (``{"kernels": [...]}``), the card line, and last
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -3261,11 +3273,11 @@ def _fixture_check(dev):
     from nerfsr_torch.config import default_options
     from nerfsr_torch.models import create_model
     from nerfsr_torch.utils import checkpoint as ckpt
-    from nerfsr_torch.utils import orbax, zstd
+    from nerfsr_torch.utils import hostlib, orbax, zstd
     from nerfsr_torch.weights import flatten_tree
 
     t0 = time.perf_counter()
-    so = zstd.build()
+    so = hostlib.build()
     zstd.lib()
     build_s = time.perf_counter() - t0
     with open(FIXTURE + ".json") as f:
@@ -3468,6 +3480,152 @@ def ckpt_phase(dev, card, work):
     return out
 
 
+# jpeg phase: the port's JPEG reader against the PIL and JAX digests of
+# the committed fixture (tests/data/make_jpeg_fixture.py writes both), then
+# the engine phase's run (scripts/train_llff_downX_fast.sh at full width)
+# on the fixture's JPEG scene: one epoch of ENGINE_STEPS steps, then test
+JPEG_FIXTURE = os.path.join(ROOT, "tests", "data", "jpeg_fixture")
+JPEG_BIG = "decode/420_baseline_4032x3024.jpg"
+JPEG_VIEW = "scene/images/img_000.jpg"
+JPEG_REPEATS = 5
+
+
+def _sha256(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _median_s(fn, repeats=JPEG_REPEATS):
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def jpeg_phase(dev, card, work, png_engine=None):
+    """``png_engine``: the engine phase's result, whose first epoch and
+    test on the PNG scene this phase's numbers are printed beside."""
+    from nerfsr_torch import engine
+    from nerfsr_torch.config import default_options, parse_options
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.data.downx_common import lanczos_resize, load_image
+    from nerfsr_torch.kernels import COUNTS, reset_counts
+    from nerfsr_torch.utils import hostlib, image, jpeg
+
+    with open(JPEG_FIXTURE + ".json") as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    so = hostlib.build()
+    jpeg.lib()
+    build_s = time.perf_counter() - t0
+    print(f"[jpeg] host library ({os.path.basename(str(so))}) built and "
+          f"loaded in {build_s:.2f} s")
+
+    # every fixture file decodes to PIL's pixels
+    for rel, w in sorted(want["pil"].items()):
+        img = image.read(os.path.join(JPEG_FIXTURE, rel))
+        if (_sha256(img.pixels), img.mode, list(img.pixels.shape)) != (
+                w["sha256"], w["mode"], w["shape"]):
+            fail(f"{rel} decodes to other pixels than PIL's")
+    # the views at --img_wh and the training buffer are the JAX package's
+    scene = os.path.join(JPEG_FIXTURE, "scene")
+    wh = tuple(want["img_wh"])
+    for view, w in sorted(want["load_image"].items()):
+        if _sha256(load_image(os.path.join(scene, "images", view), wh)) != w:
+            fail(f"load_image({view}, {wh}) differs from the JAX package's")
+    options = dict(want["options"], img_wh=wh, dataset_root=scene)
+    t0 = time.perf_counter()
+    buf = create_dataset(default_options("train", **options),
+                         "train").ray_buffer()
+    dataset_s = time.perf_counter() - t0
+    for k, w in want["dataset"].items():
+        a = buf[k]
+        if (_sha256(a), list(a.shape), a.dtype.str) != (
+                w["sha256"], w["shape"], w["dtype"]):
+            fail(f"the JPEG scene's training buffer {k} differs from the "
+                 "JAX package's")
+    del buf
+    print(f"[jpeg] {len(want['pil'])} fixture JPEGs decode to PIL's sha256 "
+          f"(4:4:4, 4:2:2, 4:2:0 and gray, baseline, extended and "
+          f"progressive, restarts, EXIF, Adobe RGB, 1x1 to 4032x3024); "
+          f"{len(want['load_image'])} views' load_image at {wh} and the "
+          f"LLFFDownXDataset buffer (rgbs, rgbs_ori) equal the JAX "
+          f"package's digests")
+
+    # host times on the card's machine
+    with open(os.path.join(JPEG_FIXTURE, JPEG_BIG), "rb") as f:
+        big = f.read()
+    with open(os.path.join(JPEG_FIXTURE, JPEG_VIEW), "rb") as f:
+        view = f.read()
+    big_s = _median_s(lambda: jpeg.decode(big))
+    view_s = _median_s(lambda: jpeg.decode(view))
+    big_px = jpeg.decode(big)[0]
+    resize_s = _median_s(lambda: lanczos_resize(big_px, wh), repeats=1)
+    print(f"[jpeg] host times (the card's machine): decode 4032x3024 "
+          f"4:2:0 ({len(big)} bytes) {big_s * 1e3:.1f} ms, median of "
+          f"{JPEG_REPEATS}; a 1008x756 view {view_s * 1e3:.2f} ms; numpy "
+          f"Lanczos 4032x3024 -> {wh[0]}x{wh[1]} {resize_s:.2f} s; the "
+          f"{len(want['load_image'])}-view LLFFDownXDataset built in "
+          f"{dataset_s:.2f} s; on {card}")
+
+    # the engine on the JPEG scene: one epoch, then test
+    jwork = os.path.join(work, "jpeg")
+    opt = parse_options("train", engine_argv(scene, jwork, "train",
+                                             "--n_epochs", "1"))
+    timings = {}
+    reset_counts()
+    with _ChunkLog() as log:
+        state = engine.train(opt, timings=timings)
+    torch.cuda.synchronize()
+    if set(log.routes()) != {"train_steps_scan"}:
+        fail(f"the JPEG run's chunks: {log.chunks}")
+    # the last epoch validates: the val view twice (metrics, then strips)
+    step_counts, _ = _launches_per(dict(COUNTS), ENGINE_STEPS, 2)
+    if state.step != ENGINE_STEPS:
+        fail(f"the JPEG run ended at step {state.step}")
+    for path, p in _state_tensors(state).items():
+        if not bool(torch.isfinite(p).all()):
+            fail(f"the JPEG run's {path} is not finite")
+    ms_step = timings["epoch_s"][1] / ENGINE_STEPS * 1e3
+    metrics = _val_metrics(jwork, "engine", ENGINE_STEPS)
+    topt = parse_options("test", engine_argv(
+        scene, jwork, "test", "--test_split", "test_train",
+        "--load_epoch", "1"))
+    test_t = {}
+    reset_counts()
+    out_dir = engine.test(topt, timings=test_t)
+    _, image_counts = _launches_per(dict(COUNTS), 0, ENGINE_VIEWS)
+    ms_image = test_t["seconds"] / test_t["views"] * 1e3
+    ms_write = test_t["write_s"] / test_t["views"] * 1e3
+    names = set(os.listdir(out_dir))
+    need = {f.format(i=i) for i in range(ENGINE_VIEWS)
+            for f in ENGINE_FILES}
+    if need - names:
+        fail(f"the JPEG run's test artifacts missing: {sorted(need - names)}")
+    beside = "" if png_engine is None else (
+        f" (the engine phase's PNG scene: epoch 1 "
+        f"{png_engine['first_run_ms_per_step'][0]:.2f} ms/step, test "
+        f"{png_engine['test_ms_per_image']:.1f} ms/image)")
+    print(f"[jpeg] engine on the JPEG scene ({ENGINE_VIEWS} views "
+          f"1008x756 -> {wh[0]}x{wh[1]}, x{DOWNSCALE}, batch {BATCH}, "
+          f"mixed, D8/W256): {ms_step:.2f} ms/step over {ENGINE_STEPS} "
+          f"steps (epoch 1, capture included); test {ms_image:.1f} "
+          f"ms/image with the writes, {ms_write:.1f} of it host work"
+          f"{beside}; validation {metrics}; launches a step "
+          f"{step_counts}, an image {image_counts}; on {card}")
+    return {"build_s": build_s, "fixture_files": len(want["pil"]),
+            "decode_4032x3024_ms": big_s * 1e3,
+            "decode_1008x756_ms": view_s * 1e3,
+            "lanczos_4032x3024_to_504x378_s": resize_s,
+            "dataset_build_s": dataset_s, "ms_per_step": ms_step,
+            "val_metrics": metrics, "test_ms_per_image": ms_image,
+            "test_host_ms_per_image": ms_write,
+            "launches_per_step": step_counts,
+            "launches_per_image": image_counts, "card": card}
+
+
 def turn_worker(tree, out_json):
     """One turn of ``--turns``: this file's checks on the kernels of the
     checkout at ``tree`` (its ``nerfsr_torch`` first on the path): C and
@@ -3580,6 +3738,10 @@ def main():
         t0 = time.perf_counter()
         ckpt_out = ckpt_phase(dev, card, work)
         ckpt_out["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jpeg_out = jpeg_phase(dev, card, work, engine_out)
+        jpeg_out["phase_s"] = time.perf_counter() - t0
+        print(f"[jpeg] phase {jpeg_out['phase_s']:.1f} s")
 
     # launches: the timed training window (graph replays), which runs all
     # five kernels; the f32 route's, the f32 phase's graphed chunk
@@ -3648,6 +3810,7 @@ def main():
                                  "dist": dist_out,
                                  "zoo": zoo_out,
                                  "ckpt": ckpt_out,
+                                 "jpeg": jpeg_out,
                                  "card": card}})
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         f.write(detail + "\n")

@@ -15,9 +15,9 @@ the clipped horizontal result). Images with alpha (LA, RGBA) go through
 PIL's premultiplied modes (``libImaging/Convert.c``) around the filter.
 It gives PIL's bytes.
 
-``load_image`` reads an image file the way the datasets' ``load_image``
-does: Lanczos to the working size, gray repeated, alpha blended over
-white after the resize (or kept).
+``load_image`` reads an image file (PNG or JPEG) the way the datasets'
+``load_image`` does: Lanczos to the working size, gray repeated, alpha
+blended over white after the resize (or kept).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import math
 
 import numpy as np
 
-from nerfsr_torch.utils import png
+from nerfsr_torch.utils import image
 
 PRECISION_BITS = 32 - 8 - 2       # PIL's fixed-point precision
 _LANCZOS_SUPPORT = 3.0
@@ -165,9 +165,9 @@ def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
 
 
 def read_pixels(path) -> np.ndarray:
-    """An image file's uint8 pixels (H, W[, C]), a palette looked up
-    (with its alpha)."""
-    img = png.read(path)
+    """An image file's (PNG or JPEG) uint8 pixels (H, W[, C]), a palette
+    looked up (with its alpha)."""
+    img = image.read(path)
     px = img.pixels
     if img.mode == "P":
         px = np.concatenate([img.palette, img.palette_alpha[:, None]],

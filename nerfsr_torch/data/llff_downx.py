@@ -36,7 +36,7 @@ from nerfsr_torch.data.llff import (_ray_dirs_np, cached_eval_dirs,
                                     llff_eval_raygen_spec,
                                     load_colmap_scene, pose_rays,
                                     spheric_path, spiral_path)
-from nerfsr_torch.utils import png
+from nerfsr_torch.utils import image
 
 
 def pose_rays_grouped(directions, c2w, img_wh, focal, ds, near_far,
@@ -146,7 +146,7 @@ class LLFFDownXDataset:
 
     def _load_pair(self, path):
         """-> HR rgb (h, w, 3) + LR rgb (h/ds, w/ds, 3), floats."""
-        return load_pair(png.read_rgb(path), self.img_wh, self.ds,
+        return load_pair(image.read_rgb(path), self.img_wh, self.ds,
                          self.opt.ds_method)
 
     def ray_buffer(self):

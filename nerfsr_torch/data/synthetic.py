@@ -2,9 +2,10 @@
 
 The port's counterpart of ``tools/make_synthetic_llff.py``: given NeRF
 c2w poses, HR images and points, ``write_llff_scene`` writes
-``sparse/0/{cameras,images,points3D}.bin`` and ``images/img_{i:03d}.png``,
-a scene that ``load_colmap_scene`` reads back to the same poses (within
-float rounding). Each pose goes to COLMAP's w2c through the axis flip
+``sparse/0/{cameras,images,points3D}.bin`` and ``images/img_{i:03d}.png``
+(or another format through the caller's writer), a scene that
+``load_colmap_scene`` reads back to the same poses (within float
+rounding). Each pose goes to COLMAP's w2c through the axis flip
 (NeRF "right up back" -> COLMAP "right down front").
 
 ``load_colmap_scene`` centres the poses on their average pose and scales
@@ -68,10 +69,12 @@ def _colmap_w2c(c2w):
 
 
 def write_llff_scene(out_dir, poses, images, focal, points, colors=None,
-                     anchors: int = 4):
+                     anchors: int = 4, ext: str = "png", save=None):
     """Write a COLMAP scene of centred NeRF c2w ``poses`` (n, 3, 4), HR
     uint8 ``images`` (n, H, W, 3) and scene ``points`` (P, 3); see the
-    module docstring for the points kept and added. Returns ``out_dir``."""
+    module docstring for the points kept and added. ``save(path, image,
+    i)`` writes view ``i`` to ``images/img_{i:03d}.{ext}`` (``png.write``
+    by default). Returns ``out_dir``."""
     poses = np.asarray(poses, np.float64)
     images = np.asarray(images)
     if images.dtype != np.uint8:
@@ -91,8 +94,12 @@ def write_llff_scene(out_dir, poses, images, focal, points, colors=None,
 
     frames = []
     for i in range(n):
-        name = f"img_{i:03d}.png"
-        png.write(os.path.join(out_dir, "images", name), images[i])
+        name = f"img_{i:03d}.{ext}"
+        path = os.path.join(out_dir, "images", name)
+        if save is None:
+            png.write(path, images[i])
+        else:
+            save(path, images[i], i)
         r, t = _colmap_w2c(poses[i])
         frames.append(ColmapImage(i + 1, rotmat2qvec(r), t, 1, name))
     write_images_binary(frames, os.path.join(sparse, "images.bin"))

@@ -4,11 +4,14 @@ The port's counterpart of PIL's PNG codec where the JAX package opens
 and saves images (``data/llff_downx.py:_load_pair``,
 ``data/blender.py:load_image``, ``utils/visualizer.py:save_visuals``).
 
-``decode`` reads non-interlaced PNGs of bit depth 8 (and the 1-, 2- and
-4-bit depths of gray and palette files): gray, gray+alpha, RGB, RGBA and
-palette, with all five row filters, and checks every chunk's CRC. A JPEG,
-an interlaced or a 16-bit file raises by name. ``encode`` writes uint8
-gray, RGB or RGBA rows unfiltered through zlib.
+``decode`` reads PNGs of bit depth 8 (and the 1-, 2- and 4-bit depths of
+gray and palette files): gray, gray+alpha, RGB, RGBA and palette, plain
+or Adam7-interlaced, with all five row filters, and checks every chunk's
+CRC. 16-bit RGB and RGBA come out as their high bytes, as PIL opens them
+(mode RGB/RGBA). 16-bit gray and gray+alpha raise by name (PIL opens
+them as I;16 and RGBA), as do JPEG bytes (``utils/image.py`` reads
+both formats). ``encode`` writes uint8 gray, RGB or RGBA rows unfiltered
+through zlib.
 """
 
 from __future__ import annotations
@@ -49,8 +52,8 @@ class PNGImage(NamedTuple):
 
 def _chunks(data: bytes):
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG files are not supported: the port reads "
-                         "PNG only (convert the scene's images to PNG)")
+        raise ValueError("JPEG bytes are not a PNG: read images through "
+                         "nerfsr_torch.utils.image, which decodes both")
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file (bad signature)")
     pos = 8
@@ -125,6 +128,53 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pass_bytes(w: int, h: int, depth: int, channels: int) -> int:
+    return h * ((w * channels * depth + 7) // 8 + 1) if w and h else 0
+
+
+def _pass_pixels(raw: bytes, w: int, h: int, depth: int, channels: int,
+                 mode: str) -> np.ndarray:
+    """One image's (or one Adam7 pass's) filtered scanlines -> uint8
+    samples, (h, w) for one channel, else (h, w, channels)."""
+    bits = channels * depth
+    stride = (w * bits + 7) // 8
+    rows = _unfilter(raw, h, stride, max(1, bits // 8))
+    if depth < 8:
+        px = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        px = (px * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(
+            np.uint8)
+        if mode == "L":        # scale to 8 bits as PIL does
+            px = (px.astype(np.int64) * 255 // ((1 << depth) - 1)).astype(
+                np.uint8)
+        return px
+    px = rows.reshape(h, w, channels, depth // 8)[..., 0]  # 16: high byte
+    return px[..., 0] if channels == 1 else px
+
+
+def _adam7(raw: bytes, w: int, h: int, depth: int, channels: int,
+           mode: str) -> np.ndarray:
+    """An interlaced image: each pass unfiltered on its own, its pixels
+    put on its grid."""
+    out = np.zeros((h, w, channels)[:2 if channels == 1 else 3], np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)   # 0 if empty
+        n = _pass_bytes(pw, ph, depth, channels)
+        if n:
+            out[y0::dy, x0::dx] = _pass_pixels(raw[pos:pos + n], pw, ph,
+                                               depth, channels, mode)
+        pos += n
+    if pos != len(raw):
+        raise ValueError(f"PNG image data has {len(raw)} bytes, expected "
+                         f"{pos}")
+    return out
+
+
 def decode(data: bytes) -> PNGImage:
     """Decode PNG bytes (see the module docstring for what is covered)."""
     header, palette, trns, idat = None, None, None, []
@@ -143,28 +193,20 @@ def decode(data: bytes) -> PNGImage:
     if ctype not in _COLOR_TYPES:
         raise ValueError(f"PNG colour type {ctype} is invalid")
     mode, channels = _COLOR_TYPES[ctype]
-    if interlace:
-        raise NotImplementedError("interlaced (Adam7) PNGs are not "
-                                  "supported")
-    if depth == 16:
-        raise NotImplementedError("16-bit PNGs are not supported")
-    if depth != 8 and (depth not in (1, 2, 4) or mode not in ("L", "P")):
+    if depth == 16 and mode in ("L", "LA"):
+        raise NotImplementedError("16-bit gray and gray+alpha PNGs are "
+                                  "not supported (PIL opens them as I;16 "
+                                  "and RGBA)")
+    if depth != 8 and not (depth in (1, 2, 4) and mode in ("L", "P")) \
+            and not (depth == 16 and mode in ("RGB", "RGBA")):
         raise ValueError(f"PNG bit depth {depth} is invalid for {mode}")
-    bits = channels * depth
-    stride = (w * bits + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride,
-                     max(1, bits // 8))
-    if depth < 8:
-        px = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
-        px = (px * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(
-            np.uint8)
-        if mode == "L":        # scale to 8 bits as PIL does
-            px = (px.astype(np.int64) * 255 // ((1 << depth) - 1)).astype(
-                np.uint8)
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} is invalid")
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = _adam7(raw, w, h, depth, channels, mode)
     else:
-        px = rows.reshape(h, w, channels)
-        if channels == 1:
-            px = px[..., 0]
+        px = _pass_pixels(raw, w, h, depth, channels, mode)
     alpha = None
     if mode == "P":
         if palette is None:

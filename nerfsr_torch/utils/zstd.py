@@ -1,11 +1,8 @@
 """zstd frames, crc32c and xxhash64 on the host, for orbax checkpoints.
 
 The decoder is C (``nerfsr_torch/csrc_host/zstd_decode.c``, RFC 8878
-with the frame checksum; no dictionaries), built at first use with the
-host's C compiler (``$CC``, else ``cc``, ``gcc`` or ``clang``; ``-O2
--shared -fPIC``) into ``nerfsr_torch/_build/libnerfsr_host-<hash>.so``
-and bound with ``ctypes``. A failed build raises with the compiler's
-output: there is no Python fallback. Nothing is built at import.
+with the frame checksum; no dictionaries), part of the host library
+that ``utils/hostlib.py`` builds at first use and binds with ``ctypes``.
 
 The encoder writes frames of raw (stored) blocks only: what orbax's
 readers need to read an array back, with no compression.
@@ -14,19 +11,10 @@ readers need to read an array back, with no compression.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import struct
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Iterator, Union
 
-PKG = Path(__file__).resolve().parent.parent
-SOURCE = PKG / "csrc_host" / "zstd_decode.c"
-BUILD = PKG / "_build"
-CFLAGS = ("-O2", "-shared", "-fPIC")
+from nerfsr_torch.utils import hostlib
 
 MAGIC = 0xFD2FB528
 BLOCK_MAX = 128 * 1024
@@ -35,43 +23,11 @@ _state = {"lib": None}
 Bytes = Union[bytes, bytearray, memoryview]
 
 
-def _compiler() -> str:
-    for cand in (os.environ.get("CC"), "cc", "gcc", "clang"):
-        path = cand and shutil.which(cand)
-        if path:
-            return path
-    raise RuntimeError("no C compiler found ($CC, cc, gcc, clang): the "
-                       "zstd decoder builds from nerfsr_torch/csrc_host/")
-
-
-def build() -> Path:
-    """Compile the decoder into ``_build/libnerfsr_host-<hash>.so`` unless
-    this source's library is there already; returns its path."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(" ".join(CFLAGS).encode() + src).hexdigest()
-    so = BUILD / f"libnerfsr_host-{digest[:16]}.so"
-    if so.exists():
-        return so
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, part = tempfile.mkstemp(dir=BUILD, suffix=".so")
-    os.close(fd)
-    try:
-        run = subprocess.run([_compiler(), *CFLAGS, str(SOURCE), "-o", part],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-        if run.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n{run.stdout}")
-        os.replace(part, so)
-    finally:
-        if os.path.exists(part):
-            os.unlink(part)
-    return so
-
-
 def lib() -> ctypes.CDLL:
-    """The loaded decoder library (built at first use)."""
+    """The host library with the decoder's functions bound (built at
+    first use)."""
     if _state["lib"] is None:
-        h = ctypes.CDLL(str(build()))
+        h = hostlib.lib()
         size_p = ctypes.POINTER(ctypes.c_size_t)
         h.nerfsr_zstd_decompress.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,

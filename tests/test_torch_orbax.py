@@ -56,7 +56,7 @@ from nerfsr_torch.config import default_options
 from nerfsr_torch.data.views import LLFFDownXTrainViews, LLFFDownXViews
 from nerfsr_torch.models import create_model
 from nerfsr_torch.utils import checkpoint as ckpt
-from nerfsr_torch.utils import ocdbt, orbax, zstd
+from nerfsr_torch.utils import hostlib, ocdbt, orbax, zstd
 from nerfsr_torch.weights import (export_params, export_variables,
                                   flatten_tree)
 
@@ -297,14 +297,14 @@ def test_a_failed_build_raises_with_the_compilers_output(tmp_path,
                                                          monkeypatch):
     src = tmp_path / "broken.c"
     src.write_text("int f( {\n")
-    monkeypatch.setattr(zstd, "SOURCE", src)
-    monkeypatch.setattr(zstd, "BUILD", tmp_path / "_build")
+    monkeypatch.setattr(hostlib, "SOURCE_DIR", tmp_path)
+    monkeypatch.setattr(hostlib, "BUILD", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="broken.c failed"):
-        zstd.build()
+        hostlib.build()
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CC", raising=False)
     with pytest.raises(RuntimeError, match="no C compiler"):
-        zstd.build()
+        hostlib.build()
 
 
 # ---------------------------------------------------------------------
