@@ -53,7 +53,18 @@
    (``f32_phase``): the llff chunk at ``--precision f32`` graphed against
    eager (bit for bit, exact launch counts, ms/step) and the f32 serving
    image graphed against the chunk loop (bit for bit, ms/image), whose
-   launches are the f32 kernels' entries in the kernels line;
+   launches are the f32 kernels' entries in the kernels line; then the
+   bins phase (``bins_phase``): kernel A's wide route (more than 128 bins
+   a ray) alone at N = 4096 and B = 129, 191, 255, 1024, 4097 and 30,000
+   (past a block's shared memory: the workspace route) and at the llff
+   step's two shapes with ``--n_prop 256 --n_prop2 192`` (N = 2048; 255
+   bins to 192 queries, 191 to 16), each against its plain version (two
+   calls' bits equal, the queries the ``denom < eps`` rule moves counted
+   and bounded) with its time, bound and launch floor; that step as a
+   20-step graphed chunk against the eager one (bit for bit, A twice a
+   step: the wide route's launches in the kernels line), one step against
+   the plain path at the step's bars, and its serving image at 504x378
+   graphed against the chunk loop;
 6. engine: renders the teacher (seed 1) at 504x378 on 8 centred spiral
    poses, writes them as a COLMAP scene (``nerfsr_torch/data/
    synthetic.py``) into a temporary directory, and drives
@@ -86,7 +97,9 @@
    to the eager one from the same seed with both routes' ms/step, and
    the test panels equal to
    ``render_eval_many(..., quantize_rgb=True)`` with the test ms/image
-   with and without the writes; bx2 also checks that its first 50 steps
+   with and without the writes; vl also times its training rays built
+   by the host C ray builder against numpy's ``pose_rays`` (the same rays
+   within 1e-4); bx2 also checks that its first 50 steps
    drew only from the crop buffer and that a resume from epoch 1, across
    the warm-up's end, equals the unbroken run bit for bit;
 8. refine: the refine stage on the engine phase's scene and its
@@ -181,8 +194,9 @@
    the fixture scene's eight 1008x756 views at 504x378 and its
    ``LLFFDownXDataset`` buffer (``rgbs``, ``rgbs_ori``) to the JAX
    package's digests, times on the host the decode of the 4032x3024 file
-   (median of 5) and of one view, the numpy Lanczos 4032x3024 ->
-   504x378 and the dataset's construction, and runs the engine phase's
+   (median of 5) and of one view, the Lanczos 4032x3024 -> 504x378 in C
+   (median of 5) and in numpy (one run; the same bytes) and the dataset's
+   construction, and runs the engine phase's
    training (full width, 40 graphed steps, exact launch counts, finite
    state) and ``test`` (8 images, exact launch counts) on the JPEG scene;
 15. prints a JSON line of details (also written to
@@ -196,6 +210,11 @@ It needs a CUDA card: without one it exits 1 and prints no result.
 
 times the kernels of the checkout at DIR against this tree's, in turns
 (``turns``): what a PR's parent and change give on one card.
+
+    python3 chip_smoke.py --bins
+
+builds the kernels and runs only kernel A's and E's checks
+(``bins_kernels``, ~4 min).
 """
 
 from __future__ import annotations
@@ -352,12 +371,14 @@ def launch_split_ms(fn, calls=5):
 
 
 def check_registers(log):
-    """Kernels A, B and D keep every value in registers: no stack frame
-    and no spills in the compiler's report."""
+    """Kernels A (both routes), B and D keep every value in registers or
+    shared memory: no stack frame and no spills in the compiler's
+    report."""
     from nerfsr_torch.timing import ptxas_report
-    report = ptxas_report(log, ("invert_cdf_kernel", "composite_fwd_kernel",
+    report = ptxas_report(log, ("invert_cdf_kernel", "invert_cdf_wide_kernel",
+                                "composite_fwd_kernel",
                                 "composite_bwd_kernel"))
-    if len(report) != 9:        # A, and B's and D's four template cases
+    if len(report) != 10:       # A's two, and B's and D's four cases each
         fail(f"ptxas report of kernels A, B and D incomplete: {report}")
     for name, fig in report.items():
         print(f"[registers] {name}: {fig}")
@@ -1123,16 +1144,16 @@ def _grad_leaves(params):
     return [(name, p.grad) for name, p in params.named_parameters()]
 
 
-def step_vs_plain(dev, buffer, mlp_network="vanilla_mlp"):
+def step_vs_plain(dev, buffer, mlp_network="vanilla_mlp", **extra):
     """One step's loss and gradients through the kernels and through the
     plain path on the card: same params, batch and draws, no
-    randomization."""
+    randomization. ``extra``: more options of the step."""
     from nerfsr_torch.models import create_model
 
     out = {}
     for precision in ("mixed", "f32"):
         opt = train_options(precision, randomized=False, noise_std=0.0,
-                            mlp_network=mlp_network)
+                            mlp_network=mlp_network, **extra)
         system = create_model(opt, device=dev)
         kernel_cfg = system.render_cfg
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -1156,7 +1177,8 @@ def step_vs_plain(dev, buffer, mlp_network="vanilla_mlp"):
                                / b.double().norm().clamp_min(1e-30))
         worst = max(rels, key=rels.get)
         median = float(np.median(list(rels.values())))
-        print(f"[train] one step {precision} ({mlp_network}), kernels vs "
+        print(f"[train] one step {precision} ({mlp_network}{extra or ''}), "
+              f"kernels vs "
               f"plain path: loss "
               f"{lk:.6f} vs {lp:.6f} (rel {loss_rel:.2e}, bar {loss_bar}); "
               f"gradients max leaf norm-relative err {rels[worst]:.3e} "
@@ -1327,10 +1349,11 @@ def chunk_vs_eager(dev, make_system, buffers, steps=GRAPH_STEPS,
     return out
 
 
-def eval_vs_eager(dev, card, precision="mixed"):
-    """NeRF-SR x2 serving in ``precision``: each view one graph replay
-    against the chunk loop (the same system's eager route) on the same
-    weights, bit for bit, and both routes' ms/image."""
+def eval_vs_eager(dev, card, precision="mixed", **extra):
+    """NeRF-SR x2 serving in ``precision`` (and ``extra`` options): each
+    view one graph replay against the chunk loop (the same system's eager
+    route) on the same weights, bit for bit, and both routes'
+    ms/image."""
     from nerfsr_torch.config import default_options
     from nerfsr_torch.data.views import LLFFDownXViews
     from nerfsr_torch.kernels import COUNTS, reset_counts
@@ -1339,7 +1362,7 @@ def eval_vs_eager(dev, card, precision="mixed"):
     opt = default_options("test", model="nerf_downX",
                           dataset_mode="llff_downX", fast_preset="llff",
                           img_wh=HR_WH, downscale=DOWNSCALE,
-                          precision=precision)
+                          precision=precision, **extra)
     views = LLFFDownXViews.spiral(FOCAL, HR_WH, DOWNSCALE, N_VIEWS + 1)
     chunks = -(-(HR_WH[0] * HR_WH[1]) // 4096)
     out, renders = {}, {}
@@ -1378,7 +1401,7 @@ def eval_vs_eager(dev, card, precision="mixed"):
             if not np.array_equal(a[k], b[k]):
                 fail(f"eval {k}: the graph replay differs from the chunk "
                      "loop")
-    print(f"[graphs] eval {precision}: {N_VIEWS} views "
+    print(f"[graphs] eval {precision}{extra or ''}: {N_VIEWS} views "
           f"{HR_WH[0]}x{HR_WH[1]}, one "
           f"replay of {chunks} chunks each, equal to the chunk loop bit for "
           f"bit; {out['graphed_ms_per_image']:.1f} ms/image graphed, "
@@ -1426,6 +1449,121 @@ def f32_phase(dev, card, buffer):
           f"{res['eager_ms_per_step']:.2f} eager; launches "
           f"{res['graphed_launches']}; on {card}")
     return {"llff": res, "eval": eval_vs_eager(dev, card, "f32")}
+
+
+# bins phase: kernel A's wide route (more than 128 bins a ray). The llff
+# x2 step at --n_prop 256 --n_prop2 192 resamples 255 bins to 192 queries
+# and then 191 bins to 16; 1024 and 4097 bins (7 rays a block), and 30,000
+# (one ray's CDF and bins, 240,000 bytes, past a block's shared memory:
+# the workspace route)
+WIDE_PROP = dict(n_prop=256, n_prop2=192)
+WIDE_SHAPES = ((129, 24), (191, 16), (255, 192), (1024, 24), (4097, 24),
+               (30000, 24))
+WIDE_STEP_SHAPES = ((255, 192), (191, 16))   # a step's two calls
+
+
+def _wide_case(n, b, q, gen, dev):
+    """Kernel A at (n, b, q) against its plain version: two calls' bits
+    equal, the queries past TOL_INVERT_CDF counted (each within its bin's
+    width), its device ms beside the plain version's, the bound and the
+    launch floor of its grid."""
+    from nerfsr_torch.core.sampling import _invert_cdf
+    from nerfsr_torch.kernels.sampling import _workspace_floats, invert_cdf
+    from nerfsr_torch.timing import (floor_ms, invert_cdf_bytes,
+                                     invert_cdf_inputs, time_ms)
+    bins, w, u = invert_cdf_inputs(n, b, q, gen, dev)
+    got = invert_cdf(bins, w, u)
+    again = invert_cdf(bins, w, u)
+    ref = _invert_cdf(bins, w, u)
+    torch.cuda.synchronize()
+    what = f"invert_cdf wide N={n} B={b} Q={q}"
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite output")
+    if not torch.equal(got, again):
+        fail(f"{what}: two calls differ")
+    diff = (got - ref).abs()
+    moved = diff > TOL_INVERT_CDF
+    n_moved = int(moved.sum())
+    if n_moved:
+        # each moved query in a bin, or beside one (the two CDFs may put a
+        # query near an edge on either side), whose CDF step (the plain
+        # version's) is under 2 eps, within the CDFs' rounding of the
+        # rule's threshold, and by at most those bins' width
+        rows, cols = moved.nonzero(as_tuple=True)
+        pdf = (w[rows] + 1e-5) / (w[rows] + 1e-5).sum(-1, keepdim=True)
+        cdf = torch.cat([torch.zeros_like(pdf[:, :1]), pdf.cumsum(-1)], -1)
+        k = torch.searchsorted(cdf, u[rows, cols, None], right=True)
+        near = (k - 1 + torch.arange(-1, 2, device=dev)).clamp(0, b - 2)
+        step = cdf.gather(1, near + 1) - cdf.gather(1, near)
+        width = bins[rows][:, 1:].gather(1, near) - bins[rows].gather(1, near)
+        if not bool((step.min(-1).values < 2e-5).all()) or not bool(
+                (diff[moved] <= width.max(-1).values
+                 + TOL_INVERT_CDF).all()):
+            fail(f"{what}: a query moved past {TOL_INVERT_CDF} other than "
+                 f"by the eps rule in or beside its bin")
+    out = {"n": n, "b": b, "q": q, "moved": n_moved, "queries": diff.numel(),
+           "max_abs_err": float(diff.max()),
+           "max_abs_err_unmoved": float(diff[~moved].max()),
+           "ms": time_ms(lambda: invert_cdf(bins, w, u)),
+           "plain_ms": time_ms(lambda: _invert_cdf(bins, w, u)),
+           "bound_ms": invert_cdf_bytes(n, b, q) / HBM_BYTES_PER_S * 1e3,
+           # an empty kernel on a grid of 8 rays a block (4097 bins: 7)
+           "floor_ms": floor_ms(-(-n // 8), 256),
+           "route": "workspace" if _workspace_floats(b) else "shared"}
+    print(f"[bins] {what} ({out['route']}): {n_moved} of {diff.numel()} "
+          f"queries moved past {TOL_INVERT_CDF}, the rest within "
+          f"{out['max_abs_err_unmoved']:.3e}; {out['ms']:.4f} ms a call, "
+          f"plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"(bytes), launch floor of its grid {out['floor_ms']:.4f} ms")
+    del bins, w, u, got, again, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def bins_phase(dev, card, buffer):
+    """Kernel A past 128 bins on the main path. The wide route alone at N
+    = 4096 and every B of WIDE_SHAPES, and at the step's two shapes (N =
+    2048), against the plain version; then NeRF-SR x2 at
+    ``scripts/train_llff_downX_fast.sh``'s flags plus ``--n_prop 256
+    --n_prop2 192``: a 20-step graphed chunk against the eager one (bit
+    for bit, exact launch counts: A twice a step, both calls on the wide
+    route), one step through the kernels against the plain path at the
+    step's bars, and the serving image at 504x378 graphed against the
+    chunk loop. The graphed chunk's A count (set to 0 before it, read
+    after it) is the wide route's launches on the main path."""
+    from nerfsr_torch.models import create_model
+    gen = torch.Generator().manual_seed(16)
+    alone = [_wide_case(4096, b, q, gen, dev) for b, q in WIDE_SHAPES]
+    step = [_wide_case(BATCH * DOWNSCALE ** 2, b, q, gen, dev)
+            for b, q in WIDE_STEP_SHAPES]
+    wide = {k: sum(sh[k] for sh in step) / len(step)
+            for k in ("ms", "plain_ms", "bound_ms", "floor_ms")}
+    # the kernels line's figures are the step's shapes'; every shape's,
+    # with the queries the eps rule moved, are in the detail line
+    wide.update(max_abs_err=max(sh["max_abs_err"] for sh in step),
+                moved=sum(sh["moved"] for sh in alone + step),
+                bound_by="bytes")
+    chunk = chunk_vs_eager(
+        dev, lambda: create_model(train_options("mixed", **WIDE_PROP),
+                                  device=dev), buffer, counts=FAST[0])
+    print(f"[bins] llff x2 mixed --n_prop 256 --n_prop2 192: a "
+          f"{GRAPH_STEPS}-step graphed chunk equals the eager chunk in "
+          f"{chunk['tensors_equal']} tensors bit for bit; "
+          f"{chunk['graphed_ms_per_step']:.2f} ms/step graphed, "
+          f"{chunk['eager_ms_per_step']:.2f} eager; capture "
+          f"{chunk['capture_s']:.2f} s, graph pool "
+          f"{chunk['graph_pool_mib']:.0f} MiB; launches "
+          f"{chunk['graphed_launches']}; on {card}")
+    step_err = step_vs_plain(dev, buffer, **WIDE_PROP)
+    image = eval_vs_eager(dev, card, **WIDE_PROP)
+    print(f"[bins] kernel A wide at the step's shapes (N = "
+          f"{BATCH * DOWNSCALE ** 2}), mean of the two calls: "
+          f"{wide['ms']:.4f} ms, plain {wide['plain_ms']:.4f} ms, bound "
+          f"{wide['bound_ms']:.5f} ms, floor {wide['floor_ms']:.4f} ms; "
+          f"main-path launches {chunk['graphed_launches']['invert_cdf']} "
+          f"on {card}")
+    return {"alone": alone, "step_shapes": step, "wide": wide,
+            "chunk": chunk, "step_vs_plain": step_err, "eval": image}
 
 
 # engine phase (scripts/train_llff_downX_fast.sh at full width; cut to a
@@ -1865,6 +2003,36 @@ def _check_scene(scene, poses, dev):
     return len(ds)
 
 
+def _ray_build_times(opt):
+    """The training rays of ``opt``'s forward-facing LLFF scene built by
+    the host C (``utils/raygen.py``, which ``ray_buffer`` takes) and by
+    numpy's ``pose_rays`` a view: host seconds, median of JPEG_REPEATS
+    each, and the two held to tests/test_native.py's NDC bars."""
+    from nerfsr_torch.data import create_dataset
+    from nerfsr_torch.data.llff import pose_rays
+    from nerfsr_torch.utils import raygen
+    ds = create_dataset(opt, "train")
+    keep = [i for i in range(len(ds.poses))
+            if opt.include_var or i != ds.val_idx]
+    w, h = ds.img_wh
+
+    def c_rays():
+        return raygen.build_rays(ds.poses[keep], h, w, ds.focal,
+                                 opt.use_pixel_centers, apply_ndc=True)
+
+    def np_rays():
+        return [pose_rays(ds.directions, ds.poses[i], ds.img_wh, ds.focal,
+                          ds._near_far()) for i in keep]
+    c_s, np_s = _median_s(c_rays), _median_s(np_rays)
+    origins, dirs = c_rays()
+    for j, ref in enumerate(np_rays()):
+        for got, k in ((origins[j], "origins"), (dirs[j], "directions")):
+            if not np.allclose(got, ref[k], rtol=1e-4, atol=1e-5):
+                fail(f"the C rays' {k} of view {keep[j]} differ from "
+                     "numpy's")
+    return {"views": len(keep), "wh": [w, h], "c_s": c_s, "numpy_s": np_s}
+
+
 def datasets_phase(dev, card, work, llff_scene):
     """The four runs of DS_RUNS through the engine (train, test), each
     with exact launch counts, test panels equal to ``render_eval_many``'s,
@@ -1946,6 +2114,14 @@ def datasets_phase(dev, card, work, llff_scene):
                "fine_mse_fixed_batch": [mse0, mse1],
                "coarse_mse_fixed_batch": [cmse0, cmse1],
                "val": _val_metrics(work, name, steps)}
+
+        if name == "vl":
+            res["ray_build"] = rb = _ray_build_times(opt)
+            print(f"[datasets] vl: the training rays of {rb['views']} views "
+                  f"{rb['wh'][0]}x{rb['wh'][1]} (NDC) built on the host in "
+                  f"{rb['c_s'] * 1e3:.2f} ms by the C, "
+                  f"{rb['numpy_s'] * 1e3:.2f} ms by numpy (median of "
+                  f"{JPEG_REPEATS}), within 1e-4 of each other; on {card}")
 
         if name == "bx2":       # resume from epoch 1 across the warm-up
             resumed = parse_options(
@@ -3510,7 +3686,8 @@ def jpeg_phase(dev, card, work, png_engine=None):
     from nerfsr_torch import engine
     from nerfsr_torch.config import default_options, parse_options
     from nerfsr_torch.data import create_dataset
-    from nerfsr_torch.data.downx_common import lanczos_resize, load_image
+    from nerfsr_torch.data.downx_common import (_lanczos_resize_np,
+                                                lanczos_resize, load_image)
     from nerfsr_torch.kernels import COUNTS, reset_counts
     from nerfsr_torch.utils import hostlib, image, jpeg
 
@@ -3562,13 +3739,19 @@ def jpeg_phase(dev, card, work, png_engine=None):
     big_s = _median_s(lambda: jpeg.decode(big))
     view_s = _median_s(lambda: jpeg.decode(view))
     big_px = jpeg.decode(big)[0]
-    resize_s = _median_s(lambda: lanczos_resize(big_px, wh), repeats=1)
+    resize_s = _median_s(lambda: lanczos_resize(big_px, wh))
+    small = {}
+    resize_np_s = _median_s(lambda: small.update(
+        np=_lanczos_resize_np(big_px, wh)), repeats=1)
+    if not np.array_equal(lanczos_resize(big_px, wh), small["np"]):
+        fail("the C Lanczos of the 4032x3024 file differs from the numpy")
     print(f"[jpeg] host times (the card's machine): decode 4032x3024 "
           f"4:2:0 ({len(big)} bytes) {big_s * 1e3:.1f} ms, median of "
-          f"{JPEG_REPEATS}; a 1008x756 view {view_s * 1e3:.2f} ms; numpy "
-          f"Lanczos 4032x3024 -> {wh[0]}x{wh[1]} {resize_s:.2f} s; the "
-          f"{len(want['load_image'])}-view LLFFDownXDataset built in "
-          f"{dataset_s:.2f} s; on {card}")
+          f"{JPEG_REPEATS}; a 1008x756 view {view_s * 1e3:.2f} ms; "
+          f"Lanczos 4032x3024 -> {wh[0]}x{wh[1]}: C {resize_s:.3f} s "
+          f"(median of {JPEG_REPEATS}), numpy {resize_np_s:.3f} s (one "
+          f"run), the same bytes; the {len(want['load_image'])}-view "
+          f"LLFFDownXDataset built in {dataset_s:.2f} s; on {card}")
 
     # the engine on the JPEG scene: one epoch, then test
     jwork = os.path.join(work, "jpeg")
@@ -3619,11 +3802,42 @@ def jpeg_phase(dev, card, work, png_engine=None):
             "decode_4032x3024_ms": big_s * 1e3,
             "decode_1008x756_ms": view_s * 1e3,
             "lanczos_4032x3024_to_504x378_s": resize_s,
+            "lanczos_np_4032x3024_to_504x378_s": resize_np_s,
             "dataset_build_s": dataset_s, "ms_per_step": ms_step,
             "val_metrics": metrics, "test_ms_per_image": ms_image,
             "test_host_ms_per_image": ms_write,
             "launches_per_step": step_counts,
             "launches_per_image": image_counts, "card": card}
+
+
+def bins_kernels():
+    """``python3 chip_smoke.py --bins``: the build and its report's checks
+    (no `#1886-D`, no local memory in A, B and D), kernel A against its
+    plain version at the serving shapes and at every shape of the bins
+    phase (both routes, the workspace route too), and kernel E (whose
+    bf16 E2 lays TMA tiles out from its shared-memory base), each with
+    its time: ~4 min, the quickest check of a change to kernel A."""
+    from nerfsr_torch.kernels import _lib
+    card = card_line()
+    print(f"[card] {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"[build] kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    log = _lib.build_log()
+    if "1886-D" in log:
+        fail("the build warns #1886-D")
+    check_registers(log)
+    gen = torch.Generator().manual_seed(0)
+    check_invert_cdf(dev, gen)
+    for n, shapes in ((4096, WIDE_SHAPES),
+                      (BATCH * DOWNSCALE ** 2, WIDE_STEP_SHAPES)):
+        for b, q in shapes:
+            _wide_case(n, b, q, gen, dev)
+    check_fused_mlp_bwd(dev, gen)
+    print(card)
 
 
 def turn_worker(tree, out_json):
@@ -3703,6 +3917,9 @@ def main():
     log = _lib.build_log()
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(log)
+    if "1886-D" in log:
+        fail("the build warns #1886-D: one shared-memory symbol declared "
+             "with two alignments")
     regs = check_registers(log)
     floor = launch_floor()
 
@@ -3720,6 +3937,10 @@ def main():
     counts, train, buffer = train_phase(dev, card)
     graphs_out = graphs_phase(dev, card, buffer)
     f32_out = f32_phase(dev, card, buffer)
+    t0 = time.perf_counter()
+    bins_out = bins_phase(dev, card, buffer)
+    bins_out["phase_s"] = time.perf_counter() - t0
+    print(f"[bins] phase {bins_out['phase_s']:.1f} s")
     del buffer
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="nerfsr_smoke_") as work:
@@ -3753,6 +3974,13 @@ def main():
              source="nerfsr_torch/csrc/invert_cdf.cu",
              replaces=ops + "pallas_sampling.py:102",
              launches=counts["invert_cdf"], **{k: a[k] for k in keys}),
+        # the wide route (> 128 bins): launches from the bins phase's
+        # graphed chunk, times at the step's two shapes there
+        dict(name="invert_cdf_wide", route="cuda",
+             source="nerfsr_torch/csrc/invert_cdf.cu",
+             replaces=ops + "pallas_sampling.py:102",
+             launches=bins_out["chunk"]["graphed_launches"]["invert_cdf"],
+             **{k: bins_out["wide"][k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="nerfsr_torch/csrc/composite.cu",
              replaces=ops + "pallas_composite.py:155",
@@ -3801,6 +4029,7 @@ def main():
                                  "train": train,
                                  "graphs": graphs_out,
                                  "f32": f32_out,
+                                 "bins": bins_out,
                                  "engine": engine_out,
                                  "new_shapes": new_shapes,
                                  "datasets": datasets_out,
@@ -3825,6 +4054,11 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--turns"]:
         turns(sys.argv[2])
+    elif sys.argv[1:2] == ["--bins"]:
+        if not torch.cuda.is_available():
+            fail("--bins needs a CUDA card")
+        sys.path.insert(0, ROOT)
+        bins_kernels()
     elif sys.argv[1:2] == ["--turn-worker"]:
         turn_worker(sys.argv[2], sys.argv[3])
     else:

@@ -494,7 +494,14 @@ mlp_bwd_wgrad_tc_kernel(const __grid_constant__ CUtensorMap acts_map,
                         const __grid_constant__ CUtensorMap grads_map,
                         const __grid_constant__ CUtensorMap gsig_map,
                         float* __restrict__ partial, int n_points) {
-  extern __shared__ __align__(1024) char smem[];
+  // a name of its own: E1's `smem` is declared 128-aligned in this file,
+  // and two alignments on one symbol leave the base's to chance. The
+  // 128-byte-swizzled TMA boxes need each stage 1024-aligned (kE2Stage
+  // rounds the stages to 1024 from the base), so a misplaced base traps
+  // rather than scrambling the tiles.
+  extern __shared__ __align__(1024) char e2_smem[];
+  char* smem = e2_smem;
+  if (smem_u32(smem) & 1023u) __trap();
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kE2Stages * kE2Stage);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kE2Stages; ++s) mbar_init(&full[s], 1);

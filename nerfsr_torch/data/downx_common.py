@@ -6,14 +6,16 @@ Port of ``nerfsr_tpu/data/downx_common.py``: ``group_subpixels`` /
 (s1 s2) c'``), ``blend_white``, and ``downscale`` by ``--ds_method``
 (``avg``: block means; ``lanc``: Lanczos).
 
-``lanczos_resize`` is a numpy port of PIL's ``Image.resize(size,
-Image.LANCZOS)`` for uint8 images (``libImaging/Resample.c``): a
-separable filter of support 3 x scale, coefficients normalized in double
-and rounded to 22-bit fixed point, the horizontal pass first and then
-the vertical, each output clipped to uint8 (so the vertical pass reads
-the clipped horizontal result). Images with alpha (LA, RGBA) go through
-PIL's premultiplied modes (``libImaging/Convert.c``) around the filter.
-It gives PIL's bytes.
+``lanczos_resize`` is PIL's ``Image.resize(size, Image.LANCZOS)`` for
+uint8 images (``libImaging/Resample.c``) in host C
+(``nerfsr_torch/csrc_host/resample.c``, built by ``utils/hostlib.py`` at
+first use): a separable filter of support 3 x scale, coefficients
+normalized in double and rounded to 22-bit fixed point, the horizontal
+pass first and then the vertical, each output clipped to uint8 (so the
+vertical pass reads the clipped horizontal result). Images with alpha
+(LA, RGBA) go through PIL's premultiplied modes (``libImaging/Convert.c``)
+around the filter. It gives PIL's bytes. ``_lanczos_resize_np`` is the
+same filter in numpy, kept as the tests' oracle.
 
 ``load_image`` reads an image file (PNG or JPEG) the way the datasets'
 ``load_image`` does: Lanczos to the working size, gray repeated, alpha
@@ -22,11 +24,12 @@ blended over white after the resize (or kept).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 
-from nerfsr_torch.utils import image
+from nerfsr_torch.utils import hostlib, image
 
 PRECISION_BITS = 32 - 8 - 2       # PIL's fixed-point precision
 _LANCZOS_SUPPORT = 3.0
@@ -137,12 +140,38 @@ def unpremultiply(img: np.ndarray) -> np.ndarray:
     return np.concatenate([c, a], -1).astype(np.uint8)
 
 
-def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
-    """PIL's ``Image.resize(size, Image.LANCZOS)`` of a uint8 (H, W) or
-    (H, W, C) image; ``size`` is (w, h) as PIL takes it. Every channel is
-    filtered alike, as PIL does for L and RGB; an LA or RGBA image (2 or
-    4 channels, alpha last) is premultiplied first and unpremultiplied
-    after, as PIL resizes it (through La / RGBa)."""
+def _resize_np(x: np.ndarray, w: int, h: int) -> np.ndarray:
+    if x.shape[1] != w:              # horizontal pass first, as PIL
+        x = _resample_axis(x, w, axis=1)
+    if x.shape[0] != h:
+        x = _resample_axis(x, h, axis=0)
+    return x
+
+
+def _host_lib() -> ctypes.CDLL:
+    h = hostlib.lib()
+    if h.nerfsr_lanczos_resize.argtypes is None:
+        h.nerfsr_lanczos_resize.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        h.nerfsr_lanczos_resize.restype = ctypes.c_int
+    return h
+
+
+def _resize_c(x: np.ndarray, w: int, h: int) -> np.ndarray:
+    x = np.ascontiguousarray(x)
+    out = np.empty((h, w, x.shape[2]), np.uint8)
+    rc = _host_lib().nerfsr_lanczos_resize(
+        x.ctypes.data, x.shape[1], x.shape[0], x.shape[2], out.ctypes.data,
+        w, h)
+    if rc == -1:
+        raise MemoryError("lanczos_resize: out of memory")
+    if rc:
+        raise ValueError(f"lanczos_resize: {x.shape} -> ({h}, {w}) refused")
+    return out
+
+
+def _premultiplied_resize(img, size, resize) -> np.ndarray:
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"lanczos_resize takes uint8 pixels, got "
@@ -155,13 +184,24 @@ def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
     alpha = x.shape[-1] in (2, 4)
     if alpha:
         x = premultiply(x)
-    if x.shape[1] != w:              # horizontal pass first, as PIL
-        x = _resample_axis(x, w, axis=1)
-    if x.shape[0] != h:
-        x = _resample_axis(x, h, axis=0)
+    x = resize(x, w, h)
     if alpha:
         x = unpremultiply(x)
     return x[..., 0] if gray else x
+
+
+def lanczos_resize(img: np.ndarray, size) -> np.ndarray:
+    """PIL's ``Image.resize(size, Image.LANCZOS)`` of a uint8 (H, W) or
+    (H, W, C) image (C 1-4), in host C; ``size`` is (w, h) as PIL takes
+    it. Every channel is filtered alike, as PIL does for L and RGB; an LA
+    or RGBA image (2 or 4 channels, alpha last) is premultiplied first
+    and unpremultiplied after, as PIL resizes it (through La / RGBa)."""
+    return _premultiplied_resize(img, size, _resize_c)
+
+
+def _lanczos_resize_np(img: np.ndarray, size) -> np.ndarray:
+    """``lanczos_resize`` in numpy: the tests' oracle for the C."""
+    return _premultiplied_resize(img, size, _resize_np)
 
 
 def read_pixels(path) -> np.ndarray:

@@ -21,9 +21,11 @@ forward-facing scenes (near/far 0/1) or in world bounds with
 ``test_viewdir`` (test pose 10 seen with each path pose's view
 directions); ``--include_var``; the auxiliary paths' ``ref_buffer``
 (the ``--ref_idx`` view's HR rays and colours, ``--with_ref``) and
-``image_buffer`` (the training rays image by image, patch mode). The JAX package builds the training rays
-with its host C++ raygen where that is built; the port builds them in
-numpy (the same rays within 1e-6).
+``image_buffer`` (the training rays image by image, patch mode). As the
+JAX package builds a forward-facing scene's training rays with its host
+C++ raygen, ``ray_buffer`` builds them with the port's host C
+(``utils/raygen.py``); spheric scenes take the numpy ``pose_rays``, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 from nerfsr_torch.data import register_dataset
 from nerfsr_torch.data.colmap import read_model
 from nerfsr_torch.data.downx_common import group_subpixels, load_image
+from nerfsr_torch.utils import raygen
 
 
 def _normalize(v):
@@ -323,21 +326,33 @@ class LLFFDataset:
         """All training rays (the val view left out unless
         ``--include_var``), flat: origins, directions, near, far (N, .),
         rgbs (N, 3). The JAX package's ``viewdirs`` field equals
-        ``directions`` and is left out."""
+        ``directions`` and is left out. A forward-facing scene's rays come
+        from the host C builder (``utils/raygen.py``), as JAX's come from
+        its C++; a spheric scene's from ``pose_rays``."""
         if self.mode != "train":
             raise ValueError(f"ray_buffer is the train split's, not "
                              f"{self.mode}'s")
-        keys = ("origins", "directions", "near", "far", "rgbs")
-        parts = {k: [] for k in keys}
-        for i, path in enumerate(self.image_paths):
-            if i == self.val_idx and not self.opt.include_var:
-                continue
-            rays = self._pose_rays(self.poses[i])
-            rays["rgbs"] = load_image(path, self.img_wh).reshape(
-                -1, 3).astype(np.float32)
-            for k in keys:
-                parts[k].append(rays[k])
-        return {k: np.concatenate(v) for k, v in parts.items()}
+        keep = [i for i in range(len(self.image_paths))
+                if self.opt.include_var or i != self.val_idx]
+        if self.spheric:
+            rays = [self._pose_rays(self.poses[i]) for i in keep]
+            out = {k: np.concatenate([r[k] for r in rays])
+                   for k in ("origins", "directions", "near", "far")}
+        else:
+            w, h = self.img_wh
+            origins, dirs = raygen.build_rays(
+                self.poses[keep], h, w, self.focal,
+                self.opt.use_pixel_centers, apply_ndc=True)
+            n = origins.shape[0] * h * w
+            near, far = self._near_far()
+            out = {"origins": origins.reshape(n, 3),
+                   "directions": dirs.reshape(n, 3),
+                   "near": np.full((n, 1), near, np.float32),
+                   "far": np.full((n, 1), far, np.float32)}
+        out["rgbs"] = np.concatenate([
+            load_image(self.image_paths[i], self.img_wh).reshape(-1, 3)
+            for i in keep]).astype(np.float32)
+        return out
 
     def ref_buffer(self, downscale=None):
         """Flat HR rays and colours of the reference view (``--ref_idx``)

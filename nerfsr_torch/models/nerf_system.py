@@ -63,7 +63,6 @@ from nerfsr_torch.core.encoding import posenc_channels
 from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
 from nerfsr_torch.graphs import GraphCache, run_steps
-from nerfsr_torch.kernels import sampling as ksampling
 from nerfsr_torch.models import register_model
 from nerfsr_torch.models.criterions import interlevel_loss
 from nerfsr_torch.models.criterions import psnr as psnr_fn
@@ -143,7 +142,6 @@ class NeRFSystem:
             prop_pad_anneal=opt.prop_pad_anneal,
             prop_pad_final=opt.prop_pad_final,
         )
-        self._check_bins(cfg)
         self._configured_prop_pad_anneal = cfg.prop_pad_anneal
         self._steps_per_epoch = max(1, opt.steps_per_epoch or 1)
         self.render_cfg = self._resolve_pad_anneal(cfg,
@@ -169,25 +167,6 @@ class NeRFSystem:
                 and opt.dim_rgb == 3 and opt.color_activation == "sigmoid"
                 and not opt.no_xyz and not opt.no_logscale
                 and opt.mlp_network == "vanilla_mlp")
-
-    def _check_bins(self, cfg: RenderConfig):
-        """Kernel A takes at most ``MAX_BINS`` bins a ray: refuse a
-        configuration that would give it more, here rather than at its
-        first launch. Fast sampling resamples from the midpoints of
-        ``--n_prop`` (and, with two rounds, ``--n_prop2``) samples; the
-        parity path's resample does not run kernel A. The CPU's plain
-        version takes any count."""
-        if self.device.type != "cuda" or not cfg.fast_sampling:
-            return
-        flags = [("--n_prop", cfg.n_prop)]
-        if cfg.n_prop_levels > 1:
-            flags.append(("--n_prop2", cfg.n_prop2))
-        for flag, n in flags:
-            if n - 1 > ksampling.MAX_BINS:
-                raise ValueError(
-                    f"{flag} {n} gives the inverse-CDF kernel {n - 1} bins "
-                    f"a ray; it takes at most {ksampling.MAX_BINS} (so "
-                    f"{flag} <= {ksampling.MAX_BINS + 1})")
 
     def _resolve_pad_anneal(self, cfg: RenderConfig, steps_per_epoch: int):
         """``--prop_pad_anneal_frac`` -> ``prop_pad_anneal`` steps of the

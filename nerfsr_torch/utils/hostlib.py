@@ -2,9 +2,13 @@
 shared object, bound with ``ctypes``.
 
 The sources (the zstd decoder, crc32c and xxhash64 of ``utils/zstd.py``;
-the JPEG decoder of ``utils/jpeg.py``) are compiled together at first use
-with the host's C compiler (``$CC``, else ``cc``, ``gcc`` or ``clang``;
-``-O2 -shared -fPIC``) into
+the JPEG decoder of ``utils/jpeg.py``; the LLFF ray builder of
+``utils/raygen.py``; PIL's Lanczos resize of ``data/downx_common.py``)
+are compiled together at first use with the host's C compiler (``$CC``,
+else ``cc``, ``gcc`` or ``clang``; ``-O2 -shared -fPIC -pthread``, and
+``-ffp-contract=off`` so that no multiply and add is fused: the resize's
+fixed-point coefficients are doubles rounded, and a fused one could move
+by a unit) into
 ``nerfsr_torch/_build/libnerfsr_host-<hash>.so``, the hash taken over the
 flags and every source. The library is written to a temporary name and
 renamed into place, so processes that build it at once do not see each
@@ -26,7 +30,7 @@ from typing import List
 PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PKG / "csrc_host"
 BUILD = PKG / "_build"
-CFLAGS = ("-O2", "-shared", "-fPIC")
+CFLAGS = ("-O2", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 
 _state = {"lib": None}
 

@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu import engine as j_engine
 from nerfsr_tpu.config import default_options as j_default_options

@@ -19,6 +19,7 @@ import msgpack as ref_msgpack
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu.config import default_options as j_default_options
 from nerfsr_tpu.models import create_model as j_create_model

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu.core import encoding as jenc
 from nerfsr_tpu.core import rays as jrays

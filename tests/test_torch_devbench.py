@@ -9,6 +9,7 @@ import sys
 
 import jax
 import pytest
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu.config import default_options as j_default_options
 from nerfsr_tpu.models import create_model as j_create_model

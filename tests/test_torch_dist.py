@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_torch import train as train_entry
 from nerfsr_torch.config import parse_options

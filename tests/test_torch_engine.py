@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 from PIL import Image
 
 from nerfsr_tpu import engine as j_engine
@@ -266,6 +267,8 @@ def test_stop_grad_matches_jax():
 
 
 def test_kernel_a_bin_cap_does_not_bind_on_the_cpu():
+    """199 and 149 bins a ray (kernel A's wide route on the card) render
+    on the CPU through the plain version."""
     opt = default_options("train", model="nerf_downX",
                           dataset_mode="llff_downX", fast_preset="llff",
                           n_prop=200, n_prop2=150, D=2, W=16,

@@ -59,8 +59,8 @@ def _invert_cdf_rows(n, b, q, seed, dev):
 @pytest.mark.parametrize("b", [2, 25, 47, 128])
 def test_invert_cdf_kernel(dev, b, q):
     """Kernel A against its plain version at ragged N, bin counts from 2
-    to MAX_BINS, queries fewer and more than a warp's lanes; two calls
-    give the same bits."""
+    to 128 (the register route), queries fewer and more than a warp's
+    lanes; two calls give the same bits."""
     bins, w, u = _invert_cdf_rows(RAGGED_N, b, q, 100 * b + q, dev)
     reset_counts()
     got = ksampling.invert_cdf(bins, w, u)
@@ -95,9 +95,65 @@ def test_invert_cdf_guards(dev):
         ksampling.invert_cdf(bins, w.double(), u)
     with pytest.raises(ValueError, match="CUDA"):
         ksampling.invert_cdf(bins, w, u.cpu())
-    big, wbig, ubig = _invert_cdf_rows(8, ksampling.MAX_BINS + 1, 4, 0, dev)
+    one, wone, uone = _invert_cdf_rows(8, 1, 4, 0, dev)
     with pytest.raises(ValueError, match="bins"):
-        ksampling.invert_cdf(big, wbig, ubig)
+        ksampling.invert_cdf(one, wone, uone)
+    # past the register route's 128 bins nothing is refused
+    big, wbig, ubig = _invert_cdf_rows(8, 129, 4, 0, dev)
+    torch.testing.assert_close(ksampling.invert_cdf(big, wbig, ubig),
+                               _invert_cdf(big, wbig, ubig), rtol=0,
+                               atol=Z_ATOL)
+
+
+# the wide route: the llff x2 step at --n_prop 256 --n_prop2 192 (255 and
+# 191 bins), 1024, 4097 (7 rays a block) and past a block's shared memory
+# (30,000 bins: one ray's 240,000 bytes, the workspace route)
+WIDE_BINS = [129, 191, 255, 1024, 4097, 30000]
+
+
+def _moved_queries(got, bins, w, u):
+    """The queries of kernel A's output ``got`` past Z_ATOL from the plain
+    version, checked to be what the `denom < eps -> 1` rule moves: each
+    in a bin, or beside one, whose CDF step (the plain version's) is
+    under 2 eps, within the two CDFs' rounding of the rule's threshold
+    (the two CDFs may put a query near a bin's edge on either side), and
+    each by at most those bins' width. Returns their count."""
+    ref = _invert_cdf(bins, w, u)
+    diff = (got - ref).abs()
+    moved = diff > Z_ATOL
+    if moved.any():
+        rows, cols = moved.nonzero(as_tuple=True)
+        pdf = (w[rows] + 1e-5) / (w[rows] + 1e-5).sum(-1, keepdim=True)
+        cdf = torch.cat([torch.zeros_like(pdf[:, :1]), pdf.cumsum(-1)], -1)
+        k = torch.searchsorted(cdf, u[rows, cols, None], right=True)
+        near = (k - 1 + torch.arange(-1, 2, device=k.device)).clamp(
+            0, bins.shape[1] - 2)                    # the bin and its two
+        step = cdf.gather(1, near + 1) - cdf.gather(1, near)
+        width = bins[rows][:, 1:].gather(1, near) - bins[rows].gather(1, near)
+        assert (step.min(-1).values < 2e-5).all()
+        assert (diff[moved] <= width.max(-1).values + Z_ATOL).all()
+    return int(moved.sum())
+
+
+@pytest.mark.parametrize("q", [16, 37])
+@pytest.mark.parametrize("b", WIDE_BINS)
+def test_invert_cdf_kernel_wide(dev, b, q):
+    """Kernel A's wide route against its plain version at ragged N and Q,
+    at the register route's bar: every query within Z_ATOL but those the
+    `denom < eps -> 1` rule moves (counted and printed; each in a bin
+    whose CDF step is within rounding of eps, by at most its width); two
+    calls give the same bits."""
+    n = RAGGED_N if b < 30000 else 517
+    bins, w, u = _invert_cdf_rows(n, b, q, 7 * b + q, dev)
+    reset_counts()
+    got = ksampling.invert_cdf(bins, w, u)
+    again = ksampling.invert_cdf(bins, w, u)
+    torch.cuda.synchronize()
+    assert COUNTS["invert_cdf"] == 2
+    assert torch.equal(got, again)
+    moved = _moved_queries(got, bins, w, u)
+    print(f"[kernel A wide] B={b} Q={q} N={n}: {moved} of {got.numel()} "
+          f"queries moved past {Z_ATOL} by the eps rule")
 
 
 @pytest.mark.parametrize("act", ["relu", "softplus"])
@@ -424,19 +480,32 @@ def test_engine_round_trip(dev, tmp_path):
     assert {"fine.gif", "fine-ori.gif", "3-fine-depth-ori.npz"} <= names
 
 
-def test_kernel_a_bin_cap_refused_at_construction(dev):
+def test_kernel_a_takes_any_bin_count_at_construction(dev):
+    """NeRF-SR x2 at --n_prop 256 --n_prop2 192 (255 and 191 bins a ray,
+    the wide route of kernel A) builds on the card and renders a 64x48
+    view: two A launches a chunk, finite outputs of the view's shapes."""
+    import numpy as np
+
     from nerfsr_torch.config import default_options
+    from nerfsr_torch.data.views import LLFFDownXViews
     from nerfsr_torch.models import create_model
 
-    def opt(**kw):
-        return default_options("train", model="nerf_downX",
-                               dataset_mode="llff_downX",
-                               fast_preset="llff", **kw)
-    with pytest.raises(ValueError, match="--n_prop 130 .*at most 128"):
-        create_model(opt(n_prop=130), device=dev)
-    with pytest.raises(ValueError, match="--n_prop2 200 .*at most 128"):
-        create_model(opt(n_prop2=200), device=dev)
-    create_model(opt(n_prop=129, n_prop2=129), device=dev)   # 128 bins
+    wh = (64, 48)
+    opt = default_options("test", model="nerf_downX",
+                          dataset_mode="llff_downX", fast_preset="llff",
+                          img_wh=wh, downscale=2, n_prop=256, n_prop2=192)
+    system = create_model(opt, device=dev)
+    params = system.init_params(seed=0)
+    views = LLFFDownXViews.spiral(52.0, wh, 2, 1)
+    n_chunks = -(-wh[0] * wh[1] // system._eval_chunk_size(wh[0] * wh[1]))
+    reset_counts()
+    out = next(iter(system.render_eval_many(params, views, [0],
+                                            quantize_rgb=True)))
+    torch.cuda.synchronize()
+    assert COUNTS["invert_cdf"] == 2 * n_chunks
+    assert out["fine_rgb_ori"].shape == (wh[0] * wh[1], 3)
+    assert all(np.isfinite(np.asarray(v, np.float64)).all()
+               for v in out.values())
 
 
 def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):

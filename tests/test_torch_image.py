@@ -24,6 +24,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 from PIL import Image
 
 from nerfsr_tpu.config import default_options as j_default_options

@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image, ImageCms

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu.core.rendering import volumetric_rendering as j_composite
 from nerfsr_tpu.core.sampling import _invert_cdf as j_invert_cdf
@@ -72,9 +73,11 @@ def hist(n, b, seed):
     return bins, w
 
 
-@pytest.mark.parametrize("b,q", [(47, 24), (23, 16)])
+@pytest.mark.parametrize("b,q", [(47, 24), (23, 16), (255, 192), (1024, 16)])
 def test_invert_cdf_vs_pallas_and_jnp(b, q):
-    """The slice's two (B, Q) pairs."""
+    """The slice's two (B, Q) pairs, and the wide route's: ``--n_prop 256
+    --n_prop2 192``'s first resample (255 bins, 192 queries) and 1024
+    bins."""
     bins, w = hist(16, b, seed=b)
     u = ((np.arange(q) + np.random.RandomState(q).rand(16, q)) / q
          ).astype(np.float32)
@@ -604,10 +607,11 @@ def _fma(a, b, c):
 
 
 def _warp_invert_cdf(bins, w, u, eps=F32(1e-5)):
-    """Kernel A's order for each ray (one warp of 32 lanes): lane l holds
-    weights l, l + 32, ... plus eps and sums them serially; a shuffle-xor
-    tree gives the total; pdf = weight / total; lane l then sums its
-    contiguous run of ceil((B-1)/32) pdf values serially, the lane sums
+    """Kernel A's order for each ray (one warp of 32 lanes), on both
+    routes: lane l holds weights l, l + 32, ... plus eps and sums them
+    serially; a shuffle-xor tree gives the total; pdf = weight / total;
+    lane l then sums its contiguous run of ceil((B-1)/32) pdf values
+    (past 128 bins, the power of two at or above) serially, the lane sums
     are scanned (Hillis-Steele, shuffle-up) and each CDF entry is the
     lane's exclusive prefix plus its run's partial sum; a binary search
     (searchsorted right), the clamps, the eps rule and the lerp."""
@@ -615,7 +619,7 @@ def _warp_invert_cdf(bins, w, u, eps=F32(1e-5)):
     nw = nb - 1
     lane = np.arange(32)
     total = np.zeros((n, 32), F32)
-    for k in range(4):
+    for k in range(-(-nw // 32)):
         i = lane + 32 * k
         vk = np.where(i < nw, w[:, np.minimum(i, nw - 1)] + eps, F32(0))
         total = total + vk
@@ -624,6 +628,8 @@ def _warp_invert_cdf(bins, w, u, eps=F32(1e-5)):
     assert (total == total[:, :1]).all()     # every lane has the same bits
     pdf = (w + eps) / total[:, :1]
     run = -(-nw // 32)
+    if nb > 128:          # the wide route's runs: a power of two
+        run = 1 << (run - 1).bit_length()
     acc = np.zeros((n, 32), F32)
     pre = np.zeros((n, 32, run), F32)
     for j in range(run):
@@ -812,12 +818,14 @@ def _segmented_composite_bwd(rgb, sigma, z, gc, gd, go, gw_in, white_bkgd,
             gz.reshape(n, seg * per)[:, :s])
 
 
-@pytest.mark.parametrize("b,q", [(2, 1), (23, 16), (47, 24), (128, 40)])
+@pytest.mark.parametrize("b,q", [(2, 1), (23, 16), (47, 24), (128, 40),
+                                 (255, 192), (1024, 37)])
 def test_warp_invert_cdf_order_vs_jax_and_plain(b, q):
     """Kernel A's order (warp-tree total, lane-blocked scan) against the
     JAX package's _invert_cdf and the port's plain version, at the bar the
     card holds the kernel to (Z_ATOL), with a degenerate (all-zero) row
-    and a row of concentrated mass."""
+    and a row of concentrated mass; past 128 bins the order of the wide
+    route (the same sums, with runs longer than a lane's registers)."""
     bins, w = hist(64, b, seed=100 + b)
     u = ((np.arange(q) + np.random.RandomState(q).rand(64, q)) / q
          ).astype(np.float32)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu.models.mlp import ProposalMLP as JProp
 from nerfsr_tpu.models.mlp import VanillaMLP as JMLP

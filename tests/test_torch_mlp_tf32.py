@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu.models.mlp import VanillaMLP as JMLP
 from nerfsr_tpu.ops.experimental.pallas_mlp import (_bwd, flatten_params,

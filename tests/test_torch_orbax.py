@@ -42,6 +42,7 @@ import optax
 import pytest
 import tensorstore as ts
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 import xxhash
 import zstandard
 

@@ -6,6 +6,7 @@ the engine in ``tests/test_torch_engine.py`` and
 ``tests/test_torch_orbax.py``."""
 
 import pytest
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_torch import engine
 from nerfsr_torch.config import default_options

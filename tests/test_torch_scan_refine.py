@@ -14,6 +14,7 @@ their own so that the test run's workers share the time they take.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_torch.config import default_options
 from nerfsr_torch.models import create_model

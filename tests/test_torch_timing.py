@@ -7,6 +7,7 @@ digest that decides when the kernel library is rebuilt. No card needed.
 import shutil
 
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_torch.kernels import _lib
 from nerfsr_torch.timing import (composite_bwd_bytes, composite_bwd_inputs,

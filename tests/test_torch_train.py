@@ -20,6 +20,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 from PIL import Image
 
 from nerfsr_tpu.config import default_options as j_default_options

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_tpu import engine as j_engine
 from nerfsr_tpu.config import default_options as j_default_options
