@@ -54,17 +54,20 @@
    eager (bit for bit, exact launch counts, ms/step) and the f32 serving
    image graphed against the chunk loop (bit for bit, ms/image), whose
    launches are the f32 kernels' entries in the kernels line; then the
-   bins phase (``bins_phase``): kernel A's wide route (more than 128 bins
-   a ray) alone at N = 4096 and B = 129, 191, 255, 1024, 4097 and 30,000
-   (past a block's shared memory: the workspace route) and at the llff
-   step's two shapes with ``--n_prop 256 --n_prop2 192`` (N = 2048; 255
-   bins to 192 queries, 191 to 16), each against its plain version (two
-   calls' bits equal, the queries the ``denom < eps`` rule moves counted
-   and bounded) with its time, bound and launch floor; that step as a
-   20-step graphed chunk against the eager one (bit for bit, A twice a
-   step: the wide route's launches in the kernels line), one step against
-   the plain path at the step's bars, and its serving image at 504x378
-   graphed against the chunk loop;
+   bins phase (``bins_phase``): kernel A's wide routes (more than 128
+   bins a ray) alone at N = 4096 and B = 129, 191, 255, 1024, 4097 and
+   30,000 (the streamed route past 16,384 bins), at N = 1024 and B =
+   100,000 (past a block's shared memory) and at the llff step's two
+   shapes with ``--n_prop 256 --n_prop2 192`` (N = 2048; 255 bins to
+   192 queries, 191 to 16), each against its plain version (two calls'
+   bits equal, the queries the ``denom < eps`` rule moves counted and
+   bounded, the call's rise of device memory no more than z's bytes
+   plus 1 MiB) with its time, bound, the route and grid the launcher
+   takes (``kernels.sampling.launch_plan``) and that grid's launch
+   floor; that step as a 20-step graphed chunk against the eager one
+   (bit for bit, A twice a step: the wide route's launches in the
+   kernels line), one step against the plain path at the step's bars,
+   and its serving image at 504x378 graphed against the chunk loop;
 6. engine: renders the teacher (seed 1) at 504x378 on 8 centred spiral
    poses, writes them as a COLMAP scene (``nerfsr_torch/data/
    synthetic.py``) into a temporary directory, and drives
@@ -371,14 +374,17 @@ def launch_split_ms(fn, calls=5):
 
 
 def check_registers(log):
-    """Kernels A (both routes), B and D keep every value in registers or
+    """Kernels A (every route), B and D keep every value in registers or
     shared memory: no stack frame and no spills in the compiler's
     report."""
     from nerfsr_torch.timing import ptxas_report
     report = ptxas_report(log, ("invert_cdf_kernel", "invert_cdf_wide_kernel",
+                                "invert_cdf_stream_kernel",
                                 "composite_fwd_kernel",
                                 "composite_bwd_kernel"))
-    if len(report) != 10:       # A's two, and B's and D's four cases each
+    # A's register route, its shared route at 1 and 8 warps a ray and its
+    # streamed route; B's and D's four cases each
+    if len(report) != 12:
         fail(f"ptxas report of kernels A, B and D incomplete: {report}")
     for name, fig in report.items():
         print(f"[registers] {name}: {fig}")
@@ -1451,29 +1457,40 @@ def f32_phase(dev, card, buffer):
     return {"llff": res, "eval": eval_vs_eager(dev, card, "f32")}
 
 
-# bins phase: kernel A's wide route (more than 128 bins a ray). The llff
+# bins phase: kernel A's wide routes (more than 128 bins a ray). The llff
 # x2 step at --n_prop 256 --n_prop2 192 resamples 255 bins to 192 queries
-# and then 191 bins to 16; 1024 and 4097 bins (7 rays a block), and 30,000
-# (one ray's CDF and bins, 240,000 bytes, past a block's shared memory:
-# the workspace route)
+# and then 191 bins to 16; 1024 and 4097 bins (the CDF in shared memory),
+# 30,000 and 100,000 (past 16,384 bins: the streamed route; 100,000 past
+# a block's shared memory for the CDF alone, at 1024 rays, as its inputs
+# are drawn on the host)
 WIDE_PROP = dict(n_prop=256, n_prop2=192)
-WIDE_SHAPES = ((129, 24), (191, 16), (255, 192), (1024, 24), (4097, 24),
-               (30000, 24))
+WIDE_SHAPES = ((4096, 129, 24), (4096, 191, 16), (4096, 255, 192),
+               (4096, 1024, 24), (4096, 4097, 24), (4096, 30000, 24),
+               (1024, 100000, 24))
 WIDE_STEP_SHAPES = ((255, 192), (191, 16))   # a step's two calls
 
 
 def _wide_case(n, b, q, gen, dev):
     """Kernel A at (n, b, q) against its plain version: two calls' bits
     equal, the queries past TOL_INVERT_CDF counted (each within its bin's
-    width), its device ms beside the plain version's, the bound and the
-    launch floor of its grid."""
+    width), its device ms beside the plain version's, the bound (the bins
+    the queries land in, not all of them), the route and grid the launcher
+    takes and that grid's launch floor, and the call's rise of device
+    memory against z's bytes (no more than 1 MiB over them)."""
     from nerfsr_torch.core.sampling import _invert_cdf
-    from nerfsr_torch.kernels.sampling import _workspace_floats, invert_cdf
-    from nerfsr_torch.timing import (floor_ms, invert_cdf_bytes,
-                                     invert_cdf_inputs, time_ms)
+    from nerfsr_torch.kernels.sampling import invert_cdf, launch_plan
+    from nerfsr_torch.timing import (floor_ms, invert_cdf_bins_read,
+                                     invert_cdf_bytes, invert_cdf_inputs,
+                                     time_ms)
     bins, w, u = invert_cdf_inputs(n, b, q, gen, dev)
+    plan = launch_plan(n, b)
     got = invert_cdf(bins, w, u)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     again = invert_cdf(bins, w, u)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
     ref = _invert_cdf(bins, w, u)
     torch.cuda.synchronize()
     what = f"invert_cdf wide N={n} B={b} Q={q}"
@@ -1481,6 +1498,9 @@ def _wide_case(n, b, q, gen, dev):
         fail(f"{what}: non-finite output")
     if not torch.equal(got, again):
         fail(f"{what}: two calls differ")
+    if rise > again.numel() * 4 + 2 ** 20:
+        fail(f"{what}: a call raised device memory by {rise} bytes, z is "
+             f"{again.numel() * 4}")
     diff = (got - ref).abs()
     moved = diff > TOL_INVERT_CDF
     n_moved = int(moved.sum())
@@ -1501,29 +1521,40 @@ def _wide_case(n, b, q, gen, dev):
                  + TOL_INVERT_CDF).all()):
             fail(f"{what}: a query moved past {TOL_INVERT_CDF} other than "
                  f"by the eps rule in or beside its bin")
+    bins_read = invert_cdf_bins_read(bins, w, u)
     out = {"n": n, "b": b, "q": q, "moved": n_moved, "queries": diff.numel(),
            "max_abs_err": float(diff.max()),
            "max_abs_err_unmoved": float(diff[~moved].max()),
            "ms": time_ms(lambda: invert_cdf(bins, w, u)),
            "plain_ms": time_ms(lambda: _invert_cdf(bins, w, u)),
-           "bound_ms": invert_cdf_bytes(n, b, q) / HBM_BYTES_PER_S * 1e3,
-           # an empty kernel on a grid of 8 rays a block (4097 bins: 7)
-           "floor_ms": floor_ms(-(-n // 8), 256),
-           "route": "workspace" if _workspace_floats(b) else "shared"}
-    print(f"[bins] {what} ({out['route']}): {n_moved} of {diff.numel()} "
+           "bins_read": bins_read,
+           "bound_ms": invert_cdf_bytes(n, b, q, bins_read)
+           / HBM_BYTES_PER_S * 1e3,
+           "all_bins_bound_ms": invert_cdf_bytes(n, b, q)
+           / HBM_BYTES_PER_S * 1e3,
+           "route": plan["route"], "plan": plan,
+           "floor_ms": floor_ms(plan["blocks"], plan["threads"]),
+           "memory_rise_bytes": rise, "z_bytes": again.numel() * 4}
+    print(f"[bins] {what} ({out['route']}, {plan['blocks']} blocks of "
+          f"{plan['threads']} threads, {plan['smem_bytes']} B shared, "
+          f"{plan['warps_per_ray']} warps a ray): {n_moved} of "
+          f"{diff.numel()} "
           f"queries moved past {TOL_INVERT_CDF}, the rest within "
           f"{out['max_abs_err_unmoved']:.3e}; {out['ms']:.4f} ms a call, "
           f"plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
-          f"(bytes), launch floor of its grid {out['floor_ms']:.4f} ms")
+          f"(bytes; {bins_read} bins read, all bins "
+          f"{out['all_bins_bound_ms']:.5f} ms), launch floor of its grid "
+          f"{out['floor_ms']:.4f} ms; memory rise {rise} B (z {out['z_bytes']}"
+          f" B)")
     del bins, w, u, got, again, ref
     torch.cuda.empty_cache()
     return out
 
 
 def bins_phase(dev, card, buffer):
-    """Kernel A past 128 bins on the main path. The wide route alone at N
-    = 4096 and every B of WIDE_SHAPES, and at the step's two shapes (N =
-    2048), against the plain version; then NeRF-SR x2 at
+    """Kernel A past 128 bins on the main path. The wide routes alone at
+    every shape of WIDE_SHAPES, and at the step's two shapes (N = 2048),
+    against the plain version; then NeRF-SR x2 at
     ``scripts/train_llff_downX_fast.sh``'s flags plus ``--n_prop 256
     --n_prop2 192``: a 20-step graphed chunk against the eager one (bit
     for bit, exact launch counts: A twice a step, both calls on the wide
@@ -1533,7 +1564,7 @@ def bins_phase(dev, card, buffer):
     after it) is the wide route's launches on the main path."""
     from nerfsr_torch.models import create_model
     gen = torch.Generator().manual_seed(16)
-    alone = [_wide_case(4096, b, q, gen, dev) for b, q in WIDE_SHAPES]
+    alone = [_wide_case(n, b, q, gen, dev) for n, b, q in WIDE_SHAPES]
     step = [_wide_case(BATCH * DOWNSCALE ** 2, b, q, gen, dev)
             for b, q in WIDE_STEP_SHAPES]
     wide = {k: sum(sh[k] for sh in step) / len(step)
@@ -3814,7 +3845,7 @@ def bins_kernels():
     """``python3 chip_smoke.py --bins``: the build and its report's checks
     (no `#1886-D`, no local memory in A, B and D), kernel A against its
     plain version at the serving shapes and at every shape of the bins
-    phase (both routes, the workspace route too), and kernel E (whose
+    phase (every route, the streamed one too), and kernel E (whose
     bf16 E2 lays TMA tiles out from its shared-memory base), each with
     its time: ~4 min, the quickest check of a change to kernel A."""
     from nerfsr_torch.kernels import _lib
@@ -3832,10 +3863,9 @@ def bins_kernels():
     check_registers(log)
     gen = torch.Generator().manual_seed(0)
     check_invert_cdf(dev, gen)
-    for n, shapes in ((4096, WIDE_SHAPES),
-                      (BATCH * DOWNSCALE ** 2, WIDE_STEP_SHAPES)):
-        for b, q in shapes:
-            _wide_case(n, b, q, gen, dev)
+    for n, b, q in WIDE_SHAPES + tuple(
+            (BATCH * DOWNSCALE ** 2, b, q) for b, q in WIDE_STEP_SHAPES):
+        _wide_case(n, b, q, gen, dev)
     check_fused_mlp_bwd(dev, gen)
     print(card)
 

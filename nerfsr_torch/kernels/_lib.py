@@ -53,10 +53,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # bins, w, u, z, n, n_bins, n_q, stream
     "nerfsr_invert_cdf": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # bins, w, u, z, workspace, n, n_bins, n_q, stream
-    "nerfsr_invert_cdf_ws": [_P] * 5 + [_I, _I, _I, _P],
-    # n_bins -> workspace floats a ray
-    "nerfsr_invert_cdf_workspace": [_I, _IP],
+    # n, n_bins -> route, blocks, threads, smem bytes, warps a ray, chunk
+    "nerfsr_invert_cdf_route": [_I, _I, _IP],
     # rgb, sigma, z, comp, depth, opacity, weights, n, s, softplus,
     # white_bkgd, stream
     "nerfsr_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -7,10 +7,10 @@ here as the JAX wrapper stop-gradients them.
 
 A CPU tensor takes the plain version (``core/sampling.py:_invert_cdf``);
 a CUDA tensor launches the kernel or raises. Any bin count from 2 up:
-the kernel holds a ray's CDF in shared memory and, past what a block's
-shared memory holds (~29 K bins on the H100), in a workspace of B + 32
-floats a ray that this wrapper allocates on the stream (so a CUDA graph
-captures it).
+the kernel holds a ray's CDF in shared memory and, past 16,384 bins,
+streams it through shared memory a chunk at a time. A call allocates
+nothing but ``z``.
+``launch_plan`` says which route and grid the kernel takes at a shape.
 """
 
 from __future__ import annotations
@@ -23,16 +23,20 @@ import torch
 from nerfsr_torch.core.sampling import _invert_cdf, stratified_uniforms
 from nerfsr_torch.kernels import _lib
 
-_WORKSPACE = {}   # bin count -> workspace floats a ray (one card)
+ROUTES = ("register", "shared", "streamed")
 
 
-def _workspace_floats(b: int) -> int:
-    if b not in _WORKSPACE:
-        floats = ctypes.c_int(0)
-        _lib.check(_lib.lib().nerfsr_invert_cdf_workspace(
-            b, ctypes.byref(floats)), "invert_cdf")
-        _WORKSPACE[b] = floats.value
-    return _WORKSPACE[b]
+def launch_plan(n: int, b: int) -> dict:
+    """The launch kernel A takes on this card for n rays of b bins: its
+    route (``register`` up to 128 bins, ``shared`` up to 16,384, the
+    whole CDF in shared memory, ``streamed`` past that), grid (blocks,
+    threads a block, dynamic shared bytes a block), warps a ray and CDF
+    entries a chunk (streamed)."""
+    out = (ctypes.c_int * 6)()
+    _lib.check(_lib.lib().nerfsr_invert_cdf_route(n, b, out),
+               "invert_cdf_route")
+    return dict(route=ROUTES[out[0]], blocks=out[1], threads=out[2],
+                smem_bytes=out[3], warps_per_ray=out[4], chunk=out[5])
 
 
 def invert_cdf(bins: torch.Tensor, weights: torch.Tensor,
@@ -50,17 +54,9 @@ def invert_cdf(bins: torch.Tensor, weights: torch.Tensor,
     _lib.check_cuda(u, "u", (n, q), device=bins.device)
     z = torch.empty_like(u)
     with torch.cuda.device(bins.device):
-        ptrs = (bins.data_ptr(), weights.data_ptr(), u.data_ptr(),
-                z.data_ptr())
-        floats = _workspace_floats(b)
-        if floats:
-            ws = torch.empty((n, floats), dtype=torch.float32,
-                             device=bins.device)
-            err = _lib.lib().nerfsr_invert_cdf_ws(
-                *ptrs, ws.data_ptr(), n, b, q, _lib.stream_ptr(bins))
-        else:
-            err = _lib.lib().nerfsr_invert_cdf(*ptrs, n, b, q,
-                                               _lib.stream_ptr(bins))
+        err = _lib.lib().nerfsr_invert_cdf(
+            bins.data_ptr(), weights.data_ptr(), u.data_ptr(), z.data_ptr(),
+            n, b, q, _lib.stream_ptr(bins))
     _lib.check(err, "invert_cdf")
     _lib.COUNTS["invert_cdf"] += 1
     return z

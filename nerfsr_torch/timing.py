@@ -148,8 +148,25 @@ def lane_grid(n, s):
     return -(-n // (8 * (32 // seg)))
 
 
-def invert_cdf_bytes(n, b, q):
-    return 4 * n * (b + (b - 1) + q + q)
+def invert_cdf_bytes(n, b, q, bins_read=None):
+    """Bytes kernel A must move: the weights and u read once, z written
+    once, and the bins: all n b of them, or ``bins_read`` (what
+    ``invert_cdf_bins_read`` counts on a call's inputs)."""
+    return 4 * (n * ((b - 1) + q + q) + (n * b if bins_read is None
+                                         else bins_read))
+
+
+def invert_cdf_bins_read(bins, w, u):
+    """The bins a call's queries land in: per ray the distinct below and
+    above indices of the plain version's search, summed over the rays.
+    Past ~2 Q bins a ray the function needs no more of them."""
+    wp = w + 1e-5
+    cdf = torch.cat([torch.zeros_like(wp[:, :1]),
+                     (wp / wp.sum(-1, keepdim=True)).cumsum(-1)], -1)
+    k = torch.searchsorted(cdf, u, right=True)
+    idx = torch.cat([(k - 1).clamp(min=0), k.clamp(max=bins.shape[1] - 1)],
+                    -1).sort(-1).values
+    return int(idx.shape[0] + (idx[:, 1:] != idx[:, :-1]).sum())
 
 
 def composite_fwd_bytes(n, s):

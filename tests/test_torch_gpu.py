@@ -105,10 +105,16 @@ def test_invert_cdf_guards(dev):
                                atol=Z_ATOL)
 
 
-# the wide route: the llff x2 step at --n_prop 256 --n_prop2 192 (255 and
-# 191 bins), 1024, 4097 (7 rays a block) and past a block's shared memory
-# (30,000 bins: one ray's 240,000 bytes, the workspace route)
-WIDE_BINS = [129, 191, 255, 1024, 4097, 30000]
+# the wide routes: the llff x2 step at --n_prop 256 --n_prop2 192 (255
+# and 191 bins), 1024 and 4097 (the CDF in shared memory), 30,000 and
+# 100,000 (past 16,384 bins: streamed, and past a block's shared memory
+# even for the CDF alone), with the route the launcher takes at each
+WIDE_BINS = [129, 191, 255, 1024, 4097, 30000, 100000]
+WIDE_ROUTES = {b: "shared" if b <= 16384 else "streamed" for b in WIDE_BINS}
+
+
+def _wide_n(b):
+    return RAGGED_N if b < 30000 else 517
 
 
 def _moved_queries(got, bins, w, u):
@@ -143,8 +149,10 @@ def test_invert_cdf_kernel_wide(dev, b, q):
     `denom < eps -> 1` rule moves (counted and printed; each in a bin
     whose CDF step is within rounding of eps, by at most its width); two
     calls give the same bits."""
-    n = RAGGED_N if b < 30000 else 517
+    n = _wide_n(b)
     bins, w, u = _invert_cdf_rows(n, b, q, 7 * b + q, dev)
+    plan = ksampling.launch_plan(n, b)
+    assert plan["route"] == WIDE_ROUTES[b]
     reset_counts()
     got = ksampling.invert_cdf(bins, w, u)
     again = ksampling.invert_cdf(bins, w, u)
@@ -152,8 +160,53 @@ def test_invert_cdf_kernel_wide(dev, b, q):
     assert COUNTS["invert_cdf"] == 2
     assert torch.equal(got, again)
     moved = _moved_queries(got, bins, w, u)
-    print(f"[kernel A wide] B={b} Q={q} N={n}: {moved} of {got.numel()} "
-          f"queries moved past {Z_ATOL} by the eps rule")
+    print(f"[kernel A wide] B={b} Q={q} N={n} {plan}: {moved} of "
+          f"{got.numel()} queries moved past {Z_ATOL} by the eps rule")
+
+
+@pytest.mark.parametrize("b", WIDE_BINS)
+def test_invert_cdf_kernel_wide_ends(dev, b):
+    """The wide routes at unsorted u with queries at 0, at the plain
+    version's last CDF entry and the floats beside it, at 1, past 1 and
+    below 0: each within the bar of the plain version but where the eps
+    rule moves it (the ends take the clamps: bins[0] below 0, the last
+    bin at and past the last entry); two calls give the same bits."""
+    n, q = _wide_n(b), 37
+    bins, w, u = _invert_cdf_rows(n, b, q, 11 * b, dev)
+    wp = w + 1e-5
+    last = (wp / wp.sum(-1, keepdim=True)).cumsum(-1)[:, -1]
+    u[:, 0] = 0.0
+    u[:, 1] = last
+    u[:, 2] = torch.nextafter(last, torch.zeros_like(last))
+    u[:, 3] = torch.nextafter(last, torch.ones_like(last) * 2)
+    u[:, 4] = 1.0
+    u[:, 5] = 1.5
+    u[:, 6] = -0.25
+    got = ksampling.invert_cdf(bins, w, u)
+    again = ksampling.invert_cdf(bins, w, u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _moved_queries(got, bins, w, u)
+    assert torch.equal(got[:, 6], bins[:, 0])
+    assert torch.equal(got[:, 5], bins[:, -1])
+
+
+@pytest.mark.parametrize("b", [30000, 100000])
+def test_invert_cdf_kernel_allocates_only_z(dev, b):
+    """A call on the streamed route allocates nothing but z: the peak of
+    device memory rises by no more than z's bytes plus 1 MiB (the
+    earlier workspace route took N (B + 32) floats a call past ~29 K
+    bins)."""
+    n, q = _wide_n(b), 24
+    bins, w, u = _invert_cdf_rows(n, b, q, 5, dev)
+    ksampling.invert_cdf(bins, w, u)            # the first call's set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    z = ksampling.invert_cdf(bins, w, u)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    assert rise <= z.numel() * 4 + 2 ** 20, rise
 
 
 @pytest.mark.parametrize("act", ["relu", "softplus"])

@@ -6,14 +6,15 @@ digest that decides when the kernel library is rebuilt. No card needed.
 
 import shutil
 
+import pytest
 import torch
 import torch_threads  # noqa: F401  (torch's threads in a test worker)
 
 from nerfsr_torch.kernels import _lib
 from nerfsr_torch.timing import (composite_bwd_bytes, composite_bwd_inputs,
                                  composite_fwd_bytes, composite_inputs,
-                                 invert_cdf_bytes, invert_cdf_inputs,
-                                 lane_grid, ptxas_report)
+                                 invert_cdf_bins_read, invert_cdf_bytes,
+                                 invert_cdf_inputs, lane_grid, ptxas_report)
 
 PTXAS_LOG = """== invert_cdf.cu
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117invert_cdf_kernelEPKfS1_S1_Pfiii' for 'sm_90a'
@@ -71,6 +72,45 @@ def test_timing_inputs_and_bytes():
     outputs = n * 3 + n + n + n * s             # comp, depth, opacity, w
     assert composite_fwd_bytes(n, s) == 4 * (rgb.numel() + sigma.numel()
                                              + z.numel() + outputs)
+
+
+def test_invert_cdf_bins_read():
+    """The bins the wide route's bound counts: per ray the distinct bins
+    its queries land in (below and above the plain version's search), all
+    of them when the queries cover every bin, at most 2 Q."""
+    gen = torch.Generator().manual_seed(1)
+    n, b, q = 8, 1024, 24
+    bins, w, u = invert_cdf_inputs(n, b, q, gen, torch.device("cpu"))
+    read = invert_cdf_bins_read(bins, w, u)
+    assert n < read <= n * 2 * q
+    assert invert_cdf_bytes(n, b, q, read) == 4 * (
+        w.numel() + 2 * u.numel() + read)
+    # two bins, every query between them: both read, every ray
+    bins2 = torch.tensor([[0.0, 1.0]]).repeat(n, 1)
+    w2 = torch.ones((n, 1))
+    u2 = torch.full((n, q), 0.5)
+    assert invert_cdf_bins_read(bins2, w2, u2) == 2 * n
+    # one query a ray below every entry: bins[0] alone
+    assert invert_cdf_bins_read(bins, w, torch.full((n, 1), -1.0)) == n
+
+
+def test_tune_variants_set_the_constants():
+    """Every variant ``python -m nerfsr_torch.tune_invert_cdf`` builds
+    names constants of ``csrc/invert_cdf.cu`` and sets exactly those; a
+    name that is not there is refused."""
+    from nerfsr_torch import tune_invert_cdf as tune
+    src = (_lib.CSRC / "invert_cdf.cu").read_text()
+    assert tune.variant_source(src, tune.VARIANTS["source"]) == src
+    for values in tune.VARIANTS.values():
+        out = tune.variant_source(src, values)
+        changed = [(a, b) for a, b in zip(src.splitlines(),
+                                          out.splitlines()) if a != b]
+        assert len(out.splitlines()) == len(src.splitlines())
+        assert len(changed) == len(values)
+        for name, value in values.items():
+            assert f"constexpr int {name} = {value};" in out
+    with pytest.raises(ValueError, match="kNoSuch"):
+        tune.variant_source(src, {"kNoSuch": 1})
 
 
 def test_composite_bwd_inputs_bytes_and_grid():
