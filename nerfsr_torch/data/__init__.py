@@ -10,6 +10,8 @@ device-raygen specs for eval. Ported: ``llff`` (``llff.py``),
 (``views.py``); synthetic COLMAP and Blender scenes (``synthetic.py``).
 """
 
+from nerfsr_torch import spans
+
 DATASET_REGISTRY = {}
 
 
@@ -20,6 +22,7 @@ def register_dataset(name):
     return deco
 
 
+@spans.spanned("nerfsr.data.load")
 def create_dataset(opt, mode: str):
     """``--dataset_mode`` -> dataset instance in ``mode``."""
     from nerfsr_torch.data import (blender, blender_downx,  # noqa: F401

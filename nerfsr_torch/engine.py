@@ -91,6 +91,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nerfsr_torch import spans
 from nerfsr_torch.data import create_dataset
 from nerfsr_torch.models import create_model
 from nerfsr_torch.models.template_system import TemplateSystem
@@ -237,43 +238,45 @@ def train(opt, warmup_mode: Optional[str] = None, warmup_iters: int = 1000,
         timings.update(epoch_s={}, steps_per_epoch=steps_per_epoch)
 
     for epoch in range(start_epoch + 1, opt.n_epochs + 1):
-        t_epoch = time.perf_counter()
-        it = 0
-        while it < steps_per_epoch:
-            src = buffer
-            if warm_buffer is not None:
-                if step < warmup_iters:
-                    src = warm_buffer
-                else:
-                    warm_buffer = None      # done: free its memory
-            in_chunk = aux.in_chunk(src is buffer)
-            k = _chunk_steps(opt, step, it, steps_per_epoch,
-                             warmup_iters if warm_buffer is not None else 0,
-                             () if in_chunk else aux.cadences(epoch))
-            _seed_chunk(gen, opt.seed, state.step)
-            state, losses = aux.chunk(state, src, src is buffer, k, it, step,
-                                      epoch, gen)
-            it += k
-            step += k
-            if not in_chunk:
-                state, losses = aux.after_chunk(state, losses, step, epoch,
-                                                gen)
-            scal = _read(losses)
-            if log_every > 0 and step % log_every < k:
-                now = time.time()
-                scal["rays_per_sec"] = ((step - last_log_step) * rays_per_batch
-                                        / max(now - last_log_time, 1e-9))
-                tf = scal["rays_per_sec"] * flops_per_ray / 1e12
-                if tf >= 0.1:     # achieved matmul TFLOP/s, as JAX logs it
-                    scal["tflops"] = round(tf, 1)
-                last_log_step, last_log_time = step, now
-                writer.add_scalars(scal, step, prefix="train/")
-                print(f"[e{epoch} s{step}] {_fmt(scal)}")
-            if (val_ds is not None and opt.val_freq > 0
-                    and step % opt.val_freq < k):
-                _validate_iter(opt, system, state, val_ds, writer, epoch, k,
-                               step)
-        seconds = time.perf_counter() - t_epoch
+        with spans.timed("nerfsr.train.epoch") as ep:
+            it = 0
+            while it < steps_per_epoch:
+                src = buffer
+                if warm_buffer is not None:
+                    if step < warmup_iters:
+                        src = warm_buffer
+                    else:
+                        warm_buffer = None      # done: free its memory
+                in_chunk = aux.in_chunk(src is buffer)
+                k = _chunk_steps(
+                    opt, step, it, steps_per_epoch,
+                    warmup_iters if warm_buffer is not None else 0,
+                    () if in_chunk else aux.cadences(epoch))
+                _seed_chunk(gen, opt.seed, state.step)
+                state, losses = aux.chunk(state, src, src is buffer, k, it,
+                                          step, epoch, gen)
+                it += k
+                step += k
+                if not in_chunk:
+                    state, losses = aux.after_chunk(state, losses, step,
+                                                    epoch, gen)
+                scal = _read(losses)
+                if log_every > 0 and step % log_every < k:
+                    now = time.time()
+                    scal["rays_per_sec"] = (
+                        (step - last_log_step) * rays_per_batch
+                        / max(now - last_log_time, 1e-9))
+                    tf = scal["rays_per_sec"] * flops_per_ray / 1e12
+                    if tf >= 0.1:   # achieved matmul TFLOP/s, as JAX logs it
+                        scal["tflops"] = round(tf, 1)
+                    last_log_step, last_log_time = step, now
+                    writer.add_scalars(scal, step, prefix="train/")
+                    print(f"[e{epoch} s{step}] {_fmt(scal)}")
+                if (val_ds is not None and opt.val_freq > 0
+                        and step % opt.val_freq < k):
+                    _validate_iter(opt, system, state, val_ds, writer,
+                                   epoch, k, step)
+        seconds = ep.seconds
         if timings is not None:
             timings["epoch_s"][epoch] = seconds
         print(f"[train] epoch {epoch} done in {seconds:.1f}s "
@@ -348,20 +351,20 @@ def _train_template(opt, system):
     ckpt.init_weights_from(opt, state)
     gen = torch.Generator(device=system.device)
     for epoch in range(start_epoch + 1, opt.n_epochs + 1):
-        t_epoch = time.perf_counter()
-        for _ in range(steps_per_epoch):
-            _seed_chunk(gen, opt.seed, state.step)
-            state, losses = system.train_step_from_buffer(state, buffer, gen)
-            step = state.step
-            if log_every > 0 and step % log_every == 0:
-                scal = _read(losses)
-                writer.add_scalars(scal, step, prefix="train/")
-                print(f"[e{epoch} s{step}] {_fmt(scal)}")
-            if opt.val_freq > 0 and step % opt.val_freq == 0:
-                _validate_iter(opt, system, state, val_ds, writer, epoch, 1,
-                               step)
-        print(f"[train] epoch {epoch} done in "
-              f"{time.perf_counter() - t_epoch:.1f}s")
+        with spans.timed("nerfsr.train.epoch") as ep:
+            for _ in range(steps_per_epoch):
+                _seed_chunk(gen, opt.seed, state.step)
+                state, losses = system.train_step_from_buffer(state,
+                                                              buffer, gen)
+                step = state.step
+                if log_every > 0 and step % log_every == 0:
+                    scal = _read(losses)
+                    writer.add_scalars(scal, step, prefix="train/")
+                    print(f"[e{epoch} s{step}] {_fmt(scal)}")
+                if opt.val_freq > 0 and step % opt.val_freq == 0:
+                    _validate_iter(opt, system, state, val_ds, writer,
+                                   epoch, 1, step)
+        print(f"[train] epoch {epoch} done in {ep.seconds:.1f}s")
         if ((opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0)
                 or epoch == opt.n_epochs) and mesh.is_master():
             print(f"[train] saved {ckpt.save_checkpoint(opt, state, epoch)}")
@@ -587,50 +590,73 @@ def test(opt, timings=None):
     parameters) into ``{results_dir}/{name}/{split}_{epoch}/``; each
     view's strips and depth maps are written as it arrives, the GIFs at
     the end. Returns the directory. ``timings``, when a dict, receives
-    the host seconds of the render-and-write loop (ending with the last
-    GIF written), the part of them spent building and writing the
-    artifacts, and the view count. Every rank renders; the master
-    writes."""
+    the call's spans (``_test_timings``) and the view count (``views``).
+    Every rank renders; the master writes."""
     if mesh.spawns(opt):
         return mesh.spawn(test, opt)
-    system = setup(opt)
-    dataset = create_dataset(opt, opt.test_split)
-    state = system.create_state(seed=0, steps_per_epoch=1)
-    ckpt.load_checkpoint(opt, state, epoch=opt.load_epoch,
-                         params_only=True)
-    out_dir = os.path.join(opt.results_dir, opt.name,
-                           f"{opt.test_split}_{opt.load_epoch}")
-    t0 = time.perf_counter()
-    gif_frames, n_written, write_s = {}, 0, 0.0
+    with spans.recording(timings is not None) as rec, \
+            spans.span("nerfsr.test"):
+        with spans.span("nerfsr.test.setup"):
+            system = setup(opt)
+            dataset = create_dataset(opt, opt.test_split)
+            state = system.create_state(seed=0, steps_per_epoch=1)
+            ckpt.load_checkpoint(opt, state, epoch=opt.load_epoch,
+                                 params_only=True)
+        out_dir = os.path.join(opt.results_dir, opt.name,
+                               f"{opt.test_split}_{opt.load_epoch}")
+        with spans.span("nerfsr.test.loop"):
+            n_written = _write_test_views(system, state.params, dataset,
+                                          out_dir)
+    if timings is not None:
+        timings.update(_test_timings(rec), views=len(dataset))
+    print(f"[test] wrote {n_written} artifacts to {out_dir}")
+    return out_dir
+
+
+def _write_test_views(system, params, dataset, out_dir) -> int:
+    """``test``'s render-and-write loop; returns the artifacts written.
+    The master's writes are ``nerfsr.test.write`` spans: a view's strips
+    and depth maps, then the GIFs."""
+    gif_frames, n_written = {}, 0
     # rgb comes back display-quantized (uint8); depth stays f32 for the
     # npz artifacts
-    renders = system.render_eval_many(state.params, dataset,
-                                      range(len(dataset)), quantize_rgb=True)
+    renders = system.render_eval_many(params, dataset, range(len(dataset)),
+                                      quantize_rgb=True)
     for i, out in enumerate(renders):
-        t_write = time.perf_counter()
         if not mesh.is_master():
             continue
-        sample = dataset.image_rays(i)
-        vis = system.eval_visuals(out, sample, i,
-                                  with_gt=sample.get("rgbs") is not None,
-                                  depth_bounds=dataset.depth_bounds)
-        save_visuals(vis, out_dir)
-        n_written += len(vis)
-        for v in vis:
-            if v.kind == "image":
-                gif_frames.setdefault(v.name.split("-", 1)[1],
-                                      []).append(v.data)
-        write_s += time.perf_counter() - t_write
-    t_write = time.perf_counter()
-    gifs = _gif_visuals(gif_frames)
-    if mesh.is_master():
-        save_visuals(gifs, out_dir)
-    if timings is not None:
-        end = time.perf_counter()
-        timings.update(seconds=end - t0, write_s=write_s + end - t_write,
-                       views=len(dataset))
-    print(f"[test] wrote {n_written + len(gifs)} artifacts to {out_dir}")
-    return out_dir
+        with spans.span("nerfsr.test.write"):
+            sample = dataset.image_rays(i)
+            vis = system.eval_visuals(out, sample, i,
+                                      with_gt=sample.get("rgbs") is not None,
+                                      depth_bounds=dataset.depth_bounds)
+            save_visuals(vis, out_dir)
+            n_written += len(vis)
+            for v in vis:
+                if v.kind == "image":
+                    gif_frames.setdefault(v.name.split("-", 1)[1],
+                                          []).append(v.data)
+    with spans.span("nerfsr.test.write"):
+        gifs = _gif_visuals(gif_frames)
+        if mesh.is_master():
+            save_visuals(gifs, out_dir)
+    return n_written + len(gifs)
+
+
+def _test_timings(rec) -> dict:
+    """A test call's ``timings`` from its recorded spans, in seconds:
+    ``call_s`` the whole call; ``setup_s`` its set-up (the system, the
+    dataset, the state, the checkpoint) and ``data_s`` the dataset's load
+    in it; ``seconds`` the render-and-write loop (ending with the last
+    artifact written), ``write_s`` the part of it spent building and
+    writing the artifacts, and ``encode_s`` the PNG and GIF encoding in
+    that."""
+    return {"call_s": rec.seconds("nerfsr.test"),
+            "setup_s": rec.seconds("nerfsr.test.setup"),
+            "data_s": rec.seconds("nerfsr.data.load"),
+            "seconds": rec.seconds("nerfsr.test.loop"),
+            "write_s": rec.seconds("nerfsr.test.write"),
+            "encode_s": rec.seconds("nerfsr.write.encode")}
 
 
 # ---------------------------------------------------------------------------
@@ -689,38 +715,40 @@ def train_refine(opt, timings=None):
         timings.update(epoch_s={}, steps_per_epoch=steps_per_epoch)
 
     for epoch in range(start_epoch + 1, opt.n_epochs + 1):
-        t_epoch = time.perf_counter()
-        left = steps_per_epoch
-        while left > 0:
-            # the chunk ends at the next log or val step, or the epoch's end
-            k = min([left] + [f - state.step % f for f in
-                              (log_every, val_freq) if f > 0])
-            _seed_chunk(gen, opt.seed, state.step)
-            if d_state is not None:
-                state, d_state, pool, losses = system.train_steps_scan_gan(
-                    state, d_state, pool, buffers, k, gen)
-            else:
-                state, losses = system.train_steps_scan(state, buffers, k,
-                                                        gen)
-            left -= k
-            scal = _read(losses)
-            step = state.step
-            if log_every > 0 and step % log_every == 0:
-                writer.add_scalars(scal, step, prefix="train/")
-                print(f"[e{epoch} s{step}] {_fmt(scal)}")
-            if (val_ds is not None and val_freq > 0 and step % val_freq == 0
-                    and mesh.is_master()):
-                batch = val_ds.sample_val_item(val_counter)
-                val_counter += 1
-                pred, m = system.validate_item(state, batch)
-                writer.add_scalars(m, step, prefix="val_iter/")
-                print(f"[val_iter s{step}] {_fmt(m)}")
-                if opt.vis_freq > 0 and step % opt.vis_freq == 0:
-                    save_visuals([Visualizee(
-                        "image", _refine_strip(batch, pred),
-                        name=f"s{step}-sr-refine-gt", range=(-1, 1))],
-                        _vis_dir(opt, epoch, "iter"))
-        seconds = time.perf_counter() - t_epoch
+        with spans.timed("nerfsr.train.epoch") as ep:
+            left = steps_per_epoch
+            while left > 0:
+                # the chunk ends at the next log or val step, or the
+                # epoch's end
+                k = min([left] + [f - state.step % f for f in
+                                  (log_every, val_freq) if f > 0])
+                _seed_chunk(gen, opt.seed, state.step)
+                if d_state is not None:
+                    state, d_state, pool, losses = \
+                        system.train_steps_scan_gan(state, d_state, pool,
+                                                    buffers, k, gen)
+                else:
+                    state, losses = system.train_steps_scan(state, buffers,
+                                                            k, gen)
+                left -= k
+                scal = _read(losses)
+                step = state.step
+                if log_every > 0 and step % log_every == 0:
+                    writer.add_scalars(scal, step, prefix="train/")
+                    print(f"[e{epoch} s{step}] {_fmt(scal)}")
+                if (val_ds is not None and val_freq > 0
+                        and step % val_freq == 0 and mesh.is_master()):
+                    batch = val_ds.sample_val_item(val_counter)
+                    val_counter += 1
+                    pred, m = system.validate_item(state, batch)
+                    writer.add_scalars(m, step, prefix="val_iter/")
+                    print(f"[val_iter s{step}] {_fmt(m)}")
+                    if opt.vis_freq > 0 and step % opt.vis_freq == 0:
+                        save_visuals([Visualizee(
+                            "image", _refine_strip(batch, pred),
+                            name=f"s{step}-sr-refine-gt", range=(-1, 1))],
+                            _vis_dir(opt, epoch, "iter"))
+        seconds = ep.seconds
         if timings is not None:
             timings["epoch_s"][epoch] = seconds
         print(f"[refine] epoch {epoch} done in {seconds:.1f}s "
@@ -753,37 +781,39 @@ def test_refine(opt, timings=None):
     """Refine and stitch every image of ``--test_split`` from checkpoint
     ``--load_epoch``; each ``{i}-sr-refine.png`` strip is written as its
     image is done. Returns the directory. ``timings``, when a dict,
-    receives the host seconds of the loop, the part of them spent
-    building and writing the strips, and the image count. Every rank
-    refines; the master writes."""
+    receives the call's spans as ``test``'s does (``_test_timings``) and
+    the image count (``images``). Every rank refines; the master
+    writes."""
     if mesh.spawns(opt):
         return mesh.spawn(test_refine, opt)
-    system = setup(opt)
-    dataset = create_dataset(opt, opt.test_split)
-    state = system.create_state(seed=0, steps_per_epoch=1)
-    ckpt.load_checkpoint(opt, state, epoch=opt.load_epoch,
-                         params_only=True)
-    out_dir = os.path.join(opt.results_dir, opt.name,
-                           f"{opt.test_split}_{opt.load_epoch}")
-    t0 = time.perf_counter()
-    metrics, write_s = [], 0.0
-    n = dataset.n_images()
-    for i in range(n):
-        refined, sr_img, gt_img = system.refine_image(
-            state, dataset.tiles_for_image(i))
-        t_write = time.perf_counter()
-        parts = [sr_img, refined] + ([gt_img] if gt_img is not None else [])
-        if mesh.is_master():
-            save_visuals([Visualizee("image", np.concatenate(parts, axis=1),
-                                     name=f"{i}-sr-refine", range=(-1, 1))],
-                         out_dir)
-        write_s += time.perf_counter() - t_write
-        if gt_img is not None:
-            metrics.append(system.eval_image_metrics(refined, sr_img,
-                                                     gt_img))
+    with spans.recording(timings is not None) as rec, \
+            spans.span("nerfsr.test"):
+        with spans.span("nerfsr.test.setup"):
+            system = setup(opt)
+            dataset = create_dataset(opt, opt.test_split)
+            state = system.create_state(seed=0, steps_per_epoch=1)
+            ckpt.load_checkpoint(opt, state, epoch=opt.load_epoch,
+                                 params_only=True)
+        out_dir = os.path.join(opt.results_dir, opt.name,
+                               f"{opt.test_split}_{opt.load_epoch}")
+        metrics = []
+        n = dataset.n_images()
+        with spans.span("nerfsr.test.loop"):
+            for i in range(n):
+                refined, sr_img, gt_img = system.refine_image(
+                    state, dataset.tiles_for_image(i))
+                with spans.span("nerfsr.test.write"):
+                    parts = [sr_img, refined] + (
+                        [gt_img] if gt_img is not None else [])
+                    if mesh.is_master():
+                        save_visuals([Visualizee(
+                            "image", np.concatenate(parts, axis=1),
+                            name=f"{i}-sr-refine", range=(-1, 1))], out_dir)
+                if gt_img is not None:
+                    metrics.append(system.eval_image_metrics(refined, sr_img,
+                                                             gt_img))
     if timings is not None:
-        timings.update(seconds=time.perf_counter() - t0, write_s=write_s,
-                       images=n)
+        timings.update(_test_timings(rec), images=n)
     if metrics:
         agg = {k: float(np.mean([m[k] for m in metrics]))
                for k in metrics[0]}

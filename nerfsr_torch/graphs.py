@@ -32,6 +32,10 @@ was captured with has been replaced by another (``inputs``: a resume
 that loads new Adam state, a new buffer). Capture and replay failures
 raise; nothing falls back to eager execution.
 
+Spans (``nerfsr_torch/spans.py``): ``nerfsr.graph.capture`` times a
+key's eager first call and its capture (``Captured.capture_s``), and
+``nerfsr.graph.replay`` each later call, ``before(i)`` and the replay.
+
 Kernel launch counts (``kernels/_lib.py``): a capture's wrapper calls
 are taken back out of ``COUNTS`` and added once per replay. The fused
 MLP's packing cache is emptied around each capture, so the graph
@@ -42,11 +46,11 @@ which move parameters without bumping their versions.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import torch
 
+from nerfsr_torch import spans
 from nerfsr_torch.kernels import _lib
 from nerfsr_torch.kernels import mlp as kmlp
 
@@ -89,16 +93,17 @@ def run_steps(cache: Optional["GraphCache"], key, inputs, body, n: int,
 class Captured:
     """One captured body: its graph, the static outputs that each replay
     rewrites, the kernel launches of one replay, the signature of its
-    inputs, what the capture cost (seconds, and the bytes its memory
-    pool reserved), and how often it was replayed."""
+    inputs, what capturing it cost (the seconds of the key's eager first
+    call and the capture, and the bytes its memory pool reserved), and
+    how often it was replayed."""
 
     graph: "torch.cuda.CUDAGraph"
     outputs: object
     launches: dict
     sig: tuple
-    capture_s: float
     pool_bytes: int
     holds: tuple
+    capture_s: float = 0.0
     replays: int = 0
 
 
@@ -131,21 +136,24 @@ class GraphCache:
             entry = None
         out, done = None, 0
         if entry is None and n > 0:
-            stream = self._capture_stream()
-            main = torch.cuda.current_stream(self.device)
-            stream.wait_stream(main)
-            with torch.cuda.stream(stream):
-                if before is not None:
-                    before(0)
-                out = body()
-                entry = self._capture(body, inputs(), generator, stream)
-            main.wait_stream(stream)
+            with spans.timed("nerfsr.graph.capture") as cap:
+                stream = self._capture_stream()
+                main = torch.cuda.current_stream(self.device)
+                stream.wait_stream(main)
+                with torch.cuda.stream(stream):
+                    if before is not None:
+                        before(0)
+                    out = body()
+                    entry = self._capture(body, inputs(), generator, stream)
+                main.wait_stream(stream)
+            entry.capture_s = cap.seconds
             self._entries[key] = entry
             done = 1
         for i in range(done, n):
-            if before is not None:
-                before(i)
-            entry.graph.replay()
+            with spans.span("nerfsr.graph.replay"):
+                if before is not None:
+                    before(i)
+                entry.graph.replay()
             out = entry.outputs
         if n > done:
             entry.replays += n - done
@@ -173,7 +181,6 @@ class GraphCache:
         reserved = torch.cuda.memory_reserved(self.device)
         before = dict(_lib.COUNTS)
         kmlp.forget_packed()
-        t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, stream=stream):
                 outputs = body()
@@ -185,6 +192,5 @@ class GraphCache:
         return Captured(
             graph=graph, outputs=outputs, launches=launches,
             sig=signature(tensors, generator),
-            capture_s=time.perf_counter() - t0,
             pool_bytes=torch.cuda.memory_reserved(self.device) - reserved,
             holds=(tuple(tensors), generator))

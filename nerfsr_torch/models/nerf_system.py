@@ -59,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerfsr_torch import spans
 from nerfsr_torch.core.encoding import posenc_channels
 from nerfsr_torch.core.rays import Rays, get_rays, make_rays, ndc_rays
 from nerfsr_torch.device import resolve_device
@@ -436,6 +437,7 @@ class NeRFSystem:
         state.step_t.add_(1)
         return losses
 
+    @spans.spanned("nerfsr.train.chunk")
     def train_steps_scan(self, state: TrainState, buffer, n_steps: int,
                          generator: Optional[torch.Generator] = None,
                          idx: Optional[torch.Tensor] = None):
@@ -544,6 +546,7 @@ class NeRFSystem:
         state.step_t.fill_(state.step)
         return state, losses
 
+    @spans.spanned("nerfsr.train.chunk")
     def train_steps_scan_with_ref(self, state: TrainState, buffer,
                                   ref_buffer, n_steps: int, ref_freq: int,
                                   it0: int,
@@ -681,6 +684,7 @@ class NeRFSystem:
         state.step_t.fill_(state.step)
         return state, losses
 
+    @spans.spanned("nerfsr.train.chunk")
     def train_steps_scan_patches(self, state: TrainState, img_buffer,
                                  n_steps: int, patch_size: int,
                                  generator: Optional[torch.Generator] = None,
@@ -860,7 +864,10 @@ class NeRFSystem:
                          quantize_rgb: bool = False):
         """Multi-view eval: view i+1's render is enqueued before view i's
         outputs are read back. Yields what ``render_eval`` returns, in
-        order. ``quantize_rgb`` returns rgb as uint8."""
+        order. ``quantize_rgb`` returns rgb as uint8. Spans: each view's
+        ``nerfsr.eval.enqueue``, then, for the view before it,
+        ``nerfsr.eval.wait``, ``readback`` and ``postprocess``
+        (``_collect``); none is open while a view is yielded."""
         if getattr(dataset, "eval_raygen_spec", None) is None:
             for i in indices:
                 yield self.render_eval(params, dataset, i)
@@ -869,17 +876,41 @@ class NeRFSystem:
         n = dirs_flat.shape[0]
         chunk = self._eval_chunk_size(n)
         dev_dirs = self._eval_dirs_device(dirs_flat, n, chunk)
-        pending = None
+        pending = newest = None
         for i in indices:
-            spec = dataset.eval_raygen_spec(i)
-            out = self.eval_image_device_pose(
-                params, dev_dirs, self._pose_pair(spec), spec["geom"],
-                quantize_rgb)
+            with spans.span("nerfsr.eval.enqueue"):
+                spec = dataset.eval_raygen_spec(i)
+                out = self.eval_image_device_pose(
+                    params, dev_dirs, self._pose_pair(spec), spec["geom"],
+                    quantize_rgb)
+                newest = self._enqueued()
             if pending is not None:
-                yield self._postprocess_eval(self._finish_pose(pending, n))
+                yield self._collect(pending, n, newest)
             pending = out
         if pending is not None:
-            yield self._postprocess_eval(self._finish_pose(pending, n))
+            yield self._collect(pending, n, newest)
+
+    def _enqueued(self):
+        """A CUDA event after the work enqueued so far on the current
+        stream (None off the card)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _collect(self, out, n, newest):
+        """An enqueued render on the host: wait for the card to reach
+        ``newest``, the event after the last view enqueued (the copy back
+        is queued behind that view on the stream, so it would wait as
+        long), copy back, postprocess."""
+        with spans.span("nerfsr.eval.wait"):
+            if newest is not None:
+                newest.synchronize()
+        with spans.span("nerfsr.eval.readback"):
+            flat = self._finish_pose(out, n)
+        with spans.span("nerfsr.eval.postprocess"):
+            return self._postprocess_eval(flat)
 
     def render_eval(self, params, dataset, idx: int,
                     sample=None) -> Dict[str, np.ndarray]:

@@ -61,6 +61,7 @@ import torch
 from torch import nn
 
 from nerfsr_torch.device import resolve_device
+from nerfsr_torch import spans
 from nerfsr_torch.graphs import GraphCache, run_steps
 from nerfsr_torch.models import register_model
 from nerfsr_torch.models.criterions import (VGGPerceptualLoss,
@@ -286,6 +287,7 @@ class RefineSystem:
             state, losses = self.train_step(state, batch)
         return state, losses
 
+    @spans.spanned("nerfsr.train.chunk")
     def train_steps_scan(self, state: RefineState, buffers, n_steps: int,
                          generator: Optional[torch.Generator] = None):
         """``n_steps`` steps as the JAX package's ``train_steps_scan`` runs
@@ -414,6 +416,7 @@ class RefineSystem:
         state.step += 1
         return state, d_state, losses, fake
 
+    @spans.spanned("nerfsr.train.chunk")
     def train_steps_scan_gan(self, state: RefineState, d_state: GanState,
                              pool, buffers, n_steps: int,
                              generator: Optional[torch.Generator] = None):

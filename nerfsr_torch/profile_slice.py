@@ -26,9 +26,13 @@ runs it on the card (each eval view one CUDA-graph replay,
 warm-up), or with ``--eager`` the eager route (``train_steps``, the eval
 chunk loop), and also prints where the host's time goes by operator
 (``--host_top``). Each runs under ``torch.profiler`` and prints
-the device time by kernel name, the device time per image or step, the
-wall time per image or step and the device's busy share (device time /
-wall time). Needs a CUDA card.
+the device time by kernel name, the wall time per image or step, the
+device's busy time per image or step (the union of its kernels' and
+copies' intervals, so kernels that overlap count once) and its busy
+share (busy time / wall time), and the port's spans
+(``nerfsr_torch/spans.py``) per image or step: count, seconds, self
+seconds and parent, as the benchmark's traced runs read them. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import subprocess
 import time
 
 import torch
+
+from nerfsr_torch import spans
 
 HR_WH = (504, 378)
 FOCAL = 407.0
@@ -133,6 +139,19 @@ def _refine(args):
     return run, args.steps, "step"
 
 
+def busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
@@ -168,6 +187,7 @@ def main(argv=None):
     run, units, unit = (_refine if args.refine else
                         _training if args.train else _serving)(args)
     torch.cuda.synchronize()
+    spans.reset()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -176,23 +196,34 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    # kernels only: a user annotation (e.g. Optimizer.step) spans the
-    # kernels it encloses, gaps included, and would count them twice
+    # kernels and copies only: a user annotation (e.g. Optimizer.step, a
+    # span) covers the kernels it encloses, gaps included
+    cuda = torch.autograd.DeviceType.CUDA
+    device_us = busy_us(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == cuda
+        and not getattr(e, "is_user_annotation", False))
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA
+              and e.device_type == cuda
               and not getattr(e, "is_user_annotation", False)]
-    device_us = sum(e.device_time_total for e in events)
     route = "eager" if args.eager else "graphed"
     print(f"card: {card}")
     print(f"{unit}s {units} ({route}): wall {wall / units * 1e3:.1f} "
-          f"ms/{unit} (under the profiler), device "
+          f"ms/{unit} (under the profiler), device busy "
           f"{device_us / units / 1e3:.2f} ms/{unit}, busy share "
           f"{device_us / 1e6 / wall:.3f}")
     print(f"{'device ms/' + unit:>16} {'calls/' + unit:>12}  kernel")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:args.top]:
         print(f"{e.device_time_total / units / 1e3:16.3f} "
               f"{e.count / units:12.1f}  {e.key[:90]}")
+    print(f"{'host ms/' + unit:>16} {'self ms':>8} {'calls/' + unit:>12}"
+          "  span (parent)")
+    for name, t in sorted(spans.totals().items(),
+                          key=lambda kv: -kv[1]["seconds"]):
+        print(f"{t['seconds'] / units * 1e3:16.3f} "
+              f"{t['self_s'] / units * 1e3:8.3f} {t['count'] / units:12.1f}"
+              f"  {name} ({t['parent']})")
     if args.eager:
         # the host's side: each operator's own time (without the
         # operators it calls), summed over its calls

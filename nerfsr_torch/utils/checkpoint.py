@@ -58,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerfsr_torch import spans
 from nerfsr_torch.models.refine_system import RefineState
 from nerfsr_torch.models.template_system import TemplateState
 from nerfsr_torch.utils import msgpack, orbax
@@ -372,6 +373,7 @@ def newest_checkpoint(opt) -> Optional[Tuple[int, Dict[str, Any]]]:
     return None
 
 
+@spans.spanned("nerfsr.ckpt.load")
 def load_checkpoint(opt, state, epoch=None, name=None,
                     params_only: bool = False):
     """Restore ``state`` from epoch ``epoch`` (default ``--load_epoch``;

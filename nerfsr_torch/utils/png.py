@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from nerfsr_torch import spans
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (mode, channels)
 _COLOR_TYPES = {0: ("L", 1), 2: ("RGB", 3), 3: ("P", 1), 4: ("LA", 2),
@@ -234,6 +236,7 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
+@spans.spanned("nerfsr.write.encode")
 def encode(img: np.ndarray, level: int = 6) -> bytes:
     """PNG bytes of a uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA
     image (rows unfiltered, zlib at ``level``)."""

@@ -26,6 +26,7 @@ from typing import Any, List, Sequence
 
 import numpy as np
 
+from nerfsr_torch import spans
 from nerfsr_torch.utils import png
 
 # ---------------------------------------------------------------------------
@@ -218,15 +219,16 @@ def write_gif(path: str, frames, delay_ms: int = 100) -> List[np.ndarray]:
         if f.shape[:2] != (h, w):
             raise ValueError(f"GIF frames differ in size: {f.shape[:2]} "
                              f"and {(h, w)}")
-        idx, palette, quantized = quantize_frame(f)
-        shown.append(quantized)
-        table = np.zeros((256, 3), np.uint8)
-        table[:len(palette)] = palette
-        out.append(struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 0x04,
-                               int(round(delay_ms / 10)), 0, 0))
-        out.append(struct.pack("<BHHHHB", 0x2C, 0, 0, w, h, 0x87))
-        out.append(table.tobytes())
-        out.append(b"\x08" + _sub_blocks(_lzw_literal(idx)))
+        with spans.span("nerfsr.write.encode"):
+            idx, palette, quantized = quantize_frame(f)
+            shown.append(quantized)
+            table = np.zeros((256, 3), np.uint8)
+            table[:len(palette)] = palette
+            out.append(struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 0x04,
+                                   int(round(delay_ms / 10)), 0, 0))
+            out.append(struct.pack("<BHHHHB", 0x2C, 0, 0, w, h, 0x87))
+            out.append(table.tobytes())
+            out.append(b"\x08" + _sub_blocks(_lzw_literal(idx)))
     out.append(b"\x3b")
     with open(path, "wb") as fh:
         fh.write(b"".join(out))

@@ -616,6 +616,27 @@ def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):
         assert sorted(nets.count(n) for n in set(nets)) == [3, 3], packs
 
 
+def _llff_x2_buffer(dev, hw):
+    """NeRF-SR x2's training options (``--fast_preset llff``, mixed, the
+    full-width MLP, 64 LR rays a step) and a ray buffer of 3 views that
+    a teacher (seed 1, sigma biases +3) renders at ``hw``."""
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.data.views import LLFFDownXTrainViews
+    from nerfsr_torch.models import create_model
+
+    opt = default_options("train", model="nerf_downX",
+                          dataset_mode="llff_downX", fast_preset="llff",
+                          img_wh=hw, downscale=2, precision="mixed",
+                          batch_size=64, include_var=True, ds_method="avg")
+    teacher_sys = create_model(opt, device=dev)
+    teacher = teacher_sys.init_params(seed=1)
+    with torch.no_grad():
+        for net in teacher.values():
+            net.sigma.bias += 3.0
+    return opt, LLFFDownXTrainViews.rendered(teacher_sys, teacher, 52.0,
+                                             hw, 2, 3).ray_buffer(dev)
+
+
 def test_graphed_chunk_and_eval_equal_the_eager_route(dev):
     """The twin of ``chip_smoke.py``'s graphs phase at 64x48: NeRF-SR x2
     (``--fast_preset llff``, mixed, the full-width MLP) trains a 6-step
@@ -626,23 +647,12 @@ def test_graphed_chunk_and_eval_equal_the_eager_route(dev):
     equals the chunk loop."""
     import numpy as np
 
-    from nerfsr_torch.config import default_options
-    from nerfsr_torch.data.views import LLFFDownXTrainViews, LLFFDownXViews
+    from nerfsr_torch.data.views import LLFFDownXViews
     from nerfsr_torch.models import create_model
     from nerfsr_torch.weights import param_leaves
 
     hw, steps = (64, 48), 6
-    opt = default_options("train", model="nerf_downX",
-                          dataset_mode="llff_downX", fast_preset="llff",
-                          img_wh=hw, downscale=2, precision="mixed",
-                          batch_size=64, include_var=True, ds_method="avg")
-    teacher_sys = create_model(opt, device=dev)
-    teacher = teacher_sys.init_params(seed=1)
-    with torch.no_grad():
-        for net in teacher.values():
-            net.sigma.bias += 3.0
-    buf = LLFFDownXTrainViews.rendered(teacher_sys, teacher, 52.0, hw, 2,
-                                       3).ray_buffer(dev)
+    opt, buf = _llff_x2_buffer(dev, hw)
     per_step = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
                 "composite_bwd": 1, "fused_mlp_bwd": 1}
     states = {}
@@ -681,3 +691,45 @@ def test_graphed_chunk_and_eval_equal_the_eager_route(dev):
     for x, y in zip(renders["eager"], renders["graphed"]):
         for k in x:
             assert np.array_equal(x[k], y[k]), k
+
+
+def test_steady_chunk_spans_replays_and_no_capture(dev):
+    """The port's spans around a graphed training chunk: the first chunk
+    (the eager step and the capture, then replays) records one
+    ``nerfsr.graph.capture``, whose seconds are the graph's
+    ``capture_s``; a steady chunk under ``torch.profiler`` records no
+    capture and exactly one ``nerfsr.graph.replay`` a step inside one
+    ``nerfsr.train.chunk``, as ``Captured.replays`` counts; the spans
+    add no device interval of their own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfsr_torch import spans
+    from nerfsr_torch.models import create_model
+
+    opt, buf = _llff_x2_buffer(dev, (64, 48))
+    system = create_model(opt, device=dev)
+    state = system.create_state(seed=0, steps_per_epoch=4)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with spans.recording() as first:
+        state, _ = system.train_steps_scan(state, buf, 3, gen)
+    (graph,) = system.graphs.entries().values()
+    assert first["nerfsr.graph.capture"]["count"] == 1
+    assert first["nerfsr.graph.replay"]["count"] == graph.replays == 2
+    assert graph.capture_s == first["nerfsr.graph.capture"]["seconds"] > 0
+    n, replays = 5, graph.replays
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = system.train_steps_scan(state, buf, n, gen)
+        torch.cuda.synchronize()
+    got = spans.totals()
+    spans.reset()
+    assert "nerfsr.graph.capture" not in got
+    assert got["nerfsr.train.chunk"]["count"] == 1
+    assert got["nerfsr.graph.replay"]["count"] == n
+    assert got["nerfsr.graph.replay"]["parent"] == "nerfsr.train.chunk"
+    assert graph.replays - replays == n
+    cuda = torch.autograd.DeviceType.CUDA
+    assert not [e.name for e in prof.events() if e.device_type == cuda
+                and not getattr(e, "is_user_annotation", False)
+                and e.name.startswith("nerfsr.")]
