@@ -22,7 +22,10 @@ view whether its render is read back quantized (uint8 rgb: PNG-only
 views). ``test`` renders ``--test_split`` from a checkpoint into
 ``{results_dir}/{name}/{split}_{epoch}/``: ``{i}-fine[-ori].png`` strips,
 ``{i}-fine-depth[-ori].npz`` depth maps with their PNGs, and a GIF per
-strip kind.
+strip kind. Both write on the writer threads of
+``utils/visualizer.py:ViewWriter``: the loop hands each view over as it
+arrives and goes back to the render, and waits for the writers at its
+end.
 
 The refine stage: ``train_refine`` uploads the ``llff_refine``
 dataset's augmented image stacks to the card once and runs chunks of
@@ -84,6 +87,8 @@ as the JAX engine does.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import time
 from typing import Optional
@@ -99,7 +104,8 @@ from nerfsr_torch.parallel import mesh
 from nerfsr_torch.utils import checkpoint as ckpt
 from nerfsr_torch.utils.devbench import train_matmul_flops_per_ray
 from nerfsr_torch.utils.visualizer import (MetricsWriter, NullMetricsWriter,
-                                           Visualizee, save_visuals)
+                                           ViewWriter, Visualizee,
+                                           save_visuals)
 
 
 def setup(opt):
@@ -537,9 +543,17 @@ def _renders_by_quantize(system, params, dataset, indices, quant):
             run.append(i)
 
 
-def _gif_visuals(gif_frames):
-    return [Visualizee("gif", frames, name=level)
-            for level, frames in gif_frames.items() if len(frames) > 1]
+def _gif_name(v) -> str:
+    """The GIF an image strip ``{i}-{kind}`` is a frame of: ``{kind}``."""
+    return v.name.split("-", 1)[1]
+
+
+def _view_writer(out_dir, views: int):
+    """The master's ``ViewWriter`` into ``out_dir`` (GIFs where more than
+    one view is written); None elsewhere."""
+    if out_dir is None or not mesh.is_master():
+        return None
+    return ViewWriter(out_dir, gif_name=_gif_name if views > 1 else None)
 
 
 def validate(opt, system, params, dataset, out_dir=None, max_images=None):
@@ -550,7 +564,9 @@ def validate(opt, system, params, dataset, out_dir=None, max_images=None):
     view allows it, else from the read-back render. A view's render is
     read back quantized (uint8 rgb, PNG-identical) when it only feeds
     PNGs: its metrics came from the device, or it has no ground truth.
-    Metrics never see quantized values."""
+    Metrics never see quantized values. The master's writes run on the
+    writer threads (``ViewWriter``), a view handed over as it arrives;
+    the call waits for them after the last view."""
     n = len(dataset)
     if max_images:
         n = min(n, max_images)
@@ -564,21 +580,20 @@ def validate(opt, system, params, dataset, out_dir=None, max_images=None):
     quant = {i: out_dir is not None and (
         i in metrics or dataset.image_rays(i).get("rgbs") is None)
         for i in todo}
-    visuals, gif_frames = [], {}
-    for i, out in _renders_by_quantize(system, params, dataset, todo,
-                                       quant):
-        sample = dataset.image_rays(i)
-        if i not in metrics and sample.get("rgbs") is not None:
-            metrics[i] = system.eval_metrics(out, sample)
-        if out_dir is not None:
-            for v in system.eval_visuals(out, sample, i, with_gt=True,
-                                         depth_bounds=dataset.depth_bounds):
-                visuals.append(v)
-                if v.kind == "image":
-                    gif_frames.setdefault(v.name.split("-", 1)[1],
-                                          []).append(v.data)
-    if out_dir is not None and visuals and mesh.is_master():
-        save_visuals(visuals + _gif_visuals(gif_frames), out_dir)
+    writer = _view_writer(out_dir, len(todo)) if todo else None
+    with writer or contextlib.nullcontext():
+        for i, out in _renders_by_quantize(system, params, dataset, todo,
+                                           quant):
+            sample = dataset.image_rays(i)
+            if i not in metrics and sample.get("rgbs") is not None:
+                metrics[i] = system.eval_metrics(out, sample)
+            if writer is not None:
+                writer.submit(functools.partial(
+                    system.eval_visuals, out, sample, i, with_gt=True,
+                    depth_bounds=dataset.depth_bounds))
+        if writer is not None:
+            writer.wait()
+            writer.write_gifs()
     if not metrics:            # a split without ground truth
         return {}
     rows = [metrics[i] for i in sorted(metrics)]
@@ -588,10 +603,12 @@ def validate(opt, system, params, dataset, out_dir=None, max_images=None):
 def test(opt, timings=None):
     """Render ``--test_split`` from checkpoint ``--load_epoch`` (its
     parameters) into ``{results_dir}/{name}/{split}_{epoch}/``; each
-    view's strips and depth maps are written as it arrives, the GIFs at
-    the end. Returns the directory. ``timings``, when a dict, receives
-    the call's spans (``_test_timings``) and the view count (``views``).
-    Every rank renders; the master writes."""
+    view's strips and depth maps are written on the writer threads while
+    the next views render, the GIFs at the end, and the call returns once
+    every file is on disk (``_write_test_views``). Returns the directory.
+    ``timings``, when a dict, receives the call's spans
+    (``_test_timings``) and the view count (``views``). Every rank
+    renders; the master writes."""
     if mesh.spawns(opt):
         return mesh.spawn(test, opt)
     with spans.recording(timings is not None) as rec, \
@@ -613,34 +630,41 @@ def test(opt, timings=None):
     return out_dir
 
 
+def _test_view_visuals(system, dataset, i, out):
+    """View ``i``'s strips and depth maps from its render (a writer
+    thread's job)."""
+    sample = dataset.image_rays(i)
+    return system.eval_visuals(out, sample, i,
+                               with_gt=sample.get("rgbs") is not None,
+                               depth_bounds=dataset.depth_bounds)
+
+
 def _write_test_views(system, params, dataset, out_dir) -> int:
     """``test``'s render-and-write loop; returns the artifacts written.
-    The master's writes are ``nerfsr.test.write`` spans: a view's strips
-    and depth maps, then the GIFs."""
-    gif_frames, n_written = {}, 0
+    The master hands each view to the writer threads (a
+    ``nerfsr.test.write`` span, holding any ``nerfsr.write.wait`` for a
+    slot) and goes back to the render, so the card renders view i+1 while
+    the writers build and write view i. After the last view it waits for
+    every job (``nerfsr.test.drain``), then writes the GIFs from their
+    frames' bytes (``nerfsr.test.write``)."""
     # rgb comes back display-quantized (uint8); depth stays f32 for the
     # npz artifacts
     renders = system.render_eval_many(params, dataset, range(len(dataset)),
                                       quantize_rgb=True)
-    for i, out in enumerate(renders):
-        if not mesh.is_master():
-            continue
+    writer = _view_writer(out_dir, len(dataset))
+    if writer is None:
+        for _ in renders:
+            pass
+        return 0
+    with writer:
+        for i, out in enumerate(renders):
+            with spans.span("nerfsr.test.write"):
+                writer.submit(functools.partial(_test_view_visuals, system,
+                                                dataset, i, out))
+        with spans.span("nerfsr.test.drain"):
+            writer.wait()
         with spans.span("nerfsr.test.write"):
-            sample = dataset.image_rays(i)
-            vis = system.eval_visuals(out, sample, i,
-                                      with_gt=sample.get("rgbs") is not None,
-                                      depth_bounds=dataset.depth_bounds)
-            save_visuals(vis, out_dir)
-            n_written += len(vis)
-            for v in vis:
-                if v.kind == "image":
-                    gif_frames.setdefault(v.name.split("-", 1)[1],
-                                          []).append(v.data)
-    with spans.span("nerfsr.test.write"):
-        gifs = _gif_visuals(gif_frames)
-        if mesh.is_master():
-            save_visuals(gifs, out_dir)
-    return n_written + len(gifs)
+            return writer.write_gifs()
 
 
 def _test_timings(rec) -> dict:
@@ -648,14 +672,20 @@ def _test_timings(rec) -> dict:
     ``call_s`` the whole call; ``setup_s`` its set-up (the system, the
     dataset, the state, the checkpoint) and ``data_s`` the dataset's load
     in it; ``seconds`` the render-and-write loop (ending with the last
-    artifact written), ``write_s`` the part of it spent building and
-    writing the artifacts, and ``encode_s`` the PNG and GIF encoding in
-    that."""
+    artifact written), ``write_s`` the part of it the loop's thread spent
+    on the artifacts (handing views to the writer threads, with any wait
+    for a slot, and writing the GIFs), ``wait_s`` the part it spent
+    waiting for the writer threads (a slot, and the drain after the last
+    view), and ``encode_s`` the PNG and GIF encoding, summed over every
+    thread (so over a loop the writers overlap, it can pass
+    ``seconds``)."""
     return {"call_s": rec.seconds("nerfsr.test"),
             "setup_s": rec.seconds("nerfsr.test.setup"),
             "data_s": rec.seconds("nerfsr.data.load"),
             "seconds": rec.seconds("nerfsr.test.loop"),
             "write_s": rec.seconds("nerfsr.test.write"),
+            "wait_s": rec.seconds("nerfsr.write.wait")
+            + rec.seconds("nerfsr.test.drain"),
             "encode_s": rec.seconds("nerfsr.write.encode")}
 
 

@@ -21,9 +21,11 @@ training log, a graph's capture): its ``seconds`` are set when it ends.
 
 A span's self seconds are its seconds less those of the spans opened
 inside it; ``parent`` is the name of the span open around it (None at
-the top) the first time it was recorded. Spans nest per thread. A span
-ends before the code that opened it yields: a generator's caller runs
-on the same stack, and its time is not the generator's.
+the top) the first time it was recorded. Spans nest per thread, and
+spans of several threads add to one recording (under a lock: the writer
+threads' encodes add to the ``test`` call's). A span ends before the
+code that opened it yields: a generator's caller runs on the same stack,
+and its time is not the generator's.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from torch.autograd import profiler as _prof
 _NULL = contextlib.nullcontext()
 _recordings: list = []      # the recordings open, in the order opened
 _local = threading.local()
+_add = threading.Lock()     # held while a closing span adds to its totals
 
 
 class Totals(dict):
@@ -82,15 +85,16 @@ class _Span:
         parent = self._parent
         if parent is not None:
             parent._child += self.seconds
-        for rec in self._into:
-            t = rec.get(self.name)
-            if t is None:
-                t = rec[self.name] = {
-                    "count": 0, "seconds": 0.0, "self_s": 0.0,
-                    "parent": None if parent is None else parent.name}
-            t["count"] += 1
-            t["seconds"] += self.seconds
-            t["self_s"] += self.seconds - self._child
+        with _add:
+            for rec in self._into:
+                t = rec.get(self.name)
+                if t is None:
+                    t = rec[self.name] = {
+                        "count": 0, "seconds": 0.0, "self_s": 0.0,
+                        "parent": None if parent is None else parent.name}
+                t["count"] += 1
+                t["seconds"] += self.seconds
+                t["self_s"] += self.seconds - self._child
         if self._rf is not None:
             self._rf.__exit__(*exc)
         return False
@@ -146,9 +150,11 @@ def recording(on: bool = True):
 def totals() -> Totals:
     """A copy of the process's record: every span that ran while a
     ``torch.profiler`` recorded, since the last ``reset``."""
-    return Totals({k: dict(v) for k, v in _totals.items()})
+    with _add:
+        return Totals({k: dict(v) for k, v in _totals.items()})
 
 
 def reset():
     """Clear the process's record."""
-    _totals.clear()
+    with _add:
+        _totals.clear()

@@ -13,6 +13,20 @@ rounded to its nearest level). Its LZW stream holds 9-bit literal codes
 with a clear code every ``_LZW_RUN`` pixels, so the code table never
 outgrows 9 bits: valid LZW that any decoder reads, made in numpy.
 Frames show for 100 ms (``duration=0.1``), looping forever.
+``gif_frame`` encodes one frame and ``gif_bytes`` puts encoded frames
+into a file's bytes; ``write_gif`` is the two in turn.
+
+``ViewWriter`` writes a render loop's artifacts on a bounded pool of
+threads (``writer_threads``: the CPUs this process may run on, less one
+for the loop, from 1 to 8), a view a job: the job builds the view's
+visuals, writes each through ``save_visuals``'s code and encodes each
+image strip as a frame of its GIF. zlib and numpy's sorts and ufuncs
+release the interpreter lock, so the jobs run beside each other and
+beside the loop. The loop waits only where ``2k`` views are in flight
+(``submit``, span ``nerfsr.write.wait``) and once at its end (``wait``);
+``write_gifs`` then writes each GIF from its frames' bytes in view
+order. The files are byte for byte those of ``save_visuals`` and
+``write_gif`` on the same visuals.
 """
 
 from __future__ import annotations
@@ -22,7 +36,8 @@ import json
 import os
 import struct
 import time
-from typing import Any, List, Sequence
+from concurrent import futures
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -71,28 +86,36 @@ def save_visuals(visuals: Sequence[Visualizee], out_dir: str,
     """Write each artifact under ``out_dir``."""
     os.makedirs(out_dir, exist_ok=True)
     for v in visuals:
-        stamp = f"-{int(time.time())}" if v.timestamp else ""
-        base = os.path.join(out_dir, f"{prefix}{v.name}{stamp}")
-        if v.kind == "image":
-            _check_png(v.img_format)
-            png.write(f"{base}.png", _to_uint8(v.data, v.range))
-        elif v.kind == "images":
-            _check_png(v.img_format)
-            for i, im in enumerate(v.data):
-                png.write(f"{base}-{i}.png", _to_uint8(im, v.range))
-        elif v.kind == "gif":
-            write_gif(f"{base}.gif", [_to_uint8(im, v.range)
-                                      for im in v.data])
-        elif v.kind == "pc":
-            _write_ply(f"{base}.ply", np.asarray(v.data, np.float32))
-        elif v.kind == "matrix":
-            # the npz is what the warp/refine stage reads
-            mat = np.asarray(v.data)
-            np.savez(f"{base}.npz", matrix=mat)
-            lo, hi = v.range
-            png.write(f"{base}.png", depth2im(mat, lo, hi))
-        else:
-            raise ValueError(f"unknown visual kind {v.kind}")
+        _save(v, out_dir, prefix)
+
+
+def _save(v: Visualizee, out_dir: str, prefix: str = ""):
+    """Write one artifact under ``out_dir``; returns an image's uint8
+    pixels as written (None for the other kinds)."""
+    stamp = f"-{int(time.time())}" if v.timestamp else ""
+    base = os.path.join(out_dir, f"{prefix}{v.name}{stamp}")
+    if v.kind == "image":
+        _check_png(v.img_format)
+        img = _to_uint8(v.data, v.range)
+        png.write(f"{base}.png", img)
+        return img
+    if v.kind == "images":
+        _check_png(v.img_format)
+        for i, im in enumerate(v.data):
+            png.write(f"{base}-{i}.png", _to_uint8(im, v.range))
+    elif v.kind == "gif":
+        write_gif(f"{base}.gif", [_to_uint8(im, v.range) for im in v.data])
+    elif v.kind == "pc":
+        _write_ply(f"{base}.ply", np.asarray(v.data, np.float32))
+    elif v.kind == "matrix":
+        # the npz is what the warp/refine stage reads
+        mat = np.asarray(v.data)
+        np.savez(f"{base}.npz", matrix=mat)
+        lo, hi = v.range
+        png.write(f"{base}.png", depth2im(mat, lo, hi))
+    else:
+        raise ValueError(f"unknown visual kind {v.kind}")
+    return None
 
 
 def _write_ply(path, pts):
@@ -207,32 +230,150 @@ def _sub_blocks(data: bytes) -> bytes:
     return b"".join(out) + b"\x00"
 
 
+def gif_frame(frame, delay_ms: int = 100):
+    """One uint8 frame (H, W[, 3]) of a GIF: ``((H, W), its bytes, the
+    quantized frame they show)``; the bytes are the frame's graphic
+    control, image descriptor, colour table and LZW data."""
+    f = np.asarray(frame, np.uint8)
+    h, w = f.shape[:2]
+    with spans.span("nerfsr.write.encode"):
+        idx, palette, quantized = quantize_frame(f)
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette
+        block = b"".join([
+            struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 0x04,
+                        int(round(delay_ms / 10)), 0, 0),
+            struct.pack("<BHHHHB", 0x2C, 0, 0, w, h, 0x87),
+            table.tobytes(),
+            b"\x08" + _sub_blocks(_lzw_literal(idx))])
+    return (h, w), block, quantized
+
+
+def gif_bytes(frames: Sequence[Tuple[Tuple[int, int], bytes]]) -> bytes:
+    """A looping GIF89a of encoded frames ``((H, W), bytes)``, in order."""
+    h, w = frames[0][0]
+    for size, _ in frames:
+        if size != (h, w):
+            raise ValueError(f"GIF frames differ in size: {size} and "
+                             f"{(h, w)}")
+    return b"".join(
+        [b"GIF89a", struct.pack("<HHBBB", w, h, 0x70, 0, 0),
+         b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+        + [block for _, block in frames] + [b"\x3b"])
+
+
 def write_gif(path: str, frames, delay_ms: int = 100) -> List[np.ndarray]:
     """Write uint8 frames (H, W[, 3]) as a looping GIF89a, ``delay_ms``
     each; returns the quantized frames the file holds."""
-    frames = [np.asarray(f, np.uint8) for f in frames]
-    h, w = frames[0].shape[:2]
-    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0x70, 0, 0),
-           b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
-    shown = []
-    for f in frames:
-        if f.shape[:2] != (h, w):
-            raise ValueError(f"GIF frames differ in size: {f.shape[:2]} "
-                             f"and {(h, w)}")
-        with spans.span("nerfsr.write.encode"):
-            idx, palette, quantized = quantize_frame(f)
-            shown.append(quantized)
-            table = np.zeros((256, 3), np.uint8)
-            table[:len(palette)] = palette
-            out.append(struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 0x04,
-                                   int(round(delay_ms / 10)), 0, 0))
-            out.append(struct.pack("<BHHHHB", 0x2C, 0, 0, w, h, 0x87))
-            out.append(table.tobytes())
-            out.append(b"\x08" + _sub_blocks(_lzw_literal(idx)))
-    out.append(b"\x3b")
+    encoded = [gif_frame(f, delay_ms) for f in frames]
+    data = gif_bytes([(size, block) for size, block, _ in encoded])
     with open(path, "wb") as fh:
-        fh.write(b"".join(out))
-    return shown
+        fh.write(data)
+    return [quantized for _, _, quantized in encoded]
+
+
+# ---------------------------------------------------------------------------
+# the writer threads
+# ---------------------------------------------------------------------------
+
+def writer_threads() -> int:
+    """Writer threads for this process: the CPUs it may run on, less one
+    for the loop that renders, at least 1 and at most 8."""
+    return max(1, min(8, len(os.sched_getaffinity(0)) - 1))
+
+
+class ViewWriter:
+    """Writes each view's artifacts under ``out_dir`` on a pool of
+    ``threads = writer_threads()`` threads, with at most ``2 * threads``
+    views in flight.
+
+    ``gif_name(v)`` names the GIF an image visual ``v`` is a frame of
+    (None: none); ``gif_name=None`` encodes no frame. Use it as a
+    context: leaving it waits for the jobs running and drops the queued
+    ones, so no job writes after the caller has gone on."""
+
+    def __init__(self, out_dir: str,
+                 gif_name: Optional[Callable[[Visualizee],
+                                             Optional[str]]] = None):
+        self.out_dir = out_dir
+        self.gif_name = gif_name
+        self.threads = writer_threads()
+        self._pool = futures.ThreadPoolExecutor(
+            self.threads, thread_name_prefix="nerfsr-writer")
+        self._jobs: List[futures.Future] = []      # in view order
+        self._open: List[futures.Future] = []      # not yet seen done
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+    def submit(self, visuals: Callable[[], Sequence[Visualizee]]):
+        """Queue a view: ``visuals()``, on a writer thread, gives its
+        artifacts. Blocks (span ``nerfsr.write.wait``) while ``2 *
+        threads`` views are in flight; raises the first failed job's
+        exception, with its traceback."""
+        self._reap()
+        if len(self._open) >= 2 * self.threads:
+            with spans.span("nerfsr.write.wait"):
+                futures.wait(self._open, return_when=futures.FIRST_COMPLETED)
+            self._reap()
+        job = self._pool.submit(self._write_view, visuals)
+        self._jobs.append(job)
+        self._open.append(job)
+
+    def _reap(self):
+        done = [job for job in self._open if job.done()]
+        self._open = [job for job in self._open if not job.done()]
+        for job in done:
+            job.result()
+
+    def _write_view(self, visuals):
+        """A job: the view's visuals written, and ``{GIF name: encoded
+        frame}`` of its image strips."""
+        vis = visuals()
+        os.makedirs(self.out_dir, exist_ok=True)
+        frames = {}
+        for v in vis:
+            img = _save(v, self.out_dir)
+            name = self.gif_name(v) if self.gif_name and img is not None \
+                else None
+            if name is not None:
+                # a GIF visual quantizes its frames over (0, 1)
+                if tuple(v.range) != (0, 1):
+                    img = _to_uint8(v.data)
+                size, block, _ = gif_frame(img)
+                frames[name] = (size, block)
+        return len(vis), frames
+
+    def wait(self):
+        """Block until every job is done; raises the first failure in
+        view order."""
+        futures.wait(self._open)
+        self._open = []
+        for job in self._jobs:
+            job.result()
+
+    def write_gifs(self) -> int:
+        """After ``wait``: each GIF of more than one frame from its
+        frames' bytes, in view order. Returns the artifacts written, the
+        views' and the GIFs'."""
+        n, gifs = 0, {}
+        for job in self._jobs:
+            count, frames = job.result()
+            n += count
+            for name, frame in frames.items():
+                gifs.setdefault(name, []).append(frame)
+        for name, frames in gifs.items():
+            if len(frames) > 1:
+                os.makedirs(self.out_dir, exist_ok=True)
+                with open(os.path.join(self.out_dir, f"{name}.gif"),
+                          "wb") as fh:
+                    fh.write(gif_bytes(frames))
+                n += 1
+        return n
 
 
 # ---------------------------------------------------------------------------
