@@ -10,10 +10,12 @@ in place of the system, the control, the reference computed a precision
 below the configuration's (every MLP product in float8 e4m3, under
 bf16's ``mixed``), and each fault the cell can have, planted in the
 reference: for a train cell half of the batch left out (the mean over
-the rest) and one leaf's gradient doubled (a state left unchanged reads
-1 by the change's measure and needs no run); for a render or test cell
-an eighth of an image's pixels moved by 64 levels (one bit flipped) and
-half of them left black.
+the rest) and one leaf's gradient doubled, the first leaf in an LLFF
+cell, in a Blender cell the first outside the density heads whose norm
+is at least the median leaf's (a state left unchanged reads 1 by the
+change's measure and needs no run); for a
+render or test cell an eighth of an image's pixels moved by 64 levels
+(one bit flipped) and half of them left black.
 Needs a CUDA card; the benchmark's own runs do not run it.
 """
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
@@ -29,8 +32,19 @@ import torch
 from nerfbench import inputs, run, spec
 from nerfbench.drivers import arch_of, image_mae, pick
 from nerfbench.drivers import train as train_driver
+from nerfbench.drivers import train_blender
 from nerfbench.drivers.render import reference_image, spiral_views
+from nerfbench.reference import blender as bref
 from nerfbench.reference import nerf as ref
+
+# the faults planted in each kind of train cell; a Blender cell doubles
+# the gradient of a leaf that its compared numbers see whole (its first
+# leaf, the proposal MLP's first weight, has 0.07-0.48 of the median
+# leaf's norm, and a gap is read over the larger of the two)
+TRAIN_FAULTS = {"train": ("half_batch", "doubled_leaf"),
+                "train_blender": ("half_batch", "doubled_body_leaf")}
+TRAIN_KINDS = tuple(TRAIN_FAULTS)
+
 
 class _Planted:
     """A fault planted in the reference for the length of a ``with``."""
@@ -40,18 +54,27 @@ class _Planted:
 
     def __enter__(self):
         if self.fault == "half_batch":
-            rows = ref.TrainData.rows
-            self._patch(ref.TrainData, "rows",
-                        lambda data, idx: rows(data, idx[:len(idx) // 2]))
+            for data_class in (ref.TrainData, bref.TrainData):
+                self._half_rows(data_class)
         elif self.fault == "doubled_leaf":
-            step = ref.Adam.step
-
-            def doubled(opt, wts, grads):
-                first = next(iter(grads))
-                return step(opt, wts, {k: g * 2.0 if k == first else g
-                                       for k, g in grads.items()})
-            self._patch(ref.Adam, "step", doubled)
+            self._double(lambda grads: next(iter(grads)))
+        elif self.fault == "doubled_body_leaf":
+            self._double(_first_body_leaf)
         return self
+
+    def _double(self, pick):
+        step = ref.Adam.step
+
+        def doubled(opt, wts, grads):
+            leaf = pick(grads)
+            return step(opt, wts, {k: g * 2.0 if k == leaf else g
+                                   for k, g in grads.items()})
+        self._patch(ref.Adam, "step", doubled)
+
+    def _half_rows(self, data_class):
+        rows = data_class.rows
+        self._patch(data_class, "rows",
+                    lambda data, idx: rows(data, idx[:len(idx) // 2]))
 
     def _patch(self, obj, name, value):
         self.undo.append((obj, name, getattr(obj, name)))
@@ -62,9 +85,20 @@ class _Planted:
             setattr(obj, name, value)
 
 
+def _first_body_leaf(grads):
+    """The first leaf, outside the density heads, whose gradient's norm is
+    at least the median leaf's."""
+    norms = {k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()}
+    med = statistics.median(norms.values())
+    return next(k for k, g in grads.items()
+                if not train_blender.density_head(g) and norms[k] >= med)
+
+
 def train_readings(cell, seed, device, precision="fp8", fault=None):
     """The train numbers of the reference at ``precision`` (with
     ``fault`` planted) read against the f32 reference."""
+    if cell.kind == "train_blender":
+        return blender_readings(cell, seed, device, precision, fault)
     config, traffic = cell.config, cell.traffic
     arch = arch_of(config)
     w, h = arch["img_wh"]
@@ -81,6 +115,21 @@ def train_readings(cell, seed, device, precision="fp8", fault=None):
         low = train_driver.reference_steps(*args, precision=precision)
     high = train_driver.reference_steps(*args)
     return train_driver.gaps(wts, *low, *high)
+
+
+def blender_readings(cell, seed, device, precision="fp8", fault=None):
+    """``train_readings`` of a Blender cell, on its scene."""
+    arch = arch_of(cell.config)
+    c2ws, rgba, wts = train_blender.scene_inputs(cell, seed, device)
+    n_rows = len(c2ws) * (rgba.shape[1] // arch["downscale"]) \
+        * (rgba.shape[2] // arch["downscale"])
+    args = (wts, c2ws, rgba, arch, cell.config, seed,
+            max(1, n_rows // arch["batch_size"]),
+            cell.traffic["check_steps"], device)
+    with _Planted(fault):
+        low = train_blender.reference_steps(*args, precision=precision)
+    high = train_blender.reference_steps(*args)
+    return train_blender.numbers(wts, *low, *high)
 
 
 def _checked_poses(cell, seed):
@@ -118,13 +167,12 @@ def image_readings(cell, seed, device, precision="fp8"):
 
 def readings(cell, seed, device):
     """{reading: {number: value}} of the control and the faults."""
-    if cell.kind != "train":
+    if cell.kind not in TRAIN_KINDS:
         return image_readings(cell, seed, device)
-    return {"fp8": train_readings(cell, seed, device),
-            "half_batch": train_readings(cell, seed, device, "f32",
-                                         "half_batch"),
-            "doubled_leaf": train_readings(cell, seed, device, "f32",
-                                           "doubled_leaf")}
+    out = {"fp8": train_readings(cell, seed, device)}
+    for fault in TRAIN_FAULTS[cell.kind]:
+        out[fault] = train_readings(cell, seed, device, "f32", fault)
+    return out
 
 
 def _emit(row, out):

@@ -27,7 +27,7 @@ def test_reference_agrees_with_the_system(name):
     # a gradient element is near 0), or a level where the truncation to
     # uint8 falls the other way
     most = {"loss_gap": 1e-4, "grad_gap": 1e-4, "grad_diff": 1e-4,
-            "later_grad_diff": 1e-4,
+            "later_grad_diff": 1e-4, "grad_diff_body": 1e-4,
             "change_gap": 3e-3, "rgb_mae": 0.5, "gt_bytes_differ": 0}
     for k, c in line["checks"].items():
         assert c["value"] <= most[k], (k, c)
@@ -57,6 +57,21 @@ def _doubled_leaf(monkeypatch):
     monkeypatch.setattr(NeRFSystem, "_clip_grads", double_first)
 
 
+def _doubled_body_leaf(monkeypatch):
+    """One leaf's gradient doubled: the first outside the density heads
+    (a layer with one output) whose norm is at least the median leaf's."""
+    from nerfbench.drivers.train_blender import density_head
+    from nerfsr_torch.models.nerf_system import NeRFSystem
+
+    def double_body(self, optimizer):
+        params = optimizer.param_groups[0]["params"]
+        norms = [float(p.grad.norm()) for p in params]
+        med = float(np.median(norms))
+        next(p for p, n in zip(params, norms)
+             if not density_head(p) and n >= med).grad.mul_(2.0)
+    monkeypatch.setattr(NeRFSystem, "_clip_grads", double_body)
+
+
 def _altered_image(monkeypatch):
     from nerfsr_torch.models.nerf_system import NeRFSystem
     orig = NeRFSystem.eval_image_device_pose
@@ -81,6 +96,7 @@ def _half_image(monkeypatch):
 
 
 FAULTS = {"train": [_stuck_adam, _half_batch, _doubled_leaf],
+          "train_blender": [_stuck_adam, _half_batch, _doubled_body_leaf],
           "render": [_altered_image, _half_image],
           "test": [_altered_image, _half_image]}
 CASES = [(name, f) for name in CELLS
