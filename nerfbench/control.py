@@ -7,15 +7,18 @@ seeds, and the control's and each fault's on a few.
 ``--system`` seeds run the whole cell (a short window, then the check)
 in this one process and report the numbers compared. ``--seeds`` read,
 in place of the system, the control, the reference computed a precision
-below the configuration's (every MLP product in float8 e4m3, under
-bf16's ``mixed``), and each fault the cell can have, planted in the
+below the configuration's (its ``control``: every product's operands in
+float8 e4m3 under bf16's ``mixed``, the default, or in bfloat16 under
+float32 or TF32), and each fault the cell can have, planted in the
 reference: for a train cell half of the batch left out (the mean over
 the rest) and one leaf's gradient doubled, the first leaf in an LLFF
 cell, in a Blender cell the first outside the density heads whose norm
-is at least the median leaf's (a state left unchanged reads 1 by the
-change's measure and needs no run); for a
-render or test cell an eighth of an image's pixels moved by 64 levels
-(one bit flipped) and half of them left black.
+is at least the median leaf's, in a refine cell the first whose norm is
+at least the median leaf's, and in a refine cell too batch norm's
+running statistics left where they were (a state left unchanged reads 1
+by the change's measure and needs no run); for a render or test cell an
+eighth of an image's pixels moved by 64 levels (one bit flipped) and
+half of them left black.
 Needs a CUDA card; the benchmark's own runs do not run it.
 """
 
@@ -29,20 +32,23 @@ import time
 
 import torch
 
-from nerfbench import inputs, run, spec
+from nerfbench import inputs, refine_inputs, run, spec
 from nerfbench.drivers import arch_of, image_mae, pick
 from nerfbench.drivers import train as train_driver
-from nerfbench.drivers import train_blender
+from nerfbench.drivers import train_blender, train_refine
 from nerfbench.drivers.render import reference_image, spiral_views
 from nerfbench.reference import blender as bref
 from nerfbench.reference import nerf as ref
+from nerfbench.reference import refine as rref
 
 # the faults planted in each kind of train cell; a Blender cell doubles
 # the gradient of a leaf that its compared numbers see whole (its first
 # leaf, the proposal MLP's first weight, has 0.07-0.48 of the median
 # leaf's norm, and a gap is read over the larger of the two)
 TRAIN_FAULTS = {"train": ("half_batch", "doubled_leaf"),
-                "train_blender": ("half_batch", "doubled_body_leaf")}
+                "train_blender": ("half_batch", "doubled_body_leaf"),
+                "train_refine": ("half_batch", "doubled_median_leaf",
+                                 "stats_unmoved")}
 TRAIN_KINDS = tuple(TRAIN_FAULTS)
 
 
@@ -56,10 +62,23 @@ class _Planted:
         if self.fault == "half_batch":
             for data_class in (ref.TrainData, bref.TrainData):
                 self._half_rows(data_class)
+            patches = rref.patches
+            self._patch(rref, "patches", lambda views, u, arch: patches(
+                views, u[:len(u) // 2], arch))
         elif self.fault == "doubled_leaf":
             self._double(lambda grads: next(iter(grads)))
         elif self.fault == "doubled_body_leaf":
             self._double(_first_body_leaf)
+        elif self.fault == "doubled_median_leaf":
+            self._double(_first_median_leaf)
+        elif self.fault == "stats_unmoved":
+            norm = rref.batch_norm
+
+            def unmoved(x, scale, bias, mean, var, moved, name):
+                out = norm(x, scale, bias, mean, var, moved, name)
+                moved[name + "mean"], moved[name + "var"] = mean, var
+                return out
+            self._patch(rref, "batch_norm", unmoved)
         return self
 
     def _double(self, pick):
@@ -85,13 +104,24 @@ class _Planted:
             setattr(obj, name, value)
 
 
+def _first_median_leaf(grads, keep=lambda g: True):
+    """The first leaf (that ``keep`` takes) whose gradient's norm is at
+    least the median leaf's."""
+    norms = {k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()}
+    med = statistics.median(norms.values())
+    return next(k for k, g in grads.items() if keep(g) and norms[k] >= med)
+
+
 def _first_body_leaf(grads):
     """The first leaf, outside the density heads, whose gradient's norm is
     at least the median leaf's."""
-    norms = {k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()}
-    med = statistics.median(norms.values())
-    return next(k for k, g in grads.items()
-                if not train_blender.density_head(g) and norms[k] >= med)
+    return _first_median_leaf(
+        grads, lambda g: not train_blender.density_head(g))
+
+
+def control_precision(cell) -> str:
+    """The precision one step below the configuration's."""
+    return cell.config.get("control", "fp8")
 
 
 def train_readings(cell, seed, device, precision="fp8", fault=None):
@@ -99,6 +129,8 @@ def train_readings(cell, seed, device, precision="fp8", fault=None):
     ``fault`` planted) read against the f32 reference."""
     if cell.kind == "train_blender":
         return blender_readings(cell, seed, device, precision, fault)
+    if cell.kind == "train_refine":
+        return refine_readings(cell, seed, device, precision, fault)
     config, traffic = cell.config, cell.traffic
     arch = arch_of(config)
     w, h = arch["img_wh"]
@@ -130,6 +162,20 @@ def blender_readings(cell, seed, device, precision="fp8", fault=None):
         low = train_blender.reference_steps(*args, precision=precision)
     high = train_blender.reference_steps(*args)
     return train_blender.numbers(wts, *low, *high)
+
+
+def refine_readings(cell, seed, device, precision="bf16", fault=None):
+    """``train_readings`` of a refine cell, on its views."""
+    arch = train_refine.arch_of(cell.config)
+    _, imgs, sr = refine_inputs.views(cell, seed, device)
+    wts, stats = refine_inputs.weights(seed, arch, device)
+    spe = max(1, arch["data_num"] // arch["batch_size"])
+    args = (wts, stats, imgs[arch["ref_idx"]], sr, arch, seed, spe,
+            cell.traffic["check_steps"], device)
+    with _Planted(fault):
+        low = train_refine.reference_steps(*args, precision=precision)
+    high = train_refine.reference_steps(*args)
+    return train_refine.numbers(wts, stats, *low, *high)
 
 
 def _checked_poses(cell, seed):
@@ -169,7 +215,8 @@ def readings(cell, seed, device):
     """{reading: {number: value}} of the control and the faults."""
     if cell.kind not in TRAIN_KINDS:
         return image_readings(cell, seed, device)
-    out = {"fp8": train_readings(cell, seed, device)}
+    low = control_precision(cell)
+    out = {low: train_readings(cell, seed, device, low)}
     for fault in TRAIN_FAULTS[cell.kind]:
         out[fault] = train_readings(cell, seed, device, "f32", fault)
     return out

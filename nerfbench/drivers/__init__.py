@@ -30,21 +30,23 @@ ARCH_KEYS = ("img_wh", "downscale", "batch_size", "D", "W", "skips",
              "prop_pad_anneal_frac", "noise_std", "lr", "n_epochs")
 
 
-def arch_of(config: dict) -> dict:
-    return {k: config[k] for k in ARCH_KEYS}
+def arch_of(config: dict, keys=ARCH_KEYS) -> dict:
+    return {k: config[k] for k in keys}
 
 
-def program_options(config: dict, phase: str, device, **extra):
+def program_options(config: dict, phase: str, device, keys=ARCH_KEYS,
+                    **extra):
     """The system's options for the configuration (``options`` and every
-    size), checked key by key after the system's own preset expansion."""
+    size in ``keys``), checked key by key after the system's own preset
+    expansion."""
     from nerfsr_torch.config import default_options
 
     over = dict(config["options"])
-    over.update({k: config[k] for k in ARCH_KEYS})
+    over.update({k: config[k] for k in keys})
     over.update(extra)
     over["device"] = str(device)
     opt = default_options(phase, **over)
-    for k in ARCH_KEYS:
+    for k in keys:
         got = getattr(opt, k)
         want = config[k]
         if (list(got) if isinstance(got, (list, tuple)) else got) != want:

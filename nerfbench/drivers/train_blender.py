@@ -12,32 +12,29 @@ directory is removed once read. The ``train_crop`` warm-up, which draws
 a run's first 1000 steps from the views' centre crops, is left out: the
 window is the run's steady state, past the warm-up.
 
-The rest is ``drivers/train.py``'s (its helpers imported): the window's
-own call, ``train_steps_scan``, runs one step (eager; it captures the
-step's CUDA graph), the same state goes back to the seed in place and
-runs ``check_steps`` one-step chunks as replays; the window repeats
-chunks of ``chunk_steps`` steps, each followed by its loss read; the
-check follows the checked steps with the Blender reference
-(``reference/blender.py``) on the same rows and draws, and adds one
-number of the first gradient to ``drivers/train.py``'s (``numbers``).
+The rest is the flow every training cell shares (``drivers/chunks.py``):
+one captured step, the state back at the seed, ``check_steps`` replayed
+steps, the window of ``chunk_steps``-step chunks, each followed by its
+loss read. The check follows the checked steps with the Blender
+reference (``reference/blender.py``) on the same rows and draws, and
+adds one number of the first gradient to ``drivers/train.py``'s
+(``numbers``).
 """
 
 from __future__ import annotations
 
 import shutil
 import statistics
-import sys
 import tempfile
 
 import numpy as np
 import torch
 
 from nerfbench import inputs, scene360
-from nerfbench import trace as tracing
-from nerfbench.drivers import (Phases, Result, arch_of, by_thirds,
-                               chunk_seed, free, leaf_norms, memory_peak,
-                               now, program_options, sync)
-from nerfbench.drivers.train import _read, gaps, restart, step_grad
+from nerfbench.drivers import (arch_of, chunk_seed, leaf_norms,
+                               program_options, sync)
+from nerfbench.drivers import chunks
+from nerfbench.drivers.train import gaps
 from nerfbench.reference import blender as bref
 from nerfbench.reference import nerf as ref
 
@@ -89,11 +86,10 @@ def load_buffer(config, c2ws, rgba, device):
     return opt, buffer
 
 
-def run(cell, seed: int, seconds: float, trace: bool, device) -> Result:
+def load(cell, seed: int, device, ph) -> chunks.Loaded:
     from nerfsr_torch.models import create_model
 
-    config, traffic, limits = cell.config, cell.traffic, cell.limits
-    ph = Phases()
+    config, limits = cell.config, cell.limits
     arch = arch_of(config)
     batch, ds = arch["batch_size"], arch["downscale"]
     c2ws, rgba, wts = scene_inputs(cell, seed, device)
@@ -107,71 +103,19 @@ def run(cell, seed: int, seconds: float, trace: bool, device) -> Result:
     state = system.create_state(seed=0, steps_per_epoch=steps_per_epoch)
     inputs.load_into(state.params, wts)
     ph.done("system")
-    gen = torch.Generator(device=device)
-    names = {id(p): k for k, p in state.params.named_parameters()}
 
-    gen.manual_seed(chunk_seed(seed, state.step))
-    state, _ = system.train_steps_scan(state, buffer, 1, gen)
-    restart(state, wts)
-    losses, grads, moment = [], [], None
-    for _ in range(traffic["check_steps"]):
-        gen.manual_seed(chunk_seed(seed, state.step))
-        state, out = system.train_steps_scan(state, buffer, 1, gen)
-        losses.append(float(out["tot"]))
-        m = {names[id(p)]: st["exp_avg"].detach().clone()
-             for p, st in state.optimizer.state.items()}
-        grads.append(step_grad(m, moment, opt.beta1))
-        moment = m
-    del moment
-    after = {k: p.detach().clone()
-             for k, p in state.params.named_parameters()}
-    sync(device)
-    ph.done("first steps")
-    window_start = now()
+    def check(losses, grads, after, _stats):
+        r = reference_steps(wts, c2ws, rgba, arch, config, seed,
+                            steps_per_epoch, len(losses), device)
+        return [(name, v, limits.get(name)) for name, v in
+                numbers(wts, losses, grads, after, *r).items()]
+    return chunks.Loaded(
+        system, state, buffer, state.params, wts, {}, opt.beta1, check,
+        {"kind": "train", "arch": arch}, "rays", batch * ds * ds)
 
-    chunk = traffic["chunk_steps"]
-    steps, t0, ends = 0, now(), []
-    while True:
-        gen.manual_seed(chunk_seed(seed, state.step))
-        state, out = system.train_steps_scan(state, buffer, chunk, gen)
-        _read(out)
-        steps += chunk
-        ends.append(now())
-        if ends[-1] - t0 >= seconds:
-            break
-    sync(device)
-    window_s = now() - t0
-    peak = memory_peak(device)
-    ph.done(f"window ({steps} steps)")
 
-    rays_per_step = batch * ds * ds
-    print("[nerfbench] rays/s by thirds of the window: " + " ".join(
-        f"{chunk * rays_per_step / s:.1f}" for s in by_thirds(t0, ends)),
-        file=sys.stderr)
-    ctx = {"kind": "train", "arch": arch, "rays_per_unit": rays_per_step,
-           "units": steps, "window_s": window_s}
-    if trace:
-        n = traffic["traced_chunks"]
-        box = [n * chunk]
-        with tracing.record(box) as got:
-            for _ in range(n):
-                gen.manual_seed(chunk_seed(seed, state.step))
-                state, out = system.train_steps_scan(state, buffer, chunk,
-                                                     gen)
-                _read(out)
-            sync(device)
-        ctx["trace"] = got[0]
-        ph.done("trace")
-
-    del system, state, buffer, gen
-    free(device)
-    r = reference_steps(wts, c2ws, rgba, arch, config, seed, steps_per_epoch,
-                        len(losses), device)
-    checks = [(name, v, limits.get(name)) for name, v in
-              numbers(wts, losses, grads, after, *r).items()]
-    ph.done("check")
-    return Result({"train_rays_per_s": steps * rays_per_step / window_s},
-                  ctx, checks, steps, 0, peak, window_start)
+def run(cell, seed: int, seconds: float, trace: bool, device):
+    return chunks.run(cell, seed, seconds, trace, device, load)
 
 
 def numbers(wts, losses, grads, after, r_losses, r_grads, r_after) -> dict:

@@ -20,9 +20,10 @@ both sides sample the same rows and depths; that order is part of what
 this file holds the system to.
 
 ``precision`` picks how every MLP product is computed: ``f32`` (TF32
-off: ``strict_f32``), or ``fp8``, the control, which rounds both
-operands of each product (and of each backward product) to float8 e4m3
-with a per-tensor scale, the step below the configuration's bf16.
+off: ``strict_f32``), or a control, which rounds both operands of each
+product (and of each backward product) and accumulates in f32: ``fp8``
+to float8 e4m3 with a per-tensor scale, the step below a configuration's
+bf16, or ``bf16``, the step below a configuration's float32.
 """
 
 from __future__ import annotations
@@ -50,28 +51,39 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
     return (x / s).to(torch.float8_e4m3fn).to(torch.float32) * s
 
 
-class _Fp8Linear(torch.autograd.Function):
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest, ties to even), back in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+# each control's rounding of a product's operands
+ROUNDING = {"fp8": _fp8, "bf16": bf16}
+
+
+class _RoundedLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
-        xq, wq = _fp8(x), _fp8(w)
+    def forward(ctx, x, w, b, rnd):
+        xq, wq = rnd(x), rnd(w)
         ctx.save_for_backward(xq, wq)
+        ctx.rnd = rnd
         return xq @ wq.T + b
 
     @staticmethod
     def backward(ctx, gy):
         xq, wq = ctx.saved_tensors
-        gq = _fp8(gy)
+        gq = ctx.rnd(gy)
         return gq @ wq, gq.reshape(-1, gq.shape[-1]).T @ xq.reshape(
-            -1, xq.shape[-1]), gy.reshape(-1, gy.shape[-1]).sum(0)
+            -1, xq.shape[-1]), gy.reshape(-1, gy.shape[-1]).sum(0), None
 
 
 def linear(x, w, b, precision: str):
     if precision == "f32":
         return F.linear(x, w, b)
-    if precision == "fp8":
+    if precision in ROUNDING:
         shape = x.shape[:-1]
-        return _Fp8Linear.apply(x.reshape(-1, x.shape[-1]), w,
-                                b).reshape(shape + (w.shape[0],))
+        return _RoundedLinear.apply(x.reshape(-1, x.shape[-1]), w, b,
+                                    ROUNDING[precision]).reshape(
+                                        shape + (w.shape[0],))
     raise ValueError(f"unknown precision {precision}")
 
 

@@ -36,7 +36,9 @@ def test_the_runner_loads_no_jax():
 
 def test_the_reference_loads_nothing_of_the_system():
     tops = _loaded("import nerfbench.reference.nerf, "
-                   "nerfbench.reference.lanczos")
+                   "nerfbench.reference.lanczos, "
+                   "nerfbench.reference.blender, "
+                   "nerfbench.reference.refine")
     assert not tops & (BANNED | {"nerfsr_torch"})
     for path in (spec.ROOT / "nerfbench" / "reference").glob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):

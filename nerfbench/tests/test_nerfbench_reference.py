@@ -28,7 +28,9 @@ def test_reference_agrees_with_the_system(name):
     # uint8 falls the other way
     most = {"loss_gap": 1e-4, "grad_gap": 1e-4, "grad_diff": 1e-4,
             "later_grad_diff": 1e-4, "grad_diff_body": 1e-4,
-            "change_gap": 3e-3, "rgb_mae": 0.5, "gt_bytes_differ": 0}
+            "change_gap": 3e-3, "first_stats_diff": 1e-4, "stats_diff": 1e-4,
+            "rgb_mae": 0.5,
+            "gt_bytes_differ": 0}
     for k, c in line["checks"].items():
         assert c["value"] <= most[k], (k, c)
 
@@ -72,6 +74,49 @@ def _doubled_body_leaf(monkeypatch):
     monkeypatch.setattr(NeRFSystem, "_clip_grads", double_body)
 
 
+def _half_patches(monkeypatch):
+    """The refine step on half of its patches (the mean over the rest,
+    batch norm's statistics over them)."""
+    from nerfsr_torch.models.refine_system import RefineSystem
+    orig = RefineSystem.sample_patch_batch
+
+    def half(self, buffers, generator=None):
+        batch = orig(self, buffers, generator)
+        n = batch["gt_patch"].shape[0] // 2
+        return {k: v[:n] for k, v in batch.items()}
+    monkeypatch.setattr(RefineSystem, "sample_patch_batch", half)
+
+
+def _doubled_median_leaf(monkeypatch):
+    """One leaf's gradient doubled before Adam's step: the first whose
+    norm is at least the median leaf's."""
+    from nerfsr_torch.utils import optim
+    step = optim.Adam.step
+
+    def doubled(self, closure=None):
+        params = [p for p in self.param_groups[0]["params"]
+                  if p.grad is not None]
+        norms = [float(p.grad.norm()) for p in params]
+        med = float(np.median(norms))
+        next(p for p, n in zip(params, norms) if n >= med).grad.mul_(2.0)
+        return step(self, closure)
+    monkeypatch.setattr(optim.Adam, "step", doubled)
+
+
+def _stats_unmoved(monkeypatch):
+    """Batch norm normalizes by the batch's statistics but leaves its
+    running ones where they were."""
+    from nerfsr_torch.models import networks
+
+    def forward(self, x):
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+    monkeypatch.setattr(networks.BatchNorm, "forward", forward)
+
+
 def _altered_image(monkeypatch):
     from nerfsr_torch.models.nerf_system import NeRFSystem
     orig = NeRFSystem.eval_image_device_pose
@@ -97,6 +142,8 @@ def _half_image(monkeypatch):
 
 FAULTS = {"train": [_stuck_adam, _half_batch, _doubled_leaf],
           "train_blender": [_stuck_adam, _half_batch, _doubled_body_leaf],
+          "train_refine": [_stuck_adam, _half_patches, _doubled_median_leaf,
+                           _stats_unmoved],
           "render": [_altered_image, _half_image],
           "test": [_altered_image, _half_image]}
 CASES = [(name, f) for name in CELLS

@@ -52,8 +52,9 @@ def test_names_units_and_bounds():
                                           "layer", "moves"}
     assert len(json.dumps(BENCH)) < 64 * 1024
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert set(e2e) == {"train_rays_per_s", "render_image_ms",
-                        "render_image_ms_p95", "test_image_ms", "setup_s"}
+    assert set(e2e) == {"train_rays_per_s", "train_patches_per_s",
+                        "render_image_ms", "render_image_ms_p95",
+                        "test_image_ms", "setup_s"}
     for m in e2e.values():
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
