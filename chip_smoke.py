@@ -22,8 +22,12 @@
    backgrounds, at S=16 (the llff step) and S=64 and 128 (the parity
    step's two levels), each timed beside its bound; fused MLP backward at
    P=32,768 in bf16 and f32, with its three launches' split from the
-   profiler). The MLP kernels are timed on weights packed before the
-   timed calls (the wrapper's cache), so the packing is not in the time.
+   profiler); kernel F, the positional encoding (``check_posenc``), bit
+   for bit against the chain of ``core/encoding.py`` and timed beside it
+   and its bytes bound at each of a serving chunk's four calls and the
+   parity step's two shapes. The MLP kernels are timed on weights packed
+   before the timed calls (the wrapper's cache), so the packing is not in
+   the time.
    Then each kernel again at the shapes the datasets phase gives it
    first (``check_new_shapes``): A at 95 and 47 bins (Q 48), B at S = 48,
    64 and 128 and D at S = 48 with a white background, C and E in bf16 at
@@ -764,6 +768,72 @@ def check_fused_mlp_bwd(dev, gen):
     return out
 
 
+# kernel F's shapes, (name, input rows, repeat, frequencies): a serving
+# chunk of 4096 rays (the proposal rounds' 48 and 24 samples at deg_prop
+# 6, the fine level's 16 samples at deg_pos 10 and its directions at
+# deg_dir 4, one a ray for its 16 samples), then the parity step's (2048
+# rays, each level's 64 samples and its directions)
+POSENC_CHUNK = (("prop48", 4096 * 48, 1, 6), ("prop24", 4096 * 24, 1, 6),
+                ("fine_pts", 4096 * 16, 1, 10), ("fine_dirs", 4096, 16, 4))
+POSENC_PARITY = (("level_pts", 2048 * 64, 1, 10),
+                 ("level_dirs", 2048, 64, 4))
+
+
+def posenc_bytes(rows, repeat, nf, c=3):
+    """Kernel F's bytes: each input row read once, each output row
+    written once (f32, identity included)."""
+    return 4 * rows * (c + repeat * (c + 2 * nf * c))
+
+
+def check_posenc(dev, gen):
+    """Kernel F against the chain (``core/encoding.py``) at the serving
+    chunk's and the parity step's shapes: bit for bit, then timed beside
+    the chain and its bytes bound. Returns the per-call means over a
+    chunk's four calls (the kernels line), the chunk's, an image's and a
+    parity step's totals, and every shape's row."""
+    from nerfsr_torch.core.encoding import positional_encoding as chain
+    from nerfsr_torch.kernels import COUNTS
+    from nerfsr_torch.kernels.posenc import positional_encoding, repeat_rows
+    from nerfsr_torch.timing import time_ms
+
+    shapes, err = {}, 0.0
+    for name, rows, repeat, nf in POSENC_CHUNK + POSENC_PARITY:
+        x = (torch.rand((rows, 3), generator=gen) * 4 - 2).to(dev)
+        got = positional_encoding(x, nf, repeat=repeat)
+        torch.cuda.synchronize()
+        ref = chain(repeat_rows(x, repeat) if repeat > 1 else x, nf)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            fail(f"posenc {name}: kernel F differs from the chain")
+        err = max(err, (got - ref).abs().max().item())
+        row = {"rows": rows, "repeat": repeat, "freqs": nf,
+               "ms": time_ms(lambda: positional_encoding(x, nf,
+                                                         repeat=repeat)),
+               "plain_ms": time_ms(lambda: chain(
+                   repeat_rows(x, repeat) if repeat > 1 else x, nf)),
+               "bound_ms": posenc_bytes(rows, repeat, nf) / HBM_BYTES_PER_S
+               * 1e3}
+        shapes[name] = row
+        print(f"[kernel F] posenc {name}: {rows} rows x repeat {repeat} at "
+              f"{nf} frequencies, bit for bit the chain; {row['ms']:.4f} ms "
+              f"a call, chain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} "
+              f"of it)")
+    keys = ("ms", "plain_ms", "bound_ms")
+    chunk = {k: sum(shapes[n][k] for n, *_ in POSENC_CHUNK) for k in keys}
+    chunks = -(-(HR_WH[0] * HR_WH[1]) // 4096)
+    image = {k: v * chunks for k, v in chunk.items()}
+    parity = {k: 2 * sum(shapes[n][k] for n, *_ in POSENC_PARITY)
+              for k in keys}
+    print(f"[kernel F] a serving image ({chunks} chunks, 4 calls each): "
+          f"{image['ms']:.3f} ms, chain {image['plain_ms']:.3f} ms, bound "
+          f"{image['bound_ms']:.3f} ms; a parity step (4 calls): "
+          f"{parity['ms']:.4f} ms, chain {parity['plain_ms']:.4f} ms, bound "
+          f"{parity['bound_ms']:.4f} ms; launches so far {COUNTS['posenc']}")
+    return {**{k: v / len(POSENC_CHUNK) for k, v in chunk.items()},
+            "max_abs_err": err, "bound_by": "bytes", "chunk": chunk,
+            "image": image, "parity_step": parity, "shapes": shapes}
+
+
 def _mlp_case(p, gen, dev):
     """A full-width MLP's flat weights and P points' embeddings and
     cotangents (as kernel E meets them in a step)."""
@@ -1053,7 +1123,8 @@ def slice_phase(dev, card):
     expect = {"invert_cdf": 2 * n_chunks * N_VIEWS,
               "composite_fwd": n_chunks * N_VIEWS,
               "fused_mlp_fwd": n_chunks * N_VIEWS,
-              "composite_bwd": 0, "fused_mlp_bwd": 0}
+              "composite_bwd": 0, "fused_mlp_bwd": 0,
+              "posenc": 4 * n_chunks * N_VIEWS}
     if counts != expect:
         fail(f"launch counts {counts}, expected {expect}")
     n_lr = (w // DOWNSCALE) * (h // DOWNSCALE)
@@ -1228,7 +1299,7 @@ def train_phase(dev, card):
     torch.cuda.synchronize()
     per_step = dict(COUNTS)
     want = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
-            "composite_bwd": 1, "fused_mlp_bwd": 1}
+            "composite_bwd": 1, "fused_mlp_bwd": 1, "posenc": 4}
     if per_step != want:
         fail(f"per-step launch counts {per_step}, expected {want}")
 
@@ -1389,7 +1460,8 @@ def eval_vs_eager(dev, card, precision="mixed", **extra):
         want = {"invert_cdf": 2 * chunks * N_VIEWS,
                 "composite_fwd": chunks * N_VIEWS,
                 "fused_mlp_fwd": chunks * N_VIEWS,
-                "composite_bwd": 0, "fused_mlp_bwd": 0}
+                "composite_bwd": 0, "fused_mlp_bwd": 0,
+                "posenc": 4 * chunks * N_VIEWS}
         if dict(COUNTS) != want:
             fail(f"eval {route}: launch counts {dict(COUNTS)}, expected "
                  f"{want}")
@@ -1671,9 +1743,10 @@ def _launches_per(counts, steps, images):
     w, h = HR_WH
     chunks = -(-(w * h) // 4096)
     step = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
-            "composite_bwd": 1, "fused_mlp_bwd": 1}
+            "composite_bwd": 1, "fused_mlp_bwd": 1, "posenc": 4}
     image = {"invert_cdf": 2 * chunks, "composite_fwd": chunks,
-             "fused_mlp_fwd": chunks, "composite_bwd": 0, "fused_mlp_bwd": 0}
+             "fused_mlp_fwd": chunks, "composite_bwd": 0, "fused_mlp_bwd": 0,
+             "posenc": 4 * chunks}
     want = {k: steps * step[k] + images * image[k] for k in step}
     if counts != want:
         fail(f"engine launch counts {counts}, expected {want} ({steps} "
@@ -1847,14 +1920,16 @@ DS_STEPS = 40
 DS_WARMUP = 50
 DS_CUTS = ["--n_epochs_decay", "0", "--steps_per_epoch", str(DS_STEPS),
            "--print_freq", "10"]
+# kernel F: 4 a render (each level's points and directions; or the two
+# proposal rounds' points, and the fine level's points and directions)
 PARITY = ({"invert_cdf": 0, "composite_fwd": 2, "fused_mlp_fwd": 2,
-           "composite_bwd": 2, "fused_mlp_bwd": 2},
+           "composite_bwd": 2, "fused_mlp_bwd": 2, "posenc": 4},
           {"invert_cdf": 0, "composite_fwd": 2, "fused_mlp_fwd": 2,
-           "composite_bwd": 0, "fused_mlp_bwd": 0})
+           "composite_bwd": 0, "fused_mlp_bwd": 0, "posenc": 4})
 FAST = ({"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
-         "composite_bwd": 1, "fused_mlp_bwd": 1},
+         "composite_bwd": 1, "fused_mlp_bwd": 1, "posenc": 4},
         {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
-         "composite_bwd": 0, "fused_mlp_bwd": 0})
+         "composite_bwd": 0, "fused_mlp_bwd": 0, "posenc": 4})
 _TRAIN = ["--lr_policy", "exp", "--lr", "5e-4", "--lr_final", "5e-6"]
 # each run: the flags of the model and data (train and test), the
 # training flags, and the test split and its flags
@@ -2528,7 +2603,8 @@ AUX_PATCH_WH = (252, 189)
 AUX_PATCH_BATCH = 2048
 _MAIN = FAST[0]
 _GAN = {"invert_cdf": 4, "composite_fwd": 2, "fused_mlp_fwd": 2,
-        "composite_bwd": 1, "fused_mlp_bwd": 1}     # two renders, one bwd
+        "composite_bwd": 1, "fused_mlp_bwd": 1,
+        "posenc": 8}                                 # two renders, one bwd
 _REF = {k: 2 * v for k, v in _MAIN.items()}        # the main and ref rays
 
 
@@ -3173,9 +3249,10 @@ def dist_phase(dev, card, work):
 # no --model; and the modules no path calls, card against CPU
 NEUTEX = ["--mlp_network", "neutex_mlp"]
 # NeuTex does not fit kernel C, so its layers take the module path (cuBLAS)
-# and its backward is autograd's: a step runs A twice, B and D once
+# and its backward is autograd's: a step runs A twice, B and D once, and
+# F 4 times (the two proposal rounds, the points and the directions)
 NEUTEX_STEP = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 0,
-               "composite_bwd": 1, "fused_mlp_bwd": 0}
+               "composite_bwd": 1, "fused_mlp_bwd": 0, "posenc": 4}
 TEMPLATE_STEPS, TEMPLATE_EPOCHS = 50, 4
 # ResnetGenerator at pix2pix's width (ngf 64, 9 blocks) on 4 256x256
 # images in training mode, card (f32, TF32 off) against the CPU in f32
@@ -3404,7 +3481,8 @@ def zoo_phase(dev, card, work):
         fail(f"zoo engine chunks: {log.chunks}")
     w, h = HR_WH
     chunks = -(-(w * h) // 4096)
-    image = {"invert_cdf": 2 * chunks, "composite_fwd": chunks}
+    image = {"invert_cdf": 2 * chunks, "composite_fwd": chunks,
+             "posenc": 4 * chunks}
     # the epoch's validation renders the val view twice (device metrics,
     # then the read-back strips)
     want = {k: ENGINE_STEPS * v + 2 * image.get(k, 0)
@@ -3960,6 +4038,7 @@ def main():
     c = check_fused_mlp(dev, gen)
     d = check_composite_bwd(dev, gen)
     e = check_fused_mlp_bwd(dev, gen)
+    f = check_posenc(dev, gen)
     new_shapes = check_new_shapes(dev, gen)
     new_shapes["aux"] = check_aux_shapes(dev, gen)
     new_shapes["f32"] = check_f32_shapes(dev, gen)
@@ -3994,8 +4073,8 @@ def main():
         jpeg_out["phase_s"] = time.perf_counter() - t0
         print(f"[jpeg] phase {jpeg_out['phase_s']:.1f} s")
 
-    # launches: the timed training window (graph replays), which runs all
-    # five kernels; the f32 route's, the f32 phase's graphed chunk
+    # launches: the timed training window (graph replays), which runs
+    # kernels A-F; the f32 route's, the f32 phase's graphed chunk
     f32_launches = f32_out["llff"]["graphed_launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     ops = "nerfsr_tpu/ops/experimental/"
@@ -4030,6 +4109,12 @@ def main():
              launches=counts["fused_mlp_bwd"],
              **{k: e["bf16"][k] for k in keys}),
         # the f32 route: launches from the f32 phase's graphed chunk
+        # kernel F replaces no TPU kernel: XLA fuses the JAX package's
+        # encoding into its consumer
+        dict(name="posenc", route="cuda",
+             source="nerfsr_torch/csrc/posenc.cu",
+             replaces="none (nerfsr_torch/core/encoding.py's chain)",
+             launches=counts["posenc"], **{k: f[k] for k in keys}),
         dict(name="fused_mlp_fwd_f32", route="cuda", source=F32_SOURCES[0],
              replaces=ops + "pallas_mlp.py:183",
              launches=f32_launches["fused_mlp_fwd"],
@@ -4052,6 +4137,7 @@ def main():
                                  "fused_mlp_bf16_cublas_chain_ms":
                                      c["bf16"]["cublas_chain_ms"],
                                  "fused_mlp_bwd": e,
+                                 "posenc": f,
                                  "slice": {"ms_per_image": ms_img,
                                            "hr_rays_per_s": rays_s,
                                            "chunk_errors": slice_err,

@@ -20,6 +20,16 @@ def posenc_channels(in_channels: int, num_freqs: int,
     return out
 
 
+def frequencies(num_freqs: int, log_scale: bool = True,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """The encoding's frequencies: 2^k (log scale) or evenly spaced from
+    1 to 2^(num_freqs - 1), computed on ``device``."""
+    if log_scale:
+        return 2.0 ** torch.arange(num_freqs, dtype=dtype, device=device)
+    return torch.linspace(1.0, 2.0 ** (num_freqs - 1), num_freqs,
+                          dtype=dtype, device=device)
+
+
 def positional_encoding(x: torch.Tensor, num_freqs: int,
                         include_identity: bool = True,
                         log_scale: bool = True) -> torch.Tensor:
@@ -29,12 +39,7 @@ def positional_encoding(x: torch.Tensor, num_freqs: int,
     """
     if num_freqs == 0:
         return x if include_identity else x[..., :0]
-    if log_scale:
-        freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype,
-                                    device=x.device)
-    else:
-        freqs = torch.linspace(1.0, 2.0 ** (num_freqs - 1), num_freqs,
-                               dtype=x.dtype, device=x.device)
+    freqs = frequencies(num_freqs, log_scale, x.dtype, x.device)
     angles = x[..., None, :] * freqs[:, None]             # (..., F, C)
     enc = torch.stack([torch.sin(angles), torch.cos(angles)], dim=-2)
     enc = enc.reshape(x.shape[:-1] + (2 * num_freqs * x.shape[-1],))

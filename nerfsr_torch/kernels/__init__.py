@@ -5,6 +5,8 @@
   backward.
 - ``mlp``: kernels C and E, the fused D8/W256 NeRF MLP forward and its
   weight-gradient backward.
+- ``posenc``: kernel F, the sinusoidal positional encoding in one launch
+  (forward only, for inputs that need no gradient).
 
 Each wrapper takes its kernel's plain PyTorch version for a CPU tensor
 and launches the kernel (or raises) for a CUDA tensor. ``_lib`` builds

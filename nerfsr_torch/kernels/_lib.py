@@ -35,18 +35,18 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("invert_cdf.cu", "composite.cu", "fused_mlp_tc.cu",
            "fused_mlp_bwd_tc.cu", "fused_mlp_tf32.cu", "fused_mlp_bwd_tf32.cu",
-           "tf32_probe.cu")
+           "tf32_probe.cu", "posenc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 COUNTS = {"invert_cdf": 0, "composite_fwd": 0, "fused_mlp_fwd": 0,
-          "composite_bwd": 0, "fused_mlp_bwd": 0}
+          "composite_bwd": 0, "fused_mlp_bwd": 0, "posenc": 0}
 # kernel launches behind one count of a wrapper (kernel E runs as three,
 # in bf16 and in f32: tile recompute and backprop, weight-gradient
 # partials, reduce)
 LAUNCHES_PER_CALL = {"invert_cdf": 1, "composite_fwd": 1,
                      "fused_mlp_fwd": 1, "composite_bwd": 1,
-                     "fused_mlp_bwd": 3}
+                     "fused_mlp_bwd": 3, "posenc": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -83,6 +83,8 @@ _SIGNATURES = {
     "nerfsr_fused_mlp_bwd_tf32_layout": [_IP, _IP, _IP, _IP],
     # a, aimg, bimg, bsmall, d, mode, stream
     "nerfsr_tf32_probe": [_P] * 5 + [_I, _P],
+    # x, row stride, freqs, out, rows, c, n_freqs, identity, repeat, stream
+    "nerfsr_posenc": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # blocks, threads, stream: the empty kernel (launch floor)
     "nerfsr_empty_kernel": [_I, _I, _P],
 }

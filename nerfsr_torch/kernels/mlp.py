@@ -6,8 +6,9 @@ Twin of ``nerfsr_tpu/ops/experimental/pallas_mlp.py``: ``fused_nerf_mlp``'s
 forward (``_fwd`` / ``_fwd_pass``, kernel C) and its custom VJP's
 backward with ``bwd_mode="pallas"`` (``_bwd`` / ``_bwd_kernel_v3``, kernel
 E): the D8/W256 VanillaMLP with the skip at layer 4, on positional
-encodings computed outside the kernels. Only the architecture that
-``NeRFSystem._fused_mlp_ok`` accepts takes this path.
+encodings computed outside the kernels (kernel F, ``kernels/posenc.py``,
+or on the plain path the chain of ``core/encoding.py``). Only the
+architecture that ``NeRFSystem._fused_mlp_ok`` accepts takes this path.
 
 Numerics of ``compute_dtype``: float32 computes in f32. bfloat16 (the
 "mixed" precision) rounds the inputs, the weights and every activation
@@ -50,6 +51,7 @@ import torch
 
 from nerfsr_torch.core.encoding import positional_encoding
 from nerfsr_torch.kernels import _lib
+from nerfsr_torch.kernels import posenc as kposenc
 
 D = 8
 W = 256
@@ -633,16 +635,27 @@ def fused_mlp_fwd(params_flat, x0: torch.Tensor, dmb: torch.Tensor,
     return _FusedMLP.apply(compute_dtype, x0, dmb, *params_flat)
 
 
-def embed(points: torch.Tensor, viewdirs: torch.Tensor):
-    """The positional encodings kernel C takes (computed outside it)."""
-    return (positional_encoding(points, DEG_POS),
-            positional_encoding(viewdirs, DEG_DIR))
+def embed(points: torch.Tensor, viewdirs: torch.Tensor, repeat: int = 1,
+          plain: bool = False):
+    """The positional encodings kernel C takes, computed outside it:
+    points (P, 3) and viewdirs (P / repeat, 3), each direction that of
+    ``repeat`` consecutive points. Kernel F, or with ``plain`` the chain
+    of ``core/encoding.py``; the same bits either way."""
+    if plain:
+        if repeat > 1:
+            viewdirs = kposenc.repeat_rows(viewdirs, repeat)
+        return (positional_encoding(points, DEG_POS),
+                positional_encoding(viewdirs, DEG_DIR))
+    return (kposenc.positional_encoding(points, DEG_POS),
+            kposenc.positional_encoding(viewdirs, DEG_DIR, repeat=repeat))
 
 
 def fused_nerf_mlp(params_flat, points: torch.Tensor, viewdirs: torch.Tensor,
-                   compute_dtype=torch.float32, plain: bool = False):
-    """(rgb (P, 3), sigma (P,)) from raw points/viewdirs (P, 3): embed in
-    PyTorch, then kernel C (or, with ``plain``, its plain version)."""
-    x0, dmb = embed(points, viewdirs)
+                   compute_dtype=torch.float32, plain: bool = False,
+                   repeat: int = 1):
+    """(rgb (P, 3), sigma (P,)) from raw points (P, 3) and viewdirs
+    (P / repeat, 3): embed (``embed``), then kernel C (or, with
+    ``plain``, the chain and C's plain version)."""
+    x0, dmb = embed(points, viewdirs, repeat, plain)
     fn = fused_mlp_plain if plain else fused_mlp_fwd
     return fn(params_flat, x0, dmb, compute_dtype)

@@ -5,10 +5,12 @@ where the JAX package has them: ``_eval_level`` runs the fused MLP
 (kernel C forward, kernel E backward, when the architecture allows it)
 and the composite (kernel B forward, kernel D backward), both as
 ``torch.autograd.Function``s; ``render_rays_fast``'s ``sample_strat`` is
-the inverse-CDF kernel (kernel A, forward only, on detached inputs). On
-CPU tensors each wrapper takes its plain version; ``RenderConfig.plain``
-asks for the plain versions on the card too, under autograd (the
-reference path that the kernels are held against).
+the inverse-CDF kernel (kernel A, forward only, on detached inputs).
+Every positional encoding is kernel F (``kernels/posenc.py``), which
+takes the chain of ``core/encoding.py`` for an input that needs a
+gradient. On CPU tensors each wrapper takes its plain version;
+``RenderConfig.plain`` asks for the plain versions on the card too,
+under autograd (the reference path that the kernels are held against).
 
 The randomized draws (stratified jitter, resample jitter, sigma noise)
 come from one optional ``torch.Generator`` on the rays' device.
@@ -30,6 +32,7 @@ from nerfsr_torch.core.sampling import (cast_rays, resample_along_rays,
                                         sample_pdf_stratified)
 from nerfsr_torch.kernels import composite as kcomposite
 from nerfsr_torch.kernels import mlp as kmlp
+from nerfsr_torch.kernels import posenc as kposenc
 from nerfsr_torch.kernels import sampling as ksampling
 
 
@@ -63,6 +66,22 @@ class RenderConfig:
     plain: bool = False            # plain PyTorch versions of every kernel
 
 
+def _encoder(cfg: RenderConfig):
+    """The positional encoding of the render path: the chain with
+    ``cfg.plain``, else kernel F's wrapper."""
+    return positional_encoding if cfg.plain \
+        else kposenc.positional_encoding
+
+
+def _dir_embedding(rays: Rays, cfg: RenderConfig):
+    """The view directions' encoding for the module path (the fused path
+    encodes them per sample itself), or None."""
+    if not cfg.use_dir or cfg.use_fused_mlp:
+        return None
+    return _encoder(cfg)(rays.viewdirs, cfg.deg_dir, cfg.include_identity,
+                         cfg.log_scale)
+
+
 def _eval_level(mlp, rays: Rays, points, z_vals, dir_emb,
                 cfg: RenderConfig, randomized: bool,
                 generator: Optional[torch.Generator] = None):
@@ -70,17 +89,15 @@ def _eval_level(mlp, rays: Rays, points, z_vals, dir_emb,
     module), sigma noise, composite (kernel B)."""
     n, s, _ = points.shape
     if cfg.use_fused_mlp:
-        pts_flat = points.reshape(-1, 3)
-        dirs_flat = rays.viewdirs[:, None, :].expand(n, s, 3).reshape(-1, 3)
         dtype = torch.bfloat16 if cfg.fused_dtype == "bf16" \
             else torch.float32
         rgb, sigma = kmlp.fused_nerf_mlp(
-            kmlp.flatten_params(mlp), pts_flat, dirs_flat, dtype,
-            plain=cfg.plain)
+            kmlp.flatten_params(mlp), points.reshape(-1, 3), rays.viewdirs,
+            dtype, plain=cfg.plain, repeat=s)
         rgb = rgb.reshape(n, s, 3)
         sigma = sigma.reshape(n, s)
     else:
-        xyz_emb = positional_encoding(
+        xyz_emb = _encoder(cfg)(
             points, cfg.deg_pos, cfg.include_identity, cfg.log_scale)
         d_emb = None
         if dir_emb is not None:
@@ -127,10 +144,7 @@ def render_rays_fast(params, rays: Rays, cfg: RenderConfig,
     sample_strat = sample_pdf_stratified if cfg.plain \
         else ksampling.sample_pdf_stratified
 
-    dir_emb = None
-    if cfg.use_dir:
-        dir_emb = positional_encoding(
-            rays.viewdirs, cfg.deg_dir, cfg.include_identity, cfg.log_scale)
+    dir_emb = _dir_embedding(rays, cfg)
 
     z_prop, pts = sample_along_rays(
         rays.origins, rays.directions, rays.near, rays.far, cfg.n_prop,
@@ -144,7 +158,7 @@ def render_rays_fast(params, rays: Rays, cfg: RenderConfig,
                                   cfg.n_prop2, randomized,
                                   generator=generator)
             pts = cast_rays(rays.origins, rays.directions, z_prop)
-        prop_emb = positional_encoding(
+        prop_emb = _encoder(cfg)(
             pts, cfg.deg_prop, cfg.include_identity, cfg.log_scale)
         sigma_prop = params["prop"](prop_emb)
         w_prop = compute_weights(sigma_prop, z_prop, cfg.sigma_activation)
@@ -190,10 +204,7 @@ def render_rays(params, rays: Rays, cfg: RenderConfig, randomized: bool,
 
     Returns coarse_* (and fine_*) rgb (N, 3), depth (N,), opacity (N,),
     weights (N, S)."""
-    dir_emb = None
-    if cfg.use_dir:
-        dir_emb = positional_encoding(
-            rays.viewdirs, cfg.deg_dir, cfg.include_identity, cfg.log_scale)
+    dir_emb = _dir_embedding(rays, cfg)
 
     z_vals, points = sample_along_rays(
         rays.origins, rays.directions, rays.near, rays.far, cfg.n_coarse,

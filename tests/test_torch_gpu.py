@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (A-E) against their plain PyTorch versions on
+"""The port's CUDA kernels (A-F) against their plain PyTorch versions on
 the card. Every test here needs an NVIDIA GPU and skips without one; the
 file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -11,11 +11,13 @@ serving path's full shapes.
 import pytest
 import torch
 
+from nerfsr_torch.core import encoding
 from nerfsr_torch.core.rendering import volumetric_rendering as plain_comp
 from nerfsr_torch.core.sampling import _invert_cdf, stratified_uniforms
 from nerfsr_torch.kernels import COUNTS, LAUNCHES_PER_CALL, _lib, reset_counts
 from nerfsr_torch.kernels import composite as kcomposite
 from nerfsr_torch.kernels import mlp as kmlp
+from nerfsr_torch.kernels import posenc as kposenc
 from nerfsr_torch.kernels import sampling as ksampling
 from nerfsr_torch.models.mlp import VanillaMLP
 from nerfsr_torch.timing import floor_ms
@@ -565,7 +567,7 @@ def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):
     """Two vanilla NeRF steps on the parity schedule (64 + 64 samples,
     white background, world rays) through the engine from a 64x64 Blender
     scene written on the card, the first drawn from the train_crop
-    warm-up: each step 2 B, 2 C, 2 D, 2 E and no A, and each of the two
+    warm-up: each step 2 B, 2 C, 2 D, 2 E, 4 F and no A, and each of the two
     networks (coarse, fine) packed once a step for C and once for E. The
     second step is the first of a graphed chunk (``--scan_steps`` 20):
     run eagerly, then captured, and the capture packs each network once
@@ -605,7 +607,7 @@ def test_parity_step_through_the_engine(dev, tmp_path, monkeypatch):
     assert state.step == 2
     assert COUNTS == {"invert_cdf": 0, "composite_fwd": 4,
                       "fused_mlp_fwd": 4, "composite_bwd": 4,
-                      "fused_mlp_bwd": 4}, COUNTS
+                      "fused_mlp_bwd": 4, "posenc": 8}, COUNTS
     assert all(torch.isfinite(p).all() for p in state.params.parameters())
     # every pack is of another (kind, network, parameter state): a
     # network is packed once per kind in a step and in the capture, and
@@ -643,7 +645,7 @@ def test_graphed_chunk_and_eval_equal_the_eager_route(dev):
     chunk through ``train_steps_scan`` (one eager step, the capture, five
     replays) and through the eager ``train_steps`` from the same seed:
     every parameter, moment and step count equal bit for bit, each route
-    2 A, 1 B, 1 C, 1 D, 1 E a step. Then each eval view, one replay,
+    2 A, 1 B, 1 C, 1 D, 1 E and 4 F a step. Then each eval view, one replay,
     equals the chunk loop."""
     import numpy as np
 
@@ -654,7 +656,7 @@ def test_graphed_chunk_and_eval_equal_the_eager_route(dev):
     hw, steps = (64, 48), 6
     opt, buf = _llff_x2_buffer(dev, hw)
     per_step = {"invert_cdf": 2, "composite_fwd": 1, "fused_mlp_fwd": 1,
-                "composite_bwd": 1, "fused_mlp_bwd": 1}
+                "composite_bwd": 1, "fused_mlp_bwd": 1, "posenc": 4}
     states = {}
     for route in ("eager", "graphed"):
         system = create_model(opt, device=dev)
@@ -733,3 +735,209 @@ def test_steady_chunk_spans_replays_and_no_capture(dev):
     assert not [e.name for e in prof.events() if e.device_type == cuda
                 and not getattr(e, "is_user_annotation", False)
                 and e.name.startswith("nerfsr.")]
+
+
+# kernel F's cases: (C, F, identity, log scale) of the fine points
+# (deg_pos 10), the directions (deg_dir 4), the proposal rounds (deg_prop
+# 6), --no_xyz and --no_logscale
+POSENC_CASES = [(3, 10, True, True), (3, 4, True, True), (3, 6, True, True),
+                (3, 10, False, True), (3, 4, True, False)]
+
+
+def _posenc_input(n, c, seed, dev):
+    """Rows of coordinates in [-2, 2], with a few of every kind the
+    range reduction treats apart: zeros of both signs, subnormals, and
+    values whose top frequencies' angles pass 105,615 (sinf's slow
+    path)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, c), generator=gen) * 4.0 - 2.0
+    special = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 1e-30, 700.0, -1234.5,
+                            3.0e4, 1.5, -1.5, 2.0 ** -20, 255.75])
+    flat = x.view(-1)
+    k = min(flat.numel(), special.numel())
+    flat[:k] = special[:k]
+    return x.to(dev)
+
+
+@pytest.mark.parametrize("repeat", [1, 16, 64])
+@pytest.mark.parametrize("n", [1, 127, 4096, 65537])
+@pytest.mark.parametrize("case", POSENC_CASES,
+                         ids=["pos", "dir", "prop", "no_identity", "linear"])
+def test_posenc_kernel_is_the_chain_bit_for_bit(dev, case, n, repeat):
+    """Kernel F against ``core/encoding.py``'s chain on the card, to the
+    bit: one launch a call, with ``repeat`` the chain of the repeated
+    rows."""
+    c, nf, ident, log = case
+    x = _posenc_input(n, c, 1000 * nf + n, dev)
+    reset_counts()
+    got = kposenc.positional_encoding(x, nf, ident, log, repeat=repeat)
+    torch.cuda.synchronize()
+    assert COUNTS["posenc"] == 1
+    rows = kposenc.repeat_rows(x, repeat) if repeat > 1 else x
+    want = encoding.positional_encoding(rows, nf, ident, log)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("repeat", [1, 3])
+@pytest.mark.parametrize("n", [1, 4097])
+@pytest.mark.parametrize("case", [(2, 8, True, True), (5, 3, False, False),
+                                  (3, 0, True, True)],
+                         ids=["c2_f8", "c5_f3", "identity_only"])
+def test_posenc_kernel_generic_route(dev, case, n, repeat):
+    """Kernel F outside the three encodings it unrolls: channels and
+    frequencies read at run time, and no frequencies (the identity
+    alone), bit for bit the chain."""
+    c, nf, ident, log = case
+    x = _posenc_input(n, c, 7 * n + c, dev)
+    got = kposenc.positional_encoding(x, nf, ident, log, repeat=repeat)
+    rows = kposenc.repeat_rows(x, repeat) if repeat > 1 else x
+    want = encoding.positional_encoding(rows, nf, ident, log)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", [(3, 64, True), (3, 0, False)],
+                         ids=["tile_over_48k", "no_channels"])
+def test_posenc_kernel_rejects_what_it_cannot_write(dev, case):
+    """An encoding whose tile of output rows passes 48 KB of shared memory
+    (387 channels out) and one with no channels at all raise, with no
+    launch counted."""
+    c, nf, ident = case
+    x = _posenc_input(64, c, 3, dev)
+    reset_counts()
+    with pytest.raises(RuntimeError, match="posenc"):
+        kposenc.positional_encoding(x, nf, ident)
+    assert COUNTS["posenc"] == 0
+
+
+def test_posenc_kernel_takes_strided_rows_and_leading_dims(dev):
+    """A column slice of wider rows (the kernel reads its row stride) and
+    (N, S, 3) points (the proposal rounds) give the chain's bits; a CUDA
+    tensor that needs a gradient, and one in f64, raise."""
+    wide = _posenc_input(3000, 11, 5, dev)
+    x = wide[:, 4:7]
+    assert x.stride() == (11, 1)
+    reset_counts()
+    assert torch.equal(kposenc.positional_encoding(x, 10),
+                       encoding.positional_encoding(x, 10))
+    pts = _posenc_input(4096 * 48, 3, 6, dev).reshape(4096, 48, 3)
+    got = kposenc.positional_encoding(pts, 6)
+    assert got.shape == (4096, 48, 39)
+    assert torch.equal(got, encoding.positional_encoding(pts, 6))
+    assert COUNTS["posenc"] == 2
+    with pytest.raises(ValueError, match="gradient"):
+        kposenc.positional_encoding(x.clone().requires_grad_(), 4)
+    with pytest.raises(TypeError, match="float32"):
+        kposenc.positional_encoding(x.double(), 4)
+    assert COUNTS["posenc"] == 2
+
+
+@pytest.mark.parametrize("log", [True, False])
+def test_posenc_kernel_in_a_captured_graph(dev, log):
+    """F captured in a CUDA graph: each replay on new inputs equals the
+    eager kernel, bit for bit. The capture is made with the frequency
+    table uncached (computed inside the graph, and left out of the
+    cache, whose tensors live outside any graph's pool)."""
+    x = _posenc_input(4096, 3, 7, dev)
+    static = x.clone()
+    eager = kposenc.positional_encoding(static, 4, log_scale=log,
+                                        repeat=16)
+    kposenc._FREQS.clear()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    reset_counts()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = kposenc.positional_encoding(static, 4, log_scale=log,
+                                              repeat=16)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert COUNTS["posenc"] == 1 and not kposenc._FREQS
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for seed in (8, 9):
+        static.copy_(_posenc_input(4096, 3, seed, dev))
+        graph.replay()
+        want = kposenc.positional_encoding(static, 4, log_scale=log,
+                                           repeat=16)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert torch.equal(want, encoding.positional_encoding(
+            kposenc.repeat_rows(static, 16), 4, log_scale=log))
+
+
+def _chain_encoding(x, num_freqs, include_identity=True, log_scale=True,
+                    repeat=1):
+    """Kernel F's wrapper with the kernel taken out: the chain."""
+    if repeat > 1:
+        x = kposenc.repeat_rows(x, repeat)
+    return encoding.positional_encoding(x, num_freqs, include_identity,
+                                        log_scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_nerf_mlp_same_with_kernel_f_and_the_chain(dev, dtype,
+                                                         monkeypatch):
+    """Kernel C fed by F (directions by ``repeat``) and by the chain
+    (directions copied to every sample) gives the same bits."""
+    gen = torch.Generator().manual_seed(11)
+    net = VanillaMLP().reset_parameters("kaiming", 0.02, gen).to(dev)
+    n, s = 2048, 16
+    pts = (torch.rand((n * s, 3), generator=gen) * 2 - 1).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=gen), dim=-1).to(dev)
+    flat = kmlp.flatten_params(net)
+    with torch.no_grad():
+        reset_counts()
+        got = kmlp.fused_nerf_mlp(flat, pts, dirs, dtype, repeat=s)
+        assert COUNTS["posenc"] == 2
+        monkeypatch.setattr(kposenc, "positional_encoding", _chain_encoding)
+        want = kmlp.fused_nerf_mlp(flat, pts, dirs, dtype, repeat=s)
+        assert COUNTS["posenc"] == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["mixed", "f32"])
+def test_render_rays_fast_same_with_kernel_f_and_the_chain(dev, precision,
+                                                          monkeypatch):
+    """NeRF-SR x2's fast render (two proposal rounds, the fine level on
+    kernels A, B and C) of a chunk of 4096 rays: every output the same
+    bits with F and with the chain; F launched 4 times."""
+    import numpy as np
+
+    from nerfsr_torch.config import default_options
+    from nerfsr_torch.core.rays import get_rays, make_rays, ndc_rays
+    from nerfsr_torch.data.views import LLFFDownXViews
+    from nerfsr_torch.models import create_model
+
+    wh = (128, 96)
+    opt = default_options("test", model="nerf_downX",
+                          dataset_mode="llff_downX", fast_preset="llff",
+                          img_wh=wh, downscale=2, precision=precision)
+    system = create_model(opt, device=dev)
+    assert system.render_cfg.fast_sampling and \
+        system.render_cfg.use_fused_mlp
+    params = system.init_params(seed=0)
+    views = LLFFDownXViews.spiral(100.0, wh, 2, 1)
+    spec = views.eval_raygen_spec(0)
+    d = torch.from_numpy(views.eval_dirs()[:4096]).to(dev)
+    c2w = torch.from_numpy(np.asarray(spec["c2w"], np.float32)).to(dev)
+    _, hh, ww, focal, near, far = spec["geom"]
+    ro, rd = ndc_rays(hh, ww, focal, 1.0, *get_rays(d, c2w))
+    rays = make_rays(ro, rd, near, far, rd)
+    with torch.no_grad():
+        reset_counts()
+        got = system.render(params, rays, randomized=False)
+        assert COUNTS["posenc"] == 4
+        monkeypatch.setattr(kposenc, "positional_encoding", _chain_encoding)
+        want = system.render(params, rays, randomized=False)
+    torch.cuda.synchronize()
+    assert COUNTS["posenc"] == 4
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
